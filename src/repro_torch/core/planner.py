@@ -1,11 +1,16 @@
 """Deployment planner: DNN params -> crossbar programming plan + cost report.
 
-Port of the stateless packed path of ``repro.core.planner``.
-``build_deployment`` quantizes and bit-slices every eligible weight, sorts
-it with Sorted Weight Sectioning, schedules the sections into chains on
-``crossbars`` parallel crossbars, prices the reprogramming against the
-unsorted baseline, applies bit stucking, and returns both the metrics and
-the achieved (error-injected) weights ``w_hat``.
+Port of the packed path of ``repro.core.planner``.  ``build_deployment``
+quantizes and bit-slices every eligible weight, sorts it with Sorted Weight
+Sectioning, schedules the sections into chains on ``crossbars`` parallel
+crossbars, prices the reprogramming against the unsorted baseline, applies
+bit stucking, and returns both the metrics and the achieved (error-injected)
+weights ``w_hat``.  Every tensor is programmed through a
+``core.pool.CrossbarPool``: with ``pool=`` one persistent pool for the whole
+model (cross-tensor seams, per-cell wear), otherwise an ephemeral pristine
+pool per tensor, which reproduces the reference's stateless accounting
+exactly.  A non-raw plane codec (``core.planes``) changes the bits the
+crossbars hold, and the pool prices and wears those.
 
 Per tensor the work is plain tensor code on the tensor's device; pair
 pricing goes through ``kernels.hamming.ops.price_pairs`` (the Hamming kernel
@@ -16,8 +21,9 @@ A stacked segment tensor (leading layer axis) is planned as ONE tensor,
 exactly as the reference does.
 
 Parts of the reference that later slices port raise ``NotImplementedError``:
-a ``CrossbarPool`` (``pool=``), non-raw plane codecs, the ``impl="bool"``
-oracle, the ``section_order="tsp"`` reorder and ``materialize="planes_int8"``.
+the ``impl="bool"`` oracle and the ``section_order="tsp"`` reorder.  A pool
+prices physical seam programs, so ``include_initial=False`` (which only the
+reference's stateless path reads) is a ``ValueError``.
 """
 from __future__ import annotations
 
@@ -30,7 +36,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import prng
-from repro_torch.core import bitslice, schedule, stucking, sws
+from repro_torch.core import bitslice, planes, schedule, sws
+from repro_torch.core.pool import CrossbarPool
 from repro_torch.kernels._util import resolve_device
 
 
@@ -57,7 +64,10 @@ class PlannerConfig:
     exclude: tuple[str, ...] = ("embed", "embedding", "lm_head", "pos_emb")
     seed: int = 0
     impl: str = "packed"  # "bool" (the reference's eager oracle) is not ported
-    codec: str = "raw"  # non-raw stored-plane codecs come with the pool slice
+    # stored-plane codec (core/planes.py): "raw" | "const_rle" | "col_perm" |
+    # "col_perm_rle"; non-raw codecs change the physical bits (and priced
+    # transitions), while the deployed w_hat decodes back byte-identically
+    codec: str = "raw"
 
 
 @dataclasses.dataclass
@@ -91,6 +101,7 @@ class DeploymentPlan:
     config: PlannerConfig
     reports: dict[str, TensorReport]
     deployed: dict[str, torch.Tensor]  # name -> achieved weights (w_hat)
+    pool_stats: dict | None = None  # wear summary when built against a CrossbarPool
 
     def totals(self) -> dict[str, float]:
         base = sum(r.transitions_baseline for r in self.reports.values())
@@ -111,21 +122,20 @@ class DeploymentPlan:
         }
 
 
-def _check_supported(config: PlannerConfig, pool) -> None:
-    if pool is not None:
-        raise NotImplementedError(
-            "CrossbarPool streaming (pool=) is ported with the pool/codec slice (ROADMAP A11)"
-        )
-    if config.codec != "raw":
-        raise NotImplementedError(
-            f"plane codec {config.codec!r} is ported with the pool/codec slice (ROADMAP A12)"
-        )
+def _check_supported(config: PlannerConfig) -> None:
+    if config.codec not in planes.CODECS:
+        raise ValueError(f"unknown plane codec {config.codec!r}; choose from {planes.CODECS}")
     if config.impl == "bool":
         raise NotImplementedError(
             "impl='bool' is the JAX reference's parity oracle and is not ported; use 'packed'"
         )
     if config.impl != "packed":
         raise ValueError(f"unknown planner impl: {config.impl!r}")
+    if not config.include_initial:
+        raise ValueError(
+            "every plan programs a crossbar pool, which prices physical seam "
+            "programs; include_initial=False has no pool interpretation"
+        )
 
 
 def _dequant_slots(
@@ -148,21 +158,22 @@ def _dequant_slots(
     return q.to(torch.float32) * scale * sign_slots.to(torch.float32) + offset
 
 
-def analyze_tensor(
-    w: torch.Tensor,
-    spec: CrossbarSpec,
-    config: PlannerConfig,
-    key: torch.Tensor,
-    name: str = "w",
-    *,
-    pool=None,
-) -> tuple[TensorReport, torch.Tensor]:
-    """Full paper pipeline for one weight tensor, on ``w``'s device.
+@dataclasses.dataclass
+class _Prep:
+    """Per-tensor prep: logical weights, chains, baseline and SWS planes."""
 
-    Returns (report, w_hat): w_hat carries the achieved (quantized +
-    stuck-bit) values in the tensor's logical layout and dtype.
-    """
-    _check_supported(config, pool)
+    flat: torch.Tensor  # f32[n] logical weights
+    chains: list[np.ndarray]
+    jobs_u: np.ndarray  # baseline job costs (unsorted, full reprogramming)
+    packed_s: torch.Tensor  # SWS-ordered packed planes uint8[S, W, cols]
+    sign_slots: torch.Tensor  # int8[S, rows]
+    scale: torch.Tensor
+    offset: torch.Tensor
+    inv_perm: torch.Tensor
+
+
+def _prep(w: torch.Tensor, spec: CrossbarSpec, config: PlannerConfig) -> _Prep:
+    """Quantize, price the unsorted baseline, sort (SWS) and pack."""
     rows, cols = spec.rows, spec.cols
     flat = w.reshape(-1).to(torch.float32)
     n = flat.shape[0]
@@ -178,8 +189,7 @@ def analyze_tensor(
 
     # baseline: unsorted natural order, full reprogramming
     jobs_u = schedule.schedule_job_costs(
-        bitslice.section_planes_packed(q_padded, rows, cols), chains,
-        include_initial=config.include_initial,
+        bitslice.section_planes_packed(q_padded, rows, cols), chains
     )
 
     # SWS order (|w| of the padded vector: padding sorts with the zeros)
@@ -187,47 +197,103 @@ def analyze_tensor(
         perm, inv_perm = sws.stable_argsort(flat_padded.abs(), with_inverse=True)
     else:
         perm = inv_perm = torch.arange(n + pad, device=flat.device)
-    packed_s = bitslice.section_planes_packed(q_padded[perm], rows, cols)
-    jobs_s = schedule.schedule_job_costs(packed_s, chains, include_initial=config.include_initial)
-
-    if config.p_stuck < 1.0:
-        chain_totals, achieved = stucking.stuck_schedule_packed(
-            packed_s, chains, config.p_stuck, key, rows=rows,
-            stuck_cols=config.stuck_cols, include_initial=config.include_initial,
-        )
-    else:
-        chain_totals, achieved = None, packed_s
-
-    w_hat_slots = _dequant_slots(
-        achieved, sign_padded[perm].reshape(s, rows), qt.scale, qt.offset, rows
+    return _Prep(
+        flat=flat,
+        chains=chains,
+        jobs_u=jobs_u.cpu().numpy(),
+        packed_s=bitslice.section_planes_packed(q_padded[perm], rows, cols),
+        sign_slots=sign_padded[perm].reshape(s, rows),
+        scale=qt.scale,
+        offset=qt.offset,
+        inv_perm=inv_perm,
     )
-    w_hat_flat = w_hat_slots.reshape(-1)[inv_perm][:n]
-    w_hat = w_hat_flat.reshape(w.shape).to(w.dtype)
 
-    # host int64 aggregation: whole-tensor totals can exceed int32
-    jobs_u = jobs_u.cpu().numpy()
-    jobs_s = jobs_s.cpu().numpy()
+
+def _report(
+    name: str, w: torch.Tensor, spec: CrossbarSpec, config: PlannerConfig, prep: _Prep,
+    jobs_s: np.ndarray, trans_final: int, w_hat_flat: torch.Tensor,
+) -> TensorReport:
+    """TensorReport from host job costs (int64 aggregation: whole-tensor
+    totals can exceed int32)."""
+    n = prep.flat.shape[0]
     trans_sws = int(np.sum(jobs_s, dtype=np.int64))
-    trans_final = trans_sws if chain_totals is None else int(chain_totals.sum().item())
-    report = TensorReport(
+    return TensorReport(
         name=name,
         shape=tuple(w.shape),
         n_weights=int(n),
-        n_sections=int(s),
-        transitions_baseline=int(np.sum(jobs_u, dtype=np.int64)),
+        n_sections=-(-int(n) // spec.rows),
+        transitions_baseline=int(np.sum(prep.jobs_u, dtype=np.int64)),
         transitions_sws=trans_sws,
         transitions_final=trans_final,
         lockstep_time_unsorted=int(
-            schedule.lockstep_time_host(jobs_u, config.threads, sort_jobs=False)
+            schedule.lockstep_time_host(prep.jobs_u, config.threads, sort_jobs=False)
         ),
         lockstep_time_greedy=int(
             schedule.lockstep_time_host(jobs_s, config.threads, sort_jobs=True)
         ),
         lockstep_time_ideal=float(trans_sws) / config.threads,
-        quant_mse=float(torch.mean((flat - w_hat_flat) ** 2)),
-        scale=float(qt.scale),
-        offset=float(qt.offset),
+        quant_mse=float(torch.mean((prep.flat - w_hat_flat) ** 2)),
+        scale=float(prep.scale),
+        offset=float(prep.offset),
     )
+
+
+def _w_hat(achieved: torch.Tensor, prep: _Prep, w: torch.Tensor, rows: int):
+    """Achieved packed planes -> (w_hat_flat f32[n], w_hat in w's layout)."""
+    w_hat_slots = _dequant_slots(achieved, prep.sign_slots, prep.scale, prep.offset, rows)
+    w_hat_flat = w_hat_slots.reshape(-1)[prep.inv_perm][: prep.flat.shape[0]]
+    return w_hat_flat, w_hat_flat.reshape(w.shape).to(w.dtype)
+
+
+def analyze_tensor(
+    w: torch.Tensor,
+    spec: CrossbarSpec,
+    config: PlannerConfig,
+    key: torch.Tensor,
+    name: str = "w",
+    *,
+    pool: CrossbarPool | None = None,
+) -> tuple[TensorReport, torch.Tensor]:
+    """Full paper pipeline for one weight tensor, on ``w``'s device.
+
+    Returns (report, w_hat): w_hat carries the achieved (quantized +
+    stuck-bit) values in the tensor's logical layout and dtype.
+
+    The tensor is programmed through ``pool`` (persistent crossbar state:
+    the first job of every chain is a cross-tensor seam, and the pool's
+    leveling and wear counters apply), or through an ephemeral pristine pool
+    when none is given, whose seams are the reference's stateless initial
+    programs.  Under a codec the pool programs, prices and wears the stored
+    bits (``PlaneSet.physical``) and logical planes are recovered after the
+    read.
+    """
+    _check_supported(config)
+    if pool is None:
+        pool = CrossbarPool(spec, max(1, config.crossbars), device=w.device)
+    if (spec.rows, spec.cols) != (pool.spec.rows, pool.spec.cols):
+        raise ValueError(f"planner spec {spec} != pool spec {pool.spec}")
+    prep = _prep(w, spec, config)
+    pset = None
+    if config.codec != "raw":
+        # bit stucking under-programs the stored lowest-order columns: pin
+        # them so the bounded LSB error stays an LSB error
+        pin = config.stuck_cols if config.p_stuck < 1.0 else 0
+        pset = planes.encode(prep.packed_s, config.codec, chains=prep.chains, pin_cols=pin)
+    res = pool.program(
+        pset if pset is not None else prep.packed_s,
+        prep.chains,
+        p_stuck=config.p_stuck,
+        key=key,
+        stuck_cols=config.stuck_cols,
+        impl=config.impl,
+        name=name,
+    )
+    achieved = res.achieved_read
+    if pset is not None:
+        achieved = planes.logical_from_physical(achieved, pset.col_order)
+    w_hat_flat, w_hat = _w_hat(achieved, prep, w, spec.rows)
+    report = _report(name, w, spec, config, prep, res.job_costs,
+                     res.transitions_programmed, w_hat_flat)
     return report, w_hat
 
 
@@ -284,15 +350,21 @@ def build_deployment(
     config: PlannerConfig = PlannerConfig(),
     *,
     progress: Callable[[str], None] | None = None,
-    pool=None,
+    pool: CrossbarPool | None = None,
     device: str | torch.device | None = None,
 ) -> DeploymentPlan:
     """Plan crossbar deployment for every eligible weight in ``params``.
 
     Each tensor is planned on ``device`` (CUDA unless the caller asks for the
-    CPU); the deployed ``w_hat`` stays there.
+    CPU); the deployed ``w_hat`` stays there.  With ``pool`` (on the same
+    device) the model's tensors stream through ONE persistent crossbar pool
+    in iteration order: every tensor's chains reprogram whatever the
+    previous tensor left on its crossbars, and the pool's wear counters
+    accumulate the whole deployment.  Without one, each tensor is programmed
+    through its own pristine pool.  The per-tensor PRNG split is the same
+    with and without a pool.
     """
-    _check_supported(config, pool)
+    _check_supported(config)
     dev = resolve_device(device)
     weights = dict(iter_weights(params, config))
     reports: dict[str, TensorReport] = {}
@@ -301,12 +373,15 @@ def build_deployment(
         if progress:
             progress(name)
         reports[name], deployed[name] = analyze_tensor(
-            weights[name].to(dev), spec, config, key, name=name
+            weights[name].to(dev), spec, config, key, name=name, pool=pool
         )
-    return DeploymentPlan(spec=spec, config=config, reports=reports, deployed=deployed)
+    return DeploymentPlan(
+        spec=spec, config=config, reports=reports, deployed=deployed,
+        pool_stats=pool.stats().to_dict() if pool is not None else None,
+    )
 
 
-MATERIALIZATIONS = ("dense", "packed")
+MATERIALIZATIONS = ("dense", "packed", "planes_int8")
 
 # Deployed tensors whose consumers are not plain [K, N] matmuls stay dense
 # under "packed" (still the achieved crossbar weights).  Matched against
@@ -332,20 +407,18 @@ def deploy_params(
     """Return a params tree with deployed tensors replaced by achieved state.
 
     ``"dense"`` serves the achieved f32 weights ``w_hat``; ``"packed"`` the
-    bit-packed crossbar operand dicts (``simulator.operands_from_dense``),
-    which ``models.layers.linear`` runs through ``simulator.cim_linear``.
+    bit-packed crossbar operand dicts and ``"planes_int8"`` the signed int8
+    plane operand dicts (``simulator.operands_from_dense``), which
+    ``models.layers.linear`` runs through ``simulator.cim_linear``.
+    ``codec`` (default: the plan's) applies the serving-side plane codec to
+    packed operands (``planes.encode_operands``); it is an exact
+    re-encoding, so served tokens do not change.
     """
-    if materialize == "planes_int8":
-        raise NotImplementedError(
-            "materialize='planes_int8' needs kernel B5 (cim_matmul_kernel), queued in ROADMAP B"
-        )
     if materialize not in MATERIALIZATIONS:
         raise ValueError(f"unknown materialize {materialize!r}; choose from {MATERIALIZATIONS}")
     codec = plan.config.codec if codec is None else codec
-    if codec != "raw":
-        raise NotImplementedError(
-            f"plane codec {codec!r} is ported with the pool/codec slice (ROADMAP A12)"
-        )
+    if codec not in planes.CODECS:
+        raise ValueError(f"unknown plane codec {codec!r}; choose from {planes.CODECS}")
     from repro_torch.core import simulator
 
     def swap(name, leaf):
@@ -356,7 +429,8 @@ def deploy_params(
             return w_hat
         r = plan.reports[name]
         return simulator.operands_from_dense(
-            w_hat, r.scale, r.offset, plan.spec.encoding, plan.spec.cols
+            w_hat, r.scale, r.offset, plan.spec.encoding, plan.spec.cols,
+            materialize=materialize, codec=codec,
         )
 
     return _map_leaves(params, swap)

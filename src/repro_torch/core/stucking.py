@@ -19,13 +19,17 @@ closed form:
   a schedule, whose padding only trails and repeats the last section);
 * a stuck-column cell becomes the target on a masked valid step and keeps
   its state otherwise, so its state at step ``t`` is the target at the last
-  masked step ``<= t`` (an index ``cummax`` over steps), or the pristine
-  zero before any such step;
-* the bits programmed at step ``t`` are ``state[t-1] ^ state[t]``, so the
-  per-step count is their popcount (``include_initial=False`` drops step 0).
+  masked step ``<= t`` (an index ``cummax`` over steps), or the chain's
+  starting content ``state0`` before any such step (pristine zero for the
+  planner, the pool's persistent crossbar for ``core.pool``);
+* the bits programmed at step ``t`` are ``state[t-1] ^ state[t]`` (with
+  ``state[-1] = state0``), so the per-step count is their popcount
+  (``include_initial=False`` drops step 0) and a cell's wear is the number
+  of steps that toggle it.
 
-States, per-chain totals and achieved planes are bit-identical to the scan
-(pinned against the reference in ``tests/test_torch_planner.py``).
+States, per-chain totals, per-step counts, wear and achieved planes are
+bit-identical to the scan (pinned against the reference in
+``tests/test_torch_planner.py`` and ``tests/test_torch_pool.py``).
 """
 from __future__ import annotations
 
@@ -83,24 +87,33 @@ def walk_packed(
     stuck_cols: int,
     include_initial: bool,
     valid: torch.Tensor | None = None,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    state0: torch.Tensor | None = None,
+    with_wear: bool = False,
+) -> tuple[torch.Tensor, ...]:
     """Walk L crossbars at once -> (totals int64[L], states uint8[L, T, W, cols]).
 
     packed: uint8[S, W, cols]; order: int[L, T] section indices; keys:
     int64[L, 2] one key per chain (split into one subkey per step, as the
-    reference's ``_walk_packed`` does); valid: optional bool[L, T].
-    ``states[l, t]`` is what crossbar ``l`` holds while ``order[l, t]`` is
-    resident.
+    reference's ``_walk_packed`` does); valid: optional bool[L, T];
+    state0: optional uint8[L, W, cols], each crossbar's content before its
+    first program (pristine zero by default).  ``states[l, t]`` is what
+    crossbar ``l`` holds while ``order[l, t]`` is resident.  With
+    ``with_wear`` the walk also returns per-step counts int64[L, T] and
+    per-cell wear int32[L, rows, cols] (toggles of each cell over the walk).
     """
     n_chains, steps = order.shape
     seq = packed[order]  # [L, T, W, cols]
     if valid is None:
         valid = torch.ones((n_chains, steps), dtype=torch.bool, device=packed.device)
+    if state0 is None:
+        state0 = torch.zeros((n_chains,) + tuple(packed.shape[1:]), dtype=torch.uint8,
+                             device=packed.device)
     t_idx = torch.arange(steps, dtype=torch.int32, device=packed.device)
-    # non-stuck cells hold the target of the last valid step (pristine before)
+    # non-stuck cells hold the target of the last valid step (state0 before)
     last_valid = torch.cummax(torch.where(valid, t_idx[None, :], -1), dim=1).values
     idx = last_valid.clamp(min=0).to(torch.int64)[:, :, None, None].expand(seq.shape)
-    states = torch.gather(seq, 1, idx) * (last_valid >= 0)[:, :, None, None]
+    states = torch.where((last_valid >= 0)[:, :, None, None], torch.gather(seq, 1, idx),
+                         state0[:, None])
     if stuck_cols > 0:
         mask = _step_masks(keys, steps, p, rows, stuck_cols)
         mask &= valid[:, :, None, None]
@@ -108,12 +121,28 @@ def walk_packed(
         last = torch.cummax(last, dim=1).values  # last masked step <= t, or -1
         target = bitslice.unpackbits(seq[..., :stuck_cols], -2, rows)  # [L, T, rows, sc]
         held = torch.gather(target, 1, last.clamp(min=0).to(torch.int64))
-        held = held * (last >= 0)
+        start = bitslice.unpackbits(state0[..., :stuck_cols], -2, rows)[:, None]
+        held = torch.where(last >= 0, held, start)
         states[..., :stuck_cols] = bitslice.packbits(held, -2)
-    prev = torch.cat([torch.zeros_like(states[:, :1]), states[:, :-1]], dim=1)
-    counts = popcount_u8(prev ^ states).sum(dim=(2, 3), dtype=torch.int64)  # [L, T]
+    toggled = torch.cat([state0[:, None], states[:, :-1]], dim=1) ^ states
+    counts = popcount_u8(toggled).sum(dim=(2, 3), dtype=torch.int64)  # [L, T]
     totals = counts.sum(dim=1) if include_initial else counts[:, 1:].sum(dim=1)
+    if with_wear:
+        return totals, states, counts, cell_toggles(toggled, rows)
     return totals, states
+
+
+def cell_toggles(toggled: torch.Tensor, rows: int) -> torch.Tensor:
+    """Per-cell toggle counts: uint8[L, T, W, cols] packed XORs of
+    consecutive states -> int32[L, rows, cols], summed over T.
+
+    Counts one bit position of the packed words at a time (row ``8w + j``
+    is bit ``7 - j`` of word ``w``), so no [L, T, rows, cols] temporary is
+    built.
+    """
+    per_bit = [((toggled >> (7 - j)) & 1).sum(dim=1, dtype=torch.int32) for j in range(8)]
+    wear = torch.stack(per_bit, dim=2)  # [L, W, 8, cols]
+    return wear.reshape(wear.shape[0], -1, wear.shape[-1])[:, :rows]
 
 
 def stuck_schedule_packed(

@@ -1,13 +1,21 @@
 """Batched serving entry point: prefill + greedy decode, optionally on crossbar bits.
 
-Port of ``repro.launch.serve`` for the stateless packed path: with ``--cim``
-every eligible weight is planned onto crossbars (``build_deployment``) and
-served as its achieved weights — ``dense`` as ordinary matmuls, ``packed``
-straight from the bit-packed planes (the packed matmul kernel on CUDA).
+Port of ``repro.launch.serve``: with ``--cim`` every eligible weight is
+planned onto crossbars through one persistent ``CrossbarPool`` (cross-tensor
+seams, per-cell wear) and served as its achieved weights — ``dense`` as
+ordinary matmuls, ``packed`` straight from the bit-packed planes (kernel B2,
+or B4 under a ``*_rle`` codec), ``planes_int8`` from one byte per bit cell
+(kernel B5).  The report gives tok/s, token agreement with fp weights, the
+reprogramming speedups, pool wear and the endurance horizon.
+
+``--codec`` (``core/planes.py``) changes the physical bits the pool
+programs and, with ``--materialize packed``, the serving operand layout
+(plane reorder + zero-tile skipping); tokens do not change.  Fault
+injection and scrubbing are not ported yet (ROADMAP A13).
 
 Usage (on the card):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b --layers 4 \
-      --cim --materialize packed [--batch 4 --prompt-len 32 --gen 16 --p-stuck 0.5]
+      --cim --materialize packed [--codec const_rle --pool-leveling lpt --p-stuck 0.5]
 Add ``--reduced --device cpu`` for the small config on the CPU.
 """
 from __future__ import annotations
@@ -19,6 +27,7 @@ import time
 import torch
 
 from repro_torch.configs import get_arch
+from repro_torch.core.planes import CODECS
 from repro_torch.core.planner import (
     MATERIALIZATIONS,
     CrossbarSpec,
@@ -26,6 +35,7 @@ from repro_torch.core.planner import (
     build_deployment,
     deploy_params,
 )
+from repro_torch.core.pool import DEFAULT_ENDURANCE, LEVELINGS, CrossbarPool
 from repro_torch.kernels._util import full_f32_matmuls, resolve_device
 from repro_torch.launch.steps import (
     greedy_pick,
@@ -85,8 +95,9 @@ def generate(cfg, params, batch, *, gen_len: int, greedy: bool = True, repeats: 
 
 
 def main(argv: list[str] | None = None) -> None:
-    """CLI: serve with fp weights, then (``--cim``) crossbar-deployed weights,
-    and report tok/s, token agreement and the plan's reprogramming speedups."""
+    """CLI: serve with fp weights, then (``--cim``) crossbar-deployed weights
+    planned through a persistent pool, and report tok/s, token agreement,
+    the plan's reprogramming speedups, pool wear and the endurance horizon."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
@@ -95,11 +106,41 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--cim", action="store_true", help="serve crossbar-deployed weights")
-    ap.add_argument("--materialize", choices=MATERIALIZATIONS, default="dense")
+    ap.add_argument(
+        "--materialize", choices=MATERIALIZATIONS, default="dense",
+        help="serving representation of deployed tensors (packed = bit-plane-native)",
+    )
+    ap.add_argument(
+        "--codec", choices=CODECS, default="raw",
+        help="stored-plane codec: changes the physical bits the pool programs and, "
+             "with --materialize packed, the serving operand layout",
+    )
     ap.add_argument("--p-stuck", type=float, default=0.5)
+    ap.add_argument("--rows", type=int, default=128)
+    ap.add_argument("--cols", type=int, default=10)
+    ap.add_argument(
+        "--min-size", type=int, default=PlannerConfig().min_size,
+        help="smallest tensor (elements) deployed to crossbars",
+    )
+    ap.add_argument(
+        "--pool-leveling", choices=LEVELINGS, default="none",
+        help="wear-leveling chain->crossbar assignment for the pool",
+    )
+    ap.add_argument(
+        "--endurance", type=float, default=DEFAULT_ENDURANCE,
+        help="per-cell write endurance budget for the exhaustion horizon",
+    )
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    if args.codec != "raw":
+        if not args.cim:
+            ap.error("--codec applies to crossbar-deployed weights; add --cim")
+        if args.materialize == "planes_int8":
+            ap.error(
+                "--codec encodes packed serving operands; --materialize "
+                "planes_int8 has no stored-plane layout (use packed or dense)"
+            )
 
     dev = resolve_device(args.device)
     full_f32_matmuls()
@@ -113,19 +154,30 @@ def main(argv: list[str] | None = None) -> None:
     print(f"fp weights:   {tps:8.1f} tok/s   first request: {tokens[0, :12].tolist()}")
     if not args.cim:
         return
+    spec = CrossbarSpec(rows=args.rows, cols=args.cols)
+    planner_cfg = PlannerConfig(p_stuck=args.p_stuck, min_size=args.min_size, codec=args.codec)
+    pool = CrossbarPool(spec, planner_cfg.crossbars, leveling=args.pool_leveling, device=dev)
     t0 = time.perf_counter()
-    plan = build_deployment(
-        params, CrossbarSpec(), PlannerConfig(p_stuck=args.p_stuck), device=dev
-    )
+    plan = build_deployment(params, spec, planner_cfg, pool=pool, device=dev)
     plan_s = time.perf_counter() - t0
-    params_hat = deploy_params(params, plan, materialize=args.materialize)
+    # dense and int8 planes have no stored-plane layout to encode; the plan's
+    # codec already shaped the pool's physical programming above
+    codec = args.codec if args.materialize == "packed" else "raw"
+    params_hat = deploy_params(params, plan, materialize=args.materialize, codec=codec)
     tokens_hat, tps_hat = generate(cfg, params_hat, batch, gen_len=args.gen)
     agree = (tokens == tokens_hat).float().mean().item()
     t = plan.totals()
+    stats = pool.stats()
+    horizon = stats.exhaustion_horizon(args.endurance)
     print(f"cim weights:  {tps_hat:8.1f} tok/s   ({args.materialize} materialization)"
           f"   first request: {tokens_hat[0, :12].tolist()}")
     print(f"token agreement: {agree:.3f}   reprog speedup: {t['total_speedup']:.2f}x "
           f"(sws {t['sws_speedup']:.2f}x)   plan: {len(plan.reports)} tensors in {plan_s:.1f} s")
+    print(f"pool wear: max cell {stats.max_cell_writes} writes, "
+          f"mean {stats.mean_cell_writes:.2f}, total {stats.total_writes} "
+          f"over {stats.tensors_seen} tensors")
+    print(f"endurance horizon: ~{horizon:.3g} such deployments "
+          f"@ {args.endurance:.0e} writes/cell ({args.pool_leveling} leveling)")
 
 
 if __name__ == "__main__":

@@ -1,10 +1,12 @@
 """Serving step functions (port of the serving part of ``repro.launch.steps``).
 
 ``prepare_serving_params`` is the counterpart of the reference's backend
-policy (``steps._serving_params``): on CUDA, packed operand dicts stay
-packed and every prefill and decode step computes on them through the
-packed matmul kernel; on the CPU they are densified once per deployment,
-as the reference does off-TPU.
+policy (``steps._serving_params``): on CUDA, operand dicts stay as they are
+and every prefill and decode step computes on them through the CIM matmul
+kernels; on the CPU packed dicts are densified once per deployment, as the
+reference does off-TPU.  Int8-plane dicts stay per step on every device:
+they are the per-step bit-sliced simulation baseline, which the reference
+exempts too.
 
 The reference's decode is one ``lax.scan`` over a donated cache; here it is
 a Python loop whose steps write the cache in place.
@@ -30,7 +32,8 @@ def _params_device(params) -> torch.device:
 
 
 def prepare_serving_params(params):
-    """Once per deployment: CUDA keeps packed operands; CPU densifies them."""
+    """Once per deployment: CUDA keeps operand dicts; the CPU densifies the
+    packed ones (``simulator.densify_packed`` leaves int8-plane dicts)."""
     dev = _params_device(params)
     if dev is not None and dev.type == "cuda":
         return params

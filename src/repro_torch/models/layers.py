@@ -28,11 +28,14 @@ def _cim_apply(w: dict, x: torch.Tensor) -> torch.Tensor:
 
     Leading operand dims beyond the canonical 3-D planes (stacked layers)
     pair with the same leading dims of ``x``, one matmul per index (the
-    reference vmaps them); the remaining dims of ``x`` flatten into M.
+    reference vmaps them): every entry of the dict (planes, signs, scales,
+    ``plane_ids``, ``plane_tile_nz``) is sliced on that axis.  The remaining
+    dims of ``x`` flatten into M.
     """
     from repro_torch.core import simulator
 
-    if w["planes_packed"].ndim > 3:
+    planes = w["splanes"] if "splanes" in w else w["planes_packed"]
+    if planes.ndim > 3:
         return torch.stack(
             [_cim_apply({k: v[i] for k, v in w.items()}, x[i]) for i in range(x.shape[0])]
         )
@@ -45,7 +48,7 @@ def linear(w, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """x @ w for a dense weight or a packed crossbar operand dict.
 
     The routing point for crossbar-native serving: operand dicts run
-    through ``simulator.cim_linear`` (the packed kernel on CUDA), dense
+    through ``simulator.cim_linear`` (the CIM kernels on CUDA), dense
     weights take the ordinary matmul in ``dtype``.
     """
     if isinstance(w, dict):

@@ -293,21 +293,29 @@ def test_iter_weights_names_and_order(reduced_gemma):
 
 
 def test_unported_options_raise():
+    """What the port still refuses: the bool oracle (planner and pool), fault
+    injection and the integrity layer (ROADMAP A13), and a codec with int8
+    planes (no stored-plane layout to encode: a ValueError, as in the
+    reference)."""
+    from repro_torch.core import pool as tpool
+
     w = _t(_weights((64, 80)))
     key = prng.PRNGKey(0)
     spec = planner.CrossbarSpec()
-    for cfg in (planner.PlannerConfig(codec="col_perm"), planner.PlannerConfig(impl="bool")):
-        with pytest.raises(NotImplementedError):
-            planner.analyze_tensor(w, spec, cfg, key)
     with pytest.raises(NotImplementedError):
-        planner.analyze_tensor(w, spec, planner.PlannerConfig(), key, pool=object())
+        planner.analyze_tensor(w, spec, planner.PlannerConfig(impl="bool"), key)
+    xbars = tpool.CrossbarPool(spec, 16, device="cpu")
     with pytest.raises(NotImplementedError):
-        planner.build_deployment({"w": w}, spec, planner.PlannerConfig(), pool=object(), device="cpu")
+        planner.analyze_tensor(w, spec, planner.PlannerConfig(impl="bool"), key, pool=xbars)
+    with pytest.raises(NotImplementedError):
+        xbars.inject_faults(None)
+    with pytest.raises(NotImplementedError):
+        xbars.enable_integrity()
     plan = planner.build_deployment({"w": w}, spec, planner.PlannerConfig(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        planner.deploy_params({"w": w}, plan, materialize="planes_int8")
-    with pytest.raises(NotImplementedError):
-        planner.deploy_params({"w": w}, plan, materialize="packed", codec="const_rle")
+    with pytest.raises(ValueError):
+        planner.deploy_params({"w": w}, plan, materialize="planes_int8", codec="const_rle")
+    with pytest.raises(ValueError):
+        planner.deploy_params({"w": w}, plan, materialize="packed", codec="zstd")
 
 
 def test_build_deployment_needs_a_card_unless_cpu_is_asked(monkeypatch):

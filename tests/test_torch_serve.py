@@ -22,15 +22,18 @@ import torch
 
 from repro.configs import get_arch as jax_get_arch
 from repro.core import bitslice as jbits
+from repro.core import planes as jplanes
 from repro.core import planner as jplanner
+from repro.core import pool as jpool
 from repro.core import simulator as jsim
+from repro.kernels.cim_matmul import ops as jcim_ops
 from repro.kernels.cim_matmul import ref as jcim
 from repro.launch import serve as jserve
 from repro.models import api as japi
 from repro.models import layers as jlayers
 from repro_torch.configs import get_arch
 from repro_torch.convert import from_numpy_tree
-from repro_torch.core import bitslice, planner, simulator
+from repro_torch.core import bitslice, planes, planner, pool, simulator
 from repro_torch.kernels.cim_matmul import ops as cim_ops
 from repro_torch.kernels.cim_matmul import ref as cim_ref
 from repro_torch.kernels.hamming import ops as ham_ops
@@ -123,6 +126,93 @@ def test_linear_stacked_operands():
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
+def _int8_operands(shape, seed):
+    """A quantized weight as int8 signed planes in both packages."""
+    w = (np.random.default_rng(seed).standard_normal(shape) * 0.05).astype(np.float32)
+    qt = jbits.quantize(jnp.asarray(w), 10)
+    w_hat = np.array(jbits.dequantize(qt)).reshape(shape)
+    kw = dict(materialize="planes_int8")
+    jop = jsim.operands_from_dense(jnp.asarray(w_hat), qt.scale, qt.offset, "sign_magnitude", 10, **kw)
+    top = simulator.operands_from_dense(_t(w_hat), float(qt.scale), 0.0, "sign_magnitude", 10, **kw)
+    return w_hat, jop, top
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 64, 32), (5, 37, 130)])
+@pytest.mark.parametrize("mode", ["fused_dequant", "planes"])
+def test_cim_matmul_int8_plain_matches_reference(mode, m, k, n):
+    """B5's plain version against the reference kernel (interpret mode, the
+    same mode) and its jnp oracle, within the B2 matmul tolerance."""
+    w_hat, jop, top = _int8_operands((k, n), seed=k + n)
+    np.testing.assert_array_equal(np.asarray(jop["splanes"]), top["splanes"].numpy())
+    assert top["splanes"].dtype == torch.int8
+    x = np.random.default_rng(m).standard_normal((m, k)).astype(np.float32)
+    got = cim_ops.cim_matmul(_t(x), top["splanes"], top["scale"], mode=mode)
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    bound = _matmul_bound(x, np.abs(w_hat))
+    for want in (
+        np.asarray(jcim_ops.cim_matmul(jnp.asarray(x), jop["splanes"], jop["scale"], mode=mode,
+                                       interpret=True)),
+        np.asarray(jcim.cim_matmul(jnp.asarray(x), jop["splanes"], jop["scale"])),
+    ):
+        assert np.all(np.abs(got.numpy() - want) <= bound)
+    y = simulator.cim_linear(_t(x), top).numpy()
+    assert np.all(np.abs(y - np.asarray(jsim.cim_linear(jnp.asarray(x), jop))) <= bound)
+
+
+@pytest.mark.parametrize("m,k,n", [(3, 300, 24), (4, 256, 130)])
+@pytest.mark.parametrize("codec", ["const_rle", "col_perm", "col_perm_rle"])
+def test_cim_matmul_packed_codecs_plain_matches_reference(codec, m, k, n):
+    """Codec-encoded packed operands (``tile_nz``, ``plane_ids``) through the
+    port's wrapper against the reference's ``cim_linear`` and its skip
+    kernel (interpret mode), within the B2 matmul tolerance."""
+    w = (np.random.default_rng(k).standard_normal((k, n)) * 0.05).astype(np.float32)
+    w[:128] *= 1e-2  # zero high-plane tiles in the first K block
+    scale = np.float32(0.15 / 1023)
+    jop = jsim.operands_from_dense(jnp.asarray(w), scale, 0.0, "sign_magnitude", 10, codec=codec)
+    top = simulator.operands_from_dense(_t(w), float(scale), 0.0, "sign_magnitude", 10, codec=codec)
+    w_hat = simulator.densify_operands(top).numpy()
+    x = np.random.default_rng(m).standard_normal((m, k)).astype(np.float32)
+    bound = _matmul_bound(x, np.abs(w_hat))
+    got = cim_ops.cim_matmul_packed(
+        _t(x), top["planes_packed"], top["sign_packed"], top["scale"],
+        tile_nz=top.get("plane_tile_nz"), plane_ids=top.get("plane_ids"))
+    assert np.all(np.abs(got.numpy() - np.asarray(jsim.cim_linear(jnp.asarray(x), jop))) <= bound)
+    np.testing.assert_array_equal(
+        cim_ref.unpack_weights(top["planes_packed"], top["sign_packed"], k, top.get("plane_ids")).numpy(),
+        np.asarray(jcim.unpack_weights(jop["planes_packed"], jop["sign_packed"], k, None,
+                                       jop.get("plane_ids"))),
+    )
+    if "plane_tile_nz" in jop and "plane_ids" not in jop:
+        want = jcim_ops.cim_matmul_packed(
+            jnp.asarray(x), jop["planes_packed"], jop["sign_packed"], jop["scale"],
+            tile_nz=jop["plane_tile_nz"], interpret=True)
+        assert np.all(np.abs(got.numpy() - np.asarray(want)) <= bound)
+
+
+def test_cim_wrappers_reject_bad_codec_operands():
+    _, _, top = _operands((64, 16), seed=1)
+    x = torch.zeros(2, 64)
+    args = (x, top["planes_packed"], top["sign_packed"], top["scale"])
+    with pytest.raises(ValueError):
+        cim_ops.cim_matmul_packed(*args, tile_nz=torch.ones(10, 2, dtype=torch.uint8))
+    with pytest.raises(ValueError):
+        cim_ops.cim_matmul_packed(*args, plane_ids=torch.arange(9, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        cim_ops.cim_matmul(x, torch.zeros(10, 64, 16, dtype=torch.int8), top["scale"], mode="dot")
+
+
+def test_linear_stacked_int8_and_codec_operands():
+    """Stacked int8-plane and codec-encoded dicts slice every entry per layer."""
+    w = (np.random.default_rng(7).standard_normal((3, 256, 16)) * 0.05).astype(np.float32)
+    x = np.random.default_rng(8).standard_normal((3, 5, 256)).astype(np.float32)
+    for kw in ({"materialize": "planes_int8"}, {"codec": "col_perm_rle"}):
+        jop = jsim.operands_from_dense(jnp.asarray(w), np.float32(1e-4), 0.0, "sign_magnitude", 10, **kw)
+        top = simulator.operands_from_dense(_t(w), 1e-4, 0.0, "sign_magnitude", 10, **kw)
+        want = np.asarray(jlayers.linear(jop, jnp.asarray(x), jnp.float32))
+        np.testing.assert_allclose(layers.linear(top, _t(x), torch.float32).numpy(), want,
+                                   rtol=1e-5, atol=1e-6)
+
+
 # ---------------------------------------------------------------------------
 # Model and generation on the reduced gemma-2b
 # ---------------------------------------------------------------------------
@@ -186,6 +276,82 @@ def test_serve_cli_reduced_on_cpu(capsys):
                 "--prompt-len", "8", "--gen", "4", "--cim", "--materialize", "packed"])
     out = capsys.readouterr().out
     assert "token agreement" in out and "sws" in out
+
+
+@pytest.fixture(scope="module")
+def pool_plans(gemma):
+    """Plans of the reduced gemma through a fresh pool per codec, both
+    packages, built on first use."""
+    jcfg, jparams, _, cfg, tparams, _, _ = gemma
+    cache = {}
+
+    def get(codec):
+        if codec not in cache:
+            kw = dict(p_stuck=0.5, min_size=1024, codec=codec)
+            jp = jpool.CrossbarPool(jplanner.CrossbarSpec(), 16)
+            tp = pool.CrossbarPool(planner.CrossbarSpec(), 16, device="cpu")
+            cache[codec] = (
+                jplanner.build_deployment(jparams, jplanner.CrossbarSpec(),
+                                          jplanner.PlannerConfig(**kw), pool=jp),
+                planner.build_deployment(tparams, planner.CrossbarSpec(),
+                                         planner.PlannerConfig(**kw), pool=tp, device="cpu"),
+            )
+        return cache[codec]
+
+    return get
+
+
+@pytest.mark.parametrize("materialize,codec", [
+    ("dense", "raw"), ("planes_int8", "raw"), ("packed", "raw"), ("packed", "const_rle"),
+    ("packed", "col_perm"), ("packed", "col_perm_rle"),
+])
+def test_generate_through_pool_matches_reference(gemma, pool_plans, materialize, codec):
+    """Greedy tokens identical to the reference's for every serving
+    representation and codec, the deployment planned through a pool."""
+    jcfg, jparams, _, cfg, tparams, _, tokens = gemma
+    jplan, tplan = pool_plans(codec)
+    jt, _ = jserve.generate(
+        jcfg, jplanner.deploy_params(jparams, jplan, materialize=materialize, codec=codec),
+        {"tokens": jnp.asarray(tokens)}, gen_len=6)
+    tp = planner.deploy_params(tparams, tplan, materialize=materialize, codec=codec)
+    tt, _ = serve.generate(cfg, tp, {"tokens": _t(tokens).long()}, gen_len=6)
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+    if materialize == "planes_int8":
+        assert "splanes" in tp["segments"][0]["mlp"]["wo"]
+
+
+def _cli_numbers(out: str) -> list[str]:
+    """The plan's lines of a serve CLI report (speedups, wear, horizon)."""
+    lines = [ln for ln in out.splitlines()
+             if ln.startswith(("token agreement", "pool wear", "endurance horizon"))]
+    lines[0] = lines[0].split("reprog speedup:")[1].split("   plan:")[0].strip()
+    return lines
+
+
+def test_serve_cli_pool_numbers_match_reference(monkeypatch, capsys):
+    """``--cim --codec const_rle`` through a pool prints the reference's
+    speedups, pool wear and endurance horizon (the same weights: the port's
+    CLI is handed the reference's init)."""
+    argv = ["--arch", "gemma-2b", "--reduced", "--batch", "2", "--prompt-len", "8",
+            "--gen", "3", "--cim", "--codec", "const_rle", "--materialize", "packed",
+            "--pool-leveling", "lpt"]
+    monkeypatch.setattr("sys.argv", ["serve"] + argv)
+    jserve.main()
+    want = _cli_numbers(capsys.readouterr().out)
+    jparams = japi.init(jax.random.PRNGKey(0), jax_get_arch("gemma-2b", reduced=True))
+    monkeypatch.setattr(serve.api, "init", lambda cfg, seed, device: from_numpy_tree(
+        jax.tree.map(np.asarray, jparams), device=device))
+    serve.main(argv + ["--device", "cpu"])
+    got = _cli_numbers(capsys.readouterr().out)
+    assert len(want) == 3 and got == want
+
+
+def test_serve_cli_codec_validation():
+    with pytest.raises(SystemExit):
+        serve.main(["--arch", "gemma-2b", "--reduced", "--device", "cpu", "--codec", "const_rle"])
+    with pytest.raises(SystemExit):
+        serve.main(["--arch", "gemma-2b", "--reduced", "--device", "cpu", "--cim",
+                    "--codec", "col_perm", "--materialize", "planes_int8"])
 
 
 # ---------------------------------------------------------------------------
@@ -273,4 +439,54 @@ def test_cim_kernel_matches_plain(cuda_device, m, k, n, dtype):
     want = cim_ref.cim_matmul_packed(x, planes, signs, scale)
     w = cim_ref.unpack_weights(planes, signs, k).abs() * scale
     bound = 2 * F32_EPS * k * (x.float().abs() @ w)
+    assert bool(((got - want).abs() <= bound).all())
+
+
+def _codec_operands(k, n, device, seed, zero_share=0.0):
+    """Random packed operands on ``device`` with ``plane_tile_nz`` flags; a
+    share of the (plane, K-block) tiles is zeroed (and flagged)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randint(0, 1024, (k, n), dtype=torch.int32, device=device, generator=g)
+    s = torch.where(torch.rand(k, n, device=device, generator=g) < 0.5, -1, 1).to(torch.int8)
+    op = simulator.packed_operands(q, s, 1e-3, 0.0, 10)
+    if zero_share:
+        nt = -(-k // 128)
+        dead = torch.rand(10, nt, device=device, generator=g) < zero_share
+        rows = dead.repeat_interleave(16, dim=1)[:, : op["planes_packed"].shape[1]]
+        op["planes_packed"] = op["planes_packed"] * (~rows)[:, :, None]
+    return planes.encode_operands(op, "const_rle")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1, 2048, 256), (4, 2048, 2048), (128, 1001, 333)])
+@pytest.mark.parametrize("zero_share", [0.0, 0.5])
+@pytest.mark.parametrize("permuted", [False, True])
+def test_skip_kernel_equals_packed_kernel_bit_for_bit(cuda_device, m, k, n, zero_share, permuted):
+    op = _codec_operands(k, n, cuda_device, seed=m + k, zero_share=zero_share)
+    ids = None
+    if permuted:
+        ids = torch.randperm(10, generator=torch.Generator().manual_seed(k)).to(
+            device=cuda_device, dtype=torch.int32)
+    x = torch.randn(m, k, device=cuda_device).to(torch.bfloat16)
+    args = (x, op["planes_packed"], op["sign_packed"], op["scale"])
+    b2 = cim_ops.cim_matmul_packed(*args, plane_ids=ids)
+    b4 = cim_ops.cim_matmul_packed(*args, tile_nz=op["plane_tile_nz"], plane_ids=ids)
+    assert torch.equal(b2, b4)
+    want = cim_ref.cim_matmul_packed(*args, plane_ids=ids)
+    w = cim_ref.unpack_weights(op["planes_packed"], op["sign_packed"], k, ids).abs() * 1e-3
+    assert bool(((b4 - want).abs() <= 2 * F32_EPS * k * (x.float().abs() @ w)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(4, 2048, 2048), (128, 2048, 256), (5, 1001, 333)])
+@pytest.mark.parametrize("mode", ["fused_dequant", "planes"])
+def test_int8_plane_kernel_matches_plain(cuda_device, m, k, n, mode):
+    g = torch.Generator(device=cuda_device).manual_seed(m + k + n)
+    q = torch.randint(0, 1024, (k, n), dtype=torch.int32, device=cuda_device, generator=g)
+    s = torch.where(torch.rand(k, n, device=cuda_device, generator=g) < 0.5, -1, 1).to(torch.int8)
+    op = simulator.int8_plane_operands(q, s, 1e-3, 0.0, 10)
+    x = torch.randn(m, k, device=cuda_device, generator=g)
+    got = cim_ops.cim_matmul(x, op["splanes"], op["scale"], mode=mode)
+    want = cim_ref.cim_matmul(x, op["splanes"], op["scale"], mode)
+    bound = 2 * F32_EPS * k * (x.abs() @ (q.float() * 1e-3))
     assert bool(((got - want).abs() <= bound).all())
