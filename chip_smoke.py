@@ -3,19 +3,26 @@
 
 Drives the port's main paths — plan gemma-2b onto 128x10 crossbars, alone
 and through a persistent ``CrossbarPool`` with plane codecs, then serve it
-from the packed bits and from int8 planes — at the model's full width with
-the depth cut to 4 layers, and holds each hand-written kernel against its
-plain PyTorch version on the card.  Phases (one line each, any failed check
-exits 1):
+from the packed bits and from int8 planes; plan yi-6b and serve it the same
+ways — at each model's full width with the depth cut to 4 layers, and holds
+each hand-written kernel against its plain PyTorch version on the card.
+Phases (one line each, any failed check exits 1):
 
   1. card + build: name and power limit, the kernels built from csrc/;
   2. B1 (Hamming pricing) == its plain version, exactly;
-  3. B2 (packed CIM matmul) vs its plain version at gemma-2b's shapes,
-     within |d| <= 2 * eps_f32 * K * (|x| @ |w|) (the two sum K products in
+  3. B2 (packed CIM matmul) vs its plain version at gemma-2b's shapes and
+     yi-6b's f32 LM head (M = 4, K = 4096, N = 64000), within
+     |d| <= 2 * eps_f32 * K * (|x| @ |w|) (the two sum K products in
      different orders, each within K * eps of exact);
      B4 (the zero-tile skipping twin) == B2 bit for bit on synthetic
      operands with 0-90% zero tiles, with and without permuted plane_ids;
      B5 (int8-plane matmul, both modes) vs its plain version, same bound;
+     B3 (flash attention) vs its plain version at yi-6b's and gemma-2b's
+     serve shapes and a 2048-token prefill of each, causal / bidir /
+     swa(256), scalar and per-row offsets and valid lengths, f32 within
+     2e-5 (abs + rel) and bf16 within one bf16 ulp more;
+     B6 (bitslice) == its plain version bit for bit on [4, 4096, 11008]
+     weights with planted .5 ties;
   4. plan: build_deployment on the card, B1 launches > 0, and one stacked
      tensor planned again on the CPU with an identical report and w_hat;
      plan-pool: the same model through a CrossbarPool with the const_rle
@@ -24,8 +31,15 @@ exits 1):
   5. serve: generate with fp, cim-dense and cim-packed weights; B2 launches
      over one timed packed pass == 7 * layers * gen; then cim-packed
      const_rle (B4, tokens == raw-packed of the same plan) and cim-planes_int8
-     (B5), each launching 7 * layers * gen times with no plain-version call;
+     (planes built by B6, one launch per operand dict; B5), each launching
+     7 * layers * gen times with no plain-version call;
      col_perm_rle at 1 layer (B4 with plane_ids, 7 * gen launches);
+     every generate runs B3 once per layer in its prefill;
+  5b. yi-6b: plan at full width (4 layers), CPU re-plan of
+     segments/0/attn/wk; B6 planes of every planned tensor == the route
+     before B6 (q = round(|w_hat| / scale)); serve fp, cim-dense,
+     cim-packed and cim-planes_int8 with (7 * layers + 1) * gen B2 / B5
+     launches (the +1: the planned LM head), B3 = layers per prefill;
   6. kernels: time, bound, plain-version and library times.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -55,6 +69,10 @@ ZERO_SHARES = (0.0, 0.25, 0.5, 0.75, 0.9)  # zero-tile shares of the synthetic B
 QUANT_MSE_RTOL = 1e-6
 F32_LOGIT_RTOL = 1e-3  # f32 prefill, packed vs dense: sums of <= 16384 terms reordered
 BF16_LOGIT_RTOL = 0.02  # bf16 prefill: dense rounds w_hat to bf16, packed keeps it exact
+YI_LAYERS = 4
+B3_TOL = 2e-5  # f32 attention, kernel vs plain: the reference's own kernel tolerance
+B3_WINDOW = 256
+B3_LONG = 2048  # the long-prefill check and timing length
 
 
 def fail(msg: str) -> None:
@@ -121,6 +139,403 @@ def ptxas_summary(logs: dict) -> str:
     return "; ".join(parts) or "n/a"
 
 
+def plain_fns():
+    """Every plain version a kernel wrapper could fall back to (counted)."""
+    from repro_torch.kernels.bitslice import ref as bs_ref
+    from repro_torch.kernels.cim_matmul import ref as cim_ref
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.models import attention
+
+    return (cim_ref.cim_matmul, cim_ref.cim_matmul_packed, cim_ref.unpack_weights,
+            fa_ref.flash_attention, bs_ref.bitslice_planes, attention.blockwise_attention)
+
+
+def reset_counts() -> None:
+    from repro_torch.kernels.bitslice import ops as bs_ops
+    from repro_torch.kernels.cim_matmul import ops as cim_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.hamming import ops as ham_ops
+
+    ham_ops.price_pairs.launches = 0
+    for ops in (cim_ops, fa_ops, bs_ops):
+        ops.reset_launches()
+    for fn in plain_fns():
+        fn.calls = 0
+
+
+def counts() -> dict:
+    """Kernel launches by kernel, and plain-version calls, since the reset."""
+    from repro_torch.kernels.bitslice import ops as bs_ops
+    from repro_torch.kernels.cim_matmul import ops as cim_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.hamming import ops as ham_ops
+
+    return {"B1": ham_ops.price_pairs.launches, **cim_ops.LAUNCHES, **fa_ops.LAUNCHES,
+            **bs_ops.LAUNCHES, "plain": sum(fn.calls for fn in plain_fns())}
+
+
+def served(label, cfg, params, batch, gen, kernel, want):
+    """Warm up, then one timed generate with the counts zeroed just before
+    and read just after; tok/s is the best of 3 timed passes.  Fails unless
+    ``kernel`` launched ``want`` times (None: no CIM kernel), B3 once per
+    layer, nothing else, and no plain version was called."""
+    from repro_torch.launch import serve
+
+    timed = serve.make_generator(cfg, params, batch, gen_len=gen)
+    reset_counts()
+    toks, dt = timed()
+    c = counts()
+    b = batch["tokens"].shape[0]
+    tps = b * gen / dt
+    for _ in range(2):
+        tps = max(tps, b * gen / timed()[1])
+    if toks.shape != (b, gen) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        fail(f"{label} tokens malformed: shape {tuple(toks.shape)}")
+    expect = {"B3": cfg.n_layers, **({kernel: want} if kernel else {})}
+    got = {k: v for k, v in c.items() if k != "plain" and v}
+    if got != expect or c["plain"]:
+        fail(f"{label} generate launched {c} (want {expect}, nothing else, no plain-version "
+             f"call)")
+    return toks, tps, timed, c
+
+
+def logit_check(cfg, p_dense, p_x, batch, label):
+    """bf16 and f32 prefill logits of ``p_x`` within a share of the largest
+    dense logit of the dense deployment's."""
+    import torch
+
+    from repro_torch.models import api
+
+    with torch.inference_mode():
+        for dtype_name, rtol in (("bfloat16", BF16_LOGIT_RTOL), ("float32", F32_LOGIT_RTOL)):
+            c_ = dataclasses.replace(cfg, dtype=dtype_name)
+            ld, _ = api.prefill(p_dense, c_, batch)
+            lp, _ = api.prefill(p_x, c_, batch)
+            if not (torch.isfinite(ld).all() and torch.isfinite(lp).all()):
+                fail(f"non-finite {dtype_name} prefill logits")
+            d = (lp - ld).abs().max().item()
+            bound = rtol * ld.abs().max().item()
+            say(f"phase logits: {cfg.name} {dtype_name} prefill {label} vs dense max |d| "
+                f"{d:.4e} (bound {rtol:g} * max|logit| = {bound:.4e})")
+            if d > bound:
+                fail(f"{dtype_name} prefill logits of {label} and dense differ by {d:.4e}")
+
+
+def same_report(a, b, what):
+    """Two TensorReports are equal (quant_mse, a float mean summed in
+    another order, within QUANT_MSE_RTOL)."""
+    a, b = dataclasses.asdict(a), dataclasses.asdict(b)
+    for field in a:
+        same = (abs(a[field] - b[field]) <= QUANT_MSE_RTOL * abs(a[field])
+                if field == "quant_mse" else a[field] == b[field])
+        if not same:
+            fail(f"CPU plan of {what} differs in {field}: {a[field]} vs {b[field]}")
+
+
+def deploy_int8(params, plan):
+    """``deploy_params(materialize="planes_int8")`` with the counts read
+    around it: B6 must build every operand dict, once each, and nothing
+    else may launch or fall back."""
+    import torch
+
+    from repro_torch.core import planner
+
+    reset_counts()
+    p_int8 = planner.deploy_params(params, plan, materialize="planes_int8")
+    torch.cuda.synchronize()
+    c = counts()
+    n_ops = sum(1 for _ in _operand_dicts(p_int8))
+    got = {k: v for k, v in c.items() if k != "plain" and v}
+    if got != {"B6": n_ops} or c["plain"]:
+        fail(f"planes_int8 deployment launched {c} (want B6 = {n_ops} operand dicts, nothing "
+             f"else, no plain-version call)")
+    return p_int8, c
+
+
+def bound(nbytes, flops):
+    """Least time in ms for moving ``nbytes`` through HBM and doing ``flops``
+    f32 operations, and which of the two bounds it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_attention(dev) -> dict:
+    """B3, bf16 causal, at yi-6b's and gemma-2b's serve prefill shapes and a
+    2048-token prefill of each: kernel, plain version, SDPA (timed as a
+    yardstick only) and the bound (q, k, v, o bytes; 4 * D FLOPs per
+    visible pair).  Returns the record at yi-6b's serve shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    records, lines = {}, []
+    for name, layout in (("yi-6b", (BATCH, 32, 4, 128)), ("gemma-2b", (BATCH, 8, 1, 256))):
+        for s in (PROMPT, B3_LONG):
+            lay = layout if s == PROMPT else (1,) + layout[1:]
+            b, hq, _, d = lay
+            q, k, v, _, _ = attention_inputs(dev, lay, s, False, torch.bfloat16, seed=s + d)
+            ms = cuda_ms(lambda: fa_ops.flash_attention(q, k, v, kind="causal"))
+            plain = cuda_ms(lambda: fa_ref.flash_attention(q, k, v, kind="causal"), reps=5)
+            library = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True))
+            nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+            bnd, by = bound(nbytes, 4 * d * hq * live_pairs(b, s, s, "causal", s, 0, None))
+            records[(name, s)] = dict(ms=ms, plain_ms=plain, library_ms=library, bound_ms=bnd,
+                                      bound_by=by)
+            lines.append(f"{name} B={b} S={s}: {ms:.4f} ms (bound {bnd:.4f} by {by}, plain "
+                         f"{plain:.4f}, SDPA {library:.4f})")
+            del q, k, v
+    say("phase kernels: B3 bf16 causal: " + "; ".join(lines))
+    torch.cuda.empty_cache()
+    return records[("yi-6b", PROMPT)]
+
+
+def time_bitslice(dev) -> dict:
+    """B6 on yi-6b's stacked wi_gate shape [4, 4096, 11008], cols 10:
+    kernel, plain version and the byte bound ((4 + cols) bytes a weight)."""
+    import torch
+
+    from repro_torch.kernels.bitslice import ops as bs_ops
+    from repro_torch.kernels.bitslice import ref as bs_ref
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    w = torch.randn(4, 4096, 11008, device=dev, generator=g) * 0.05
+    inv = torch.tensor(4096.0, device=dev)
+    ms = cuda_ms(lambda: bs_ops.bitslice_planes(w, inv, 10), reps=10)
+    plain = cuda_ms(lambda: bs_ref.bitslice_planes(w, inv, 10), reps=3, warmup=1)
+    bnd, by = bound(w.numel() * (4 + 10), 0)
+    say(f"phase kernels: B6 [4, 4096, 11008] cols 10: {ms:.4f} ms (bound {bnd:.4f} by {by}, "
+        f"plain {plain:.4f}; no single torch call)")
+    del w
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bnd, bound_by=by)
+
+
+def attention_bound(want):
+    """Allowed |kernel - plain| of B3 per element: 2e-5 abs + rel, and one
+    bf16 ulp of the output more in bf16 (both round an f32 result)."""
+    import torch
+
+    w = want.float().abs()
+    bound = B3_TOL + B3_TOL * w
+    if want.dtype == torch.bfloat16:
+        tiny = torch.finfo(torch.float32).tiny
+        bound = bound + torch.finfo(torch.bfloat16).eps * torch.exp2(
+            torch.floor(torch.log2(w.clamp_min(tiny))))
+    return bound
+
+
+def attention_inputs(dev, layout, s, per_row, dtype, seed):
+    """q, k, v, kv_valid_len, q_offset for one B3 case.  ``layout`` is
+    (B, Hq, Hkv, D).  Scalar cases: Sk = Sq, q at positions from 0.  Per-row
+    cases: a cache view of Sq + 64 slots, row b live to a random extent
+    kvl_b >= Sq with its queries the last Sq positions, so every row sees
+    at least one key under every mask."""
+    import torch
+
+    b, hq, hkv, d = layout
+    g = torch.Generator(device=dev).manual_seed(seed)
+    sk = s + 64 if per_row else s
+    q = torch.randn(b, hq, s, d, device=dev, generator=g).to(dtype)
+    k = torch.randn(b, hkv, sk, d, device=dev, generator=g).to(dtype)
+    v = torch.randn(b, hkv, sk, d, device=dev, generator=g).to(dtype)
+    if per_row:
+        kvl = torch.randint(s, sk + 1, (b,), device=dev, generator=g, dtype=torch.int32)
+        return q, k, v, kvl, kvl - s
+    return q, k, v, sk, 0
+
+
+def live_pairs(b, s, sk, kind, kvl, off, window):
+    """Visible (q, k) pairs of one B3 call summed over the batch (the work
+    this run's data needs), from the same mask as the plain version."""
+    import torch
+
+    kvl_t = torch.as_tensor(kvl).reshape(-1).expand(b).cpu()
+    off_t = torch.as_tensor(off).reshape(-1).expand(b).cpu()
+    qp = off_t[:, None, None] + torch.arange(s)[None, :, None]
+    kp = torch.arange(sk)[None, None, :]
+    mask = kp < kvl_t[:, None, None]
+    if kind != "bidir":
+        mask = mask & (kp <= qp)
+        if kind == "swa":
+            mask = mask & (kp > qp - window)
+    return int(mask.sum())
+
+
+def check_b3(dev):
+    """B3 against its plain version in every case; returns the max |d| and
+    the per-case lines."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    layouts = {"yi-6b": (4, 32, 4, 128), "gemma-2b": (4, 8, 1, 256)}
+    worst, n = 0.0, 0
+    for name, layout in layouts.items():
+        for s in (PROMPT, B3_LONG):
+            lay = layout if s == PROMPT else (1,) + layout[1:]
+            errs = []
+            for kind in ("causal", "bidir", "swa"):
+                window = B3_WINDOW if kind == "swa" else None
+                for per_row in (False, True):
+                    for dtype in (torch.float32, torch.bfloat16):
+                        q, k, v, kvl, off = attention_inputs(dev, lay, s, per_row, dtype, seed=n)
+                        got = fa_ops.flash_attention(q, k, v, kvl, kind=kind, window=window,
+                                                     q_offset=off)
+                        want = fa_ref.flash_attention(q, k, v, kvl, kind=kind, window=window,
+                                                      q_offset=off)
+                        torch.cuda.synchronize()
+                        err = (got.float() - want.float()).abs()
+                        tag = (f"{kind} {'per-row' if per_row else 'scalar'} "
+                               f"{str(dtype).split('.')[-1]}")
+                        if got.shape != want.shape or got.dtype != dtype or not bool(
+                                (err <= attention_bound(want)).all()):
+                            fail(f"B3 outside its tolerance on {name} B={lay[0]} S={s} {tag}: "
+                                 f"max |d| {err.max().item():.3e}")
+                        errs.append(f"{tag} {err.max().item():.2e}")
+                        worst = max(worst, err.max().item())
+                        n += 1
+                        del q, k, v, got, want, err
+            say(f"phase B3: {name} layout (B {lay[0]}, Hq {lay[1]}, Hkv {lay[2]}, D {lay[3]}) "
+                f"S={s}: max |d| " + "; ".join(errs))
+    torch.cuda.empty_cache()
+    return worst, n
+
+
+def tied_weights(dev, shape, inv, seed):
+    """Random weights with exact .5 ties of |w| * inv (inv a power of two),
+    a share past the top level, and -0.0 cells."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randn(shape, device=dev, generator=g) * 0.05
+    flat = w.view(-1)
+    idx = torch.randint(0, flat.numel(), (flat.numel() // 7,), device=dev, generator=g)
+    half = torch.randint(0, 1100, idx.shape, device=dev, generator=g).float() + 0.5
+    sign = torch.where(torch.rand(idx.shape, device=dev, generator=g) < 0.5, -1.0, 1.0)
+    flat[idx] = sign * half / inv
+    flat[:16] = -0.0
+    return w
+
+
+def _at(tree, name):
+    """The leaf of a params tree at a '/'-joined planner name."""
+    for part in name.split("/"):
+        tree = tree[int(part)] if isinstance(tree, list) else tree[part]
+    return tree
+
+
+def yi_phases(dev) -> dict:
+    """yi-6b at its published width with the depth cut to YI_LAYERS: plan on
+    the card (and one tensor again on the CPU), B6's planes of every planned
+    tensor against the route before it, then serve fp, cim-dense, cim-packed
+    and cim-planes_int8.  Returns the main path's B3 / B6 launch counts."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import planner, simulator
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+
+    full = get_arch("yi-6b")
+    cfg = dataclasses.replace(full, n_layers=YI_LAYERS)
+    say(f"phase yi-plan: yi-6b d_model={cfg.d_model} heads={cfg.n_heads} kv={cfg.n_kv_heads} "
+        f"head_dim={cfg.resolved_head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab_size} act={cfg.act} "
+        f"rope_theta={cfg.rope_theta:g} untied head; depth cut {full.n_layers} -> {YI_LAYERS} "
+        f"layers (the only cut), p_stuck={P_STUCK}")
+    params = api.init(cfg, seed=0, device=dev)
+    spec, pcfg = planner.CrossbarSpec(), planner.PlannerConfig(p_stuck=P_STUCK)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan = planner.build_deployment(params, spec, pcfg, device=dev)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    c = counts()
+    for name, r in plan.reports.items():
+        say(f"  {name} {list(r.shape)}: sws {r.sws_speedup:.3f}x total {r.total_speedup:.3f}x "
+            f"({r.transitions_baseline} -> {r.transitions_sws} -> {r.transitions_final})")
+    tot = plan.totals()
+    say(f"phase yi-plan: {len(plan.reports)} tensors in {plan_s:.2f} s; sws "
+        f"{tot['sws_speedup']:.4f}x total {tot['total_speedup']:.4f}x; B1 launches {c['B1']}")
+    if c["B1"] <= 0 or any(c[k] for k in c if k not in ("B1", "plain")) or c["plain"]:
+        fail(f"yi-6b plan launched {c}")
+    if "head/w" not in plan.reports:
+        fail("yi-6b's untied head/w was not planned")
+
+    key = planner.tensor_keys(params, pcfg)[CHECK_TENSOR]
+    w_cpu = dict(planner.iter_weights(params, pcfg))[CHECK_TENSOR].cpu()
+    t0 = time.perf_counter()
+    r_cpu, w_hat_cpu = planner.analyze_tensor(w_cpu, spec, pcfg, key, name=CHECK_TENSOR)
+    cpu_s = time.perf_counter() - t0
+    same_report(plan.reports[CHECK_TENSOR], r_cpu, f"yi-6b {CHECK_TENSOR}")
+    if plan.deployed[CHECK_TENSOR].cpu().numpy().tobytes() != w_hat_cpu.numpy().tobytes():
+        fail(f"CPU plan of yi-6b {CHECK_TENSOR} deploys other w_hat bytes")
+    say(f"phase yi-plan-cpu: {CHECK_TENSOR} {list(w_cpu.shape)} planned on the CPU in "
+        f"{cpu_s:.2f} s: report equal, w_hat bytes identical")
+    del w_cpu, w_hat_cpu
+
+    batch = api.make_batch(cfg, BATCH, PROMPT, seed=0, device=dev)
+    want = (7 * YI_LAYERS + 1) * GEN  # + the planned LM head, once per forward
+    p_dense = planner.deploy_params(params, plan, materialize="dense")
+    _, tps_fp, _, _ = served("yi-6b fp", cfg, params, batch, GEN, None, 0)
+    tok_dense, tps_dense, _, _ = served("yi-6b dense", cfg, p_dense, batch, GEN, None, 0)
+    p_packed = planner.deploy_params(params, plan, materialize="packed")
+    tok_packed, tps_packed, timed_packed, c = served("yi-6b packed", cfg, p_packed, batch, GEN,
+                                                     "B2", want)
+    b3_launches = c["B3"]
+    say(f"phase yi-serve: batch {BATCH} prompt {PROMPT} gen {GEN} greedy bf16; tok/s fp "
+        f"{tps_fp:.1f} cim-dense {tps_dense:.1f} cim-packed {tps_packed:.1f}; packed/dense "
+        f"token agreement {(tok_packed == tok_dense).float().mean().item():.3f}; B2 launches "
+        f"{c['B2']} (want (7 * {YI_LAYERS} + 1) * {GEN} = {want}); B3 launches {b3_launches} "
+        f"(want {YI_LAYERS}, every variant); plain-version calls 0")
+    say(f"phase trace: yi-6b cim-packed generate: {trace(timed_packed)}")
+    logit_check(cfg, p_dense, p_packed, batch, "packed")
+    del timed_packed
+
+    p_int8, c6 = deploy_int8(params, plan)
+    n_eq = 0
+    for name, w_hat in plan.deployed.items():
+        op = _at(p_int8, name)
+        if not isinstance(op, dict):
+            continue  # served dense (the norm gains)
+        # the route before B6: q = round(|w_hat| / scale), sign from signbit
+        w32 = w_hat.to(torch.float32)
+        scale = torch.tensor(plan.reports[name].scale, dtype=torch.float32, device=dev)
+        q = torch.clamp(torch.round(w32.abs() / scale), 0, 2**spec.cols - 1).to(torch.int32)
+        sign = torch.where(torch.signbit(w32), -1, 1).to(torch.int8)
+        old = simulator.int8_plane_operands(q, sign, scale, 0.0, spec.cols)["splanes"]
+        if not torch.equal(old, op["splanes"]):
+            fail(f"B6 planes of yi-6b {name} differ from q = round(|w_hat| / scale)")
+        n_eq += 1
+        del w32, q, sign, old
+    int8_gb = sum(v["splanes"].numel() for v in _operand_dicts(p_int8)) / 1e9
+    say(f"phase yi-B6: planes of all {n_eq} planned matmul tensors built by {c6['B6']} B6 "
+        f"launches ({int8_gb:.2f} GB) equal the route before B6 bit for bit")
+    tok_int8, tps_int8, timed_int8, c = served("yi-6b planes_int8", cfg, p_int8, batch, GEN,
+                                               "B5", want)
+    # packed and int8 planes both compute on the exact deployed weights;
+    # dense rounds them to bf16, which flips yi's near-tied random logits
+    say(f"phase yi-serve-int8: cim-planes_int8 {tps_int8:.1f} tok/s; token agreement with "
+        f"dense {(tok_int8 == tok_dense).float().mean().item():.3f}, with packed "
+        f"{(tok_int8 == tok_packed).float().mean().item():.3f}; B5 launches {c['B5']} "
+        f"(want {want}); B3 launches {c['B3']}; plain-version calls 0")
+    say(f"phase trace: yi-6b cim-planes_int8 generate: {trace(timed_int8)}")
+    logit_check(cfg, p_dense, p_int8, batch, "planes_int8")
+    # in float32 compute all three serve the same weights (dense no longer
+    # rounds w_hat to bf16): tokens part only where logits nearly tie
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    t32 = {label: serve.generate(cfg32, p, batch, gen_len=GEN)[0]
+           for label, p in (("dense", p_dense), ("packed", p_packed), ("planes_int8", p_int8))}
+    say(f"phase yi-serve-f32: float32 compute, token agreement with dense: packed "
+        f"{(t32['packed'] == t32['dense']).float().mean().item():.3f}, planes_int8 "
+        f"{(t32['planes_int8'] == t32['dense']).float().mean().item():.3f}")
+    return {"B3": b3_launches, "B6": c6["B6"]}
+
+
 def main() -> None:
     import torch
 
@@ -130,11 +545,12 @@ def main() -> None:
         from repro_torch.configs import get_arch
         from repro_torch.core import bitslice, planes, planner, pool, simulator
         from repro_torch.kernels import _util
+        from repro_torch.kernels.bitslice import ops as bs_ops
+        from repro_torch.kernels.bitslice import ref as bs_ref
         from repro_torch.kernels.cim_matmul import ops as cim_ops
         from repro_torch.kernels.cim_matmul import ref as cim_ref
         from repro_torch.kernels.hamming import ops as ham_ops
         from repro_torch.kernels.hamming import ref as ham_ref
-        from repro_torch.launch import serve
         from repro_torch.models import api
     except ImportError as e:
         fail(f"the port is not beside this script ({e})")
@@ -156,18 +572,6 @@ def main() -> None:
     logs = _util.build_kernels()
     build_s = time.perf_counter() - t0
     say(f"phase build: {sorted(logs) or 'cached'} in {build_s:.1f} s; ptxas: {ptxas_summary(logs)}")
-
-    plain_fns = (cim_ref.cim_matmul, cim_ref.cim_matmul_packed, cim_ref.unpack_weights)
-
-    def reset_counts():
-        ham_ops.price_pairs.launches = 0
-        cim_ops.reset_launches()
-        for fn in plain_fns:
-            fn.calls = 0
-
-    def counts():
-        return {"B1": ham_ops.price_pairs.launches, **cim_ops.LAUNCHES,
-                "plain": sum(fn.calls for fn in plain_fns)}
 
     # --- 2. B1 against its plain version --------------------------------------
     g = torch.Generator(device=dev).manual_seed(0)
@@ -196,7 +600,7 @@ def main() -> None:
 
     b2_err, n_checks = 0.0, 0
     cases = [(m, k, n) for k, n in ((2048, 2048), (2048, 256), (2048, 16384), (16384, 2048))
-             for m in (1, 4, 128)] + [(5, 1001, 333)]
+             for m in (1, 4, 128)] + [(5, 1001, 333), (BATCH, 4096, 64000)]  # + yi-6b's head
     for m, k, n in cases:
         planes_, signs, scale = packed_operands(k, n, m + k + n)
         w_abs = cim_ref.unpack_weights(planes_, signs, k).abs() * scale
@@ -282,6 +686,21 @@ def main() -> None:
         f"max |d| {b5_err:.3e}")
     torch.cuda.empty_cache()
 
+    b3_err, n3 = check_b3(dev)
+    say(f"phase B3: {n3} cases within {B3_TOL:g} (abs + rel; bf16 one ulp more), max |d| "
+        f"{b3_err:.3e}")
+
+    inv = torch.tensor(4096.0, device=dev)  # a power of two keeps the planted ties exact
+    w6 = tied_weights(dev, (4, 4096, 11008), 4096.0, seed=6)
+    got6, want6 = bs_ops.bitslice_planes(w6, inv, 10), bs_ref.bitslice_planes(w6, inv, 10)
+    torch.cuda.synchronize()
+    if got6.shape != (4, 10, 4096, 11008) or not torch.equal(got6, want6):
+        fail("B6 differs from its plain version on [4, 4096, 11008] weights with .5 ties")
+    say(f"phase B6: [4, 4096, 11008] f32 with {w6.numel() // 7} planted .5 ties, -0.0 and "
+        f"values past 1023: bit-equal to its plain version")
+    del w6, got6, want6
+    torch.cuda.empty_cache()
+
     # --- 4. plan gemma-2b at full width --------------------------------------
     full = get_arch("gemma-2b")
     cfg = dataclasses.replace(full, n_layers=LAYERS)
@@ -305,14 +724,6 @@ def main() -> None:
         f"{tot['sws_speedup']:.4f}x total {tot['total_speedup']:.4f}x; B1 launches {c['B1']}")
     if c["B1"] <= 0 or c["B2"] + c["B4"] + c["B5"] != 0:
         fail(f"plan launched {c}")
-
-    def same_report(a, b, what):
-        a, b = dataclasses.asdict(a), dataclasses.asdict(b)
-        for field in a:
-            same = (abs(a[field] - b[field]) <= QUANT_MSE_RTOL * abs(a[field])
-                    if field == "quant_mse" else a[field] == b[field])
-            if not same:
-                fail(f"CPU plan of {what} differs in {field}: {a[field]} vs {b[field]}")
 
     key = planner.tensor_keys(params, pcfg)[CHECK_TENSOR]
     w_cpu = dict(planner.iter_weights(params, pcfg))[CHECK_TENSOR].cpu()
@@ -375,73 +786,38 @@ def main() -> None:
     batch = api.make_batch(cfg, BATCH, PROMPT, seed=0, device=dev)
     want_launch = 7 * LAYERS * GEN
 
-    def served(label, p, kernel, want, layers_cfg=cfg):
-        """Warm up, then one timed generate with the counts zeroed just before
-        and read just after; tok/s is the best of 3 timed passes."""
-        timed = serve.make_generator(layers_cfg, p, batch, gen_len=GEN)
-        reset_counts()
-        toks, dt = timed()
-        c = counts()
-        tps = BATCH * GEN / dt
-        for _ in range(2):
-            tps = max(tps, BATCH * GEN / timed()[1])
-        if toks.shape != (BATCH, GEN) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
-            fail(f"{label} tokens malformed: shape {tuple(toks.shape)}")
-        others = {k: v for k, v in c.items() if k not in (kernel, "plain") and v}
-        if (kernel and c[kernel] != want) or others or c["plain"]:
-            fail(f"{label} generate launched {c} (want {kernel} = {want}, nothing else, "
-                 f"no plain-version call)")
-        return toks, tps, timed, c
-
     p_dense = planner.deploy_params(params, plan, materialize="dense")
     p_packed = planner.deploy_params(params, plan, materialize="packed")
-    tok_fp, tps_fp = serve.generate(cfg, params, batch, gen_len=GEN, repeats=3)
-    tok_dense, tps_dense = serve.generate(cfg, p_dense, batch, gen_len=GEN, repeats=3)
-    tok_packed, tps_packed, timed_packed, c = served("packed", p_packed, "B2", want_launch)
+    tok_fp, tps_fp, _, _ = served("fp", cfg, params, batch, GEN, None, 0)
+    tok_dense, tps_dense, timed_dense, _ = served("dense", cfg, p_dense, batch, GEN, None, 0)
+    tok_packed, tps_packed, timed_packed, c = served("packed", cfg, p_packed, batch, GEN, "B2",
+                                                     want_launch)
     b2_launches = c["B2"]
-    for name, toks in (("fp", tok_fp), ("dense", tok_dense)):
-        if toks.shape != (BATCH, GEN) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
-            fail(f"{name} tokens malformed: shape {tuple(toks.shape)}")
     agree = (tok_packed == tok_dense).float().mean().item()
     say(f"phase serve: batch {BATCH} prompt {PROMPT} gen {GEN} greedy; tok/s fp "
         f"{tps_fp:.1f} cim-dense {tps_dense:.1f} cim-packed {tps_packed:.1f}; packed/dense "
         f"token agreement {agree:.3f}; B2 launches {b2_launches} (want {want_launch}); "
-        f"plain-version calls 0")
+        f"B3 launches {c['B3']} (want {LAYERS}, every variant); plain-version calls 0")
 
     say(f"phase trace: cim-packed generate: {trace(timed_packed)}")
-    timed_dense = serve.make_generator(cfg, p_dense, batch, gen_len=GEN)
     say(f"phase trace: cim-dense generate: {trace(timed_dense)}")
-
-    def logit_check(p_x, label):
-        with torch.inference_mode():
-            for dtype_name, rtol in (("bfloat16", BF16_LOGIT_RTOL), ("float32", F32_LOGIT_RTOL)):
-                c_ = dataclasses.replace(cfg, dtype=dtype_name)
-                ld, _ = api.prefill(p_dense, c_, batch)
-                lp, _ = api.prefill(p_x, c_, batch)
-                if not (torch.isfinite(ld).all() and torch.isfinite(lp).all()):
-                    fail(f"non-finite {dtype_name} prefill logits")
-                d = (lp - ld).abs().max().item()
-                bound = rtol * ld.abs().max().item()
-                say(f"phase logits: {dtype_name} prefill {label} vs dense max |d| {d:.4e} "
-                    f"(bound {rtol:g} * max|logit| = {bound:.4e})")
-                if d > bound:
-                    fail(f"{dtype_name} prefill logits of {label} and dense differ by {d:.4e}")
-
-    logit_check(p_packed, "packed")
+    logit_check(cfg, p_dense, p_packed, batch, "packed")
     del p_packed, timed_packed, timed_dense
     torch.cuda.empty_cache()
 
-    # int8 planes of the same plan (kernel B5)
-    p_int8 = planner.deploy_params(params, plan, materialize="planes_int8")
+    # int8 planes of the same plan, built by B6, served by B5
+    p_int8, c6 = deploy_int8(params, plan)
     int8_gb = sum(v["splanes"].numel() for v in _operand_dicts(p_int8)) / 1e9
-    tok_int8, tps_int8, timed_int8, c = served("planes_int8", p_int8, "B5", want_launch)
+    tok_int8, tps_int8, timed_int8, c = served("planes_int8", cfg, p_int8, batch, GEN, "B5",
+                                               want_launch)
     b5_launches = c["B5"]
     agree_int8 = (tok_int8 == tok_dense).float().mean().item()
     say(f"phase serve-int8: cim-planes_int8 {tps_int8:.1f} tok/s ({int8_gb:.2f} GB of int8 "
-        f"planes); token agreement with dense {agree_int8:.3f}; B5 launches {b5_launches} "
-        f"(want {want_launch}); plain-version calls 0")
+        f"planes built by {c6['B6']} B6 launches, one per operand dict); token agreement with "
+        f"dense {agree_int8:.3f}; B5 launches {b5_launches} (want {want_launch}); "
+        f"plain-version calls 0")
     say(f"phase trace: cim-planes_int8 generate: {trace(timed_int8)}")
-    logit_check(p_int8, "planes_int8")
+    logit_check(cfg, p_dense, p_int8, batch, "planes_int8")
     del p_int8, timed_int8, p_dense, plan
     torch.cuda.empty_cache()
 
@@ -460,8 +836,10 @@ def main() -> None:
     say(f"phase B4-planned: layer 0 wq/wk/wi_gate/wo of the {CODEC} deployment at M in "
         f"{{1, 4, 128}}: bit-equal to B2 ({n_planned} cases); live tiles {live}/{tiles} "
         f"({100 * live / tiles:.2f}%)")
-    tok_raw_pool, tps_raw_pool, _, _ = served("packed (pool plan)", p_raw_pool, "B2", want_launch)
-    tok_rle, tps_rle, timed_rle, c = served(f"packed {CODEC}", p_rle, "B4", want_launch)
+    tok_raw_pool, tps_raw_pool, _, _ = served("packed (pool plan)", cfg, p_raw_pool, batch, GEN,
+                                              "B2", want_launch)
+    tok_rle, tps_rle, timed_rle, c = served(f"packed {CODEC}", cfg, p_rle, batch, GEN, "B4",
+                                            want_launch)
     b4_launches = c["B4"]
     if not torch.equal(tok_rle, tok_raw_pool):
         fail(f"{CODEC} tokens differ from raw-packed tokens of the same plan")
@@ -503,13 +881,17 @@ def main() -> None:
     want1 = 7 * COLPERM_LAYERS * GEN
     p1_raw = planner.deploy_params(params1, plan1, materialize="packed", codec="raw")
     p1_cp = planner.deploy_params(params1, plan1, materialize="packed", codec="col_perm_rle")
-    tok1_raw, _, _, _ = served("packed (1 layer)", p1_raw, "B2", want1, cfg1)
-    tok1_cp, tps1_cp, _, c = served("packed col_perm_rle", p1_cp, "B4", want1, cfg1)
+    tok1_raw, _, _, _ = served("packed (1 layer)", cfg1, p1_raw, batch, GEN, "B2", want1)
+    tok1_cp, tps1_cp, _, c = served("packed col_perm_rle", cfg1, p1_cp, batch, GEN, "B4", want1)
     if not torch.equal(tok1_cp, tok1_raw):
         fail("col_perm_rle tokens differ from raw-packed tokens of the same plan")
     say(f"phase serve-col_perm_rle: {COLPERM_LAYERS} layer, {tps1_cp:.1f} tok/s; tokens "
         f"identical to raw-packed; B4 launches {c['B4']} (want {want1}); plain-version calls 0")
     del params1, plan1, p1_raw, p1_cp, w_ff
+    torch.cuda.empty_cache()
+
+    # --- 5b. yi-6b at full width ------------------------------------------------
+    yi = yi_phases(dev)
     torch.cuda.empty_cache()
 
     # --- 6. kernels: time, bound, plain, library -------------------------------
@@ -530,10 +912,6 @@ def main() -> None:
             return it["i"]
 
         return nxt
-
-    def bound(nbytes, flops):
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
-        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
     k, n = cfg.d_model, cfg.d_ff
     records = {}
@@ -616,6 +994,8 @@ def main() -> None:
         del i8
         torch.cuda.empty_cache()
 
+    rec_b3, rec_b6 = time_attention(dev), time_bitslice(dev)
+
     def row(name, source, replaces, launches, err, rec):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": err, "ms": rec["ms"],
@@ -636,6 +1016,10 @@ def main() -> None:
         row("cim_matmul_planes", "src/repro_torch/csrc/cim_planes.cu",
             "src/repro/kernels/cim_matmul/kernel.py:74", b5_launches, b5_err,
             records["B5 decode"]),
+        row("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:109", yi["B3"], b3_err, rec_b3),
+        row("bitslice", "src/repro_torch/csrc/bitslice.cu",
+            "src/repro/kernels/bitslice/kernel.py:35", yi["B6"], 0.0, rec_b6),
     ]
     say("kernels: " + ", ".join(
         f"{r['name']} launches={r['launches']} max_abs_err={r['max_abs_err']:.3e} "

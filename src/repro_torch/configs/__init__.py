@@ -1,7 +1,12 @@
 """Architecture configs served by the port + registry."""
 from repro_torch.configs.base import ArchConfig, get_arch, list_archs, register
 
-# importing the module registers its config
-from repro_torch.configs import gemma_2b  # noqa: F401  (registration side effect)
+# importing each module registers its config
+from repro_torch.configs import (  # noqa: F401  (registration side effect)
+    gemma_2b,
+    internlm2_1_8b,
+    phi3_medium_14b,
+    yi_6b,
+)
 
 __all__ = ["ArchConfig", "get_arch", "list_archs", "register"]

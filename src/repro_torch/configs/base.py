@@ -1,7 +1,8 @@
 """Architecture config schema and registry (the port's own copy).
 
 Only the fields the ported decoder path reads are kept: the attention +
-GeGLU-MLP decoder stack of ``block_pattern=(("attn", 1),)`` families.
+gated-MLP (SwiGLU or GeGLU) decoder stack of ``block_pattern=(("attn", 1),)``
+families.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ class ArchConfig:
     d_ff: int
     vocab_size: int
     head_dim: Optional[int] = None  # default d_model // n_heads
-    act: str = "geglu"  # the ported MLP is GeGLU (gemma)
+    act: str = "swiglu"  # swiglu | geglu
     rope_theta: float = 10000.0
     tie_embeddings: bool = False
     embed_scale: bool = False  # multiply embeddings by sqrt(d_model) (gemma)

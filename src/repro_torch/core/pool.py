@@ -135,15 +135,15 @@ class CrossbarPool:
         self.programs = 0
         self.total_writes = 0
 
-    # -- faults and integrity (ROADMAP A13) ---------------------------------
+    # -- faults and integrity (ROADMAP A.13) ---------------------------------
 
     def enable_integrity(self, cfg=None):
         raise NotImplementedError(
-            "the integrity layer (scrub/repair) is ported with ROADMAP A13"
+            "the integrity layer (scrub/repair) is ported with ROADMAP A.13"
         )
 
     def inject_faults(self, model, key=None):
-        raise NotImplementedError("fault injection (core/nonideal) is ported with ROADMAP A13")
+        raise NotImplementedError("fault injection (core/nonideal) is ported with ROADMAP A.13")
 
     def read_state(self) -> np.ndarray:
         """Host copy of the pool content as read (no fault masks yet)."""

@@ -12,8 +12,8 @@ of a deployed weight ``[..., K, N]`` is one of two dicts:
   ``p`` weighs ``2**plane_ids[p]``) and ``plane_tile_nz``
   uint8[..., cols, ceil(K/128)] (const_rle: zero-tile flags);
 * **int8 signed planes** — ``splanes`` int8[..., cols, K, N] in
-  {-1, 0, 1}, sign folded in: one byte of traffic per bit cell, the
-  per-step bit-sliced simulation baseline.
+  {-1, 0, 1}, sign folded in (built by kernel B6 on CUDA): one byte of
+  traffic per bit cell, the per-step bit-sliced simulation baseline.
 
 Both carry ``scale`` / ``offset`` float32[...].  ``cim_linear`` runs the
 matching kernel on CUDA tensors (B5 for int8 planes, B4 for flagged packed
@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.core import bitslice
 from repro_torch.core import planes as planes_mod
+from repro_torch.kernels.bitslice import ops as bs_ops
 from repro_torch.kernels.cim_matmul import ops as cim_ops
 from repro_torch.kernels.cim_matmul import ref as cim_ref
 
@@ -42,7 +43,11 @@ def int8_plane_operands(
     q: torch.Tensor, sign: torch.Tensor, scale, offset, cols: int
 ) -> dict[str, torch.Tensor]:
     """Magnitudes + signs [..., K, N] -> int8 signed-plane operands
-    (``splanes`` [..., cols, K, N], plane 0 = LSB, sign folded in)."""
+    (``splanes`` [..., cols, K, N], plane 0 = LSB, sign folded in).
+
+    The route of the reference's ``operands_from_dense``, in plain torch ops;
+    serving builds its planes with kernel B6 instead (``operands_from_dense``),
+    and the tests and ``chip_smoke.py`` hold B6 against this."""
     splanes = torch.stack(
         [((q >> b) & 1).to(torch.int8) * sign for b in range(cols)], dim=-3
     )
@@ -79,6 +84,13 @@ def operands_from_dense(
     q = 0 cell stored as -0.0.  ``codec`` applies the serving-side plane
     codec (``planes.encode_operands``) to packed operands; only they have a
     stored-plane layout to encode.
+
+    Int8 planes are built by ``bitslice_planes(w_hat, 1 / scale, cols)``
+    (kernel B6 on CUDA, its plain version on the CPU), the role the
+    reference's bitslice kernel was written for: for a deployed weight
+    ``|w_hat| * (1 / scale)`` lies within ~1e-4 of the same integer as
+    ``|w_hat| / scale``, and a q = 0 cell is 0 in every plane whatever its
+    sign, so the planes equal the reference's.
     """
     if codec != "raw" and materialize != "packed":
         raise ValueError(
@@ -91,13 +103,15 @@ def operands_from_dense(
         raise NotImplementedError(
             f"encoding {encoding!r} is not ported (offset_binary: ROADMAP A.2)"
         )
-    w32 = w_hat.to(torch.float32)
+    w32 = w_hat.to(torch.float32).contiguous()
     scale_t = torch.as_tensor(scale, dtype=torch.float32, device=w32.device)
+    if materialize == "planes_int8":
+        splanes = bs_ops.bitslice_planes(w32, 1.0 / scale_t, cols)
+        return {"splanes": splanes,
+                **_lead_scalars(scale_t, offset, tuple(w32.shape[:-2]), w32.device)}
     levels = float(2**cols - 1)
     q = torch.clamp(torch.round(w32.abs() / scale_t), 0, levels).to(torch.int32)
     sign = torch.where(torch.signbit(w32), -1, 1).to(torch.int8)
-    if materialize == "planes_int8":
-        return int8_plane_operands(q, sign, scale_t, offset, cols)
     return planes_mod.encode_operands(packed_operands(q, sign, scale_t, offset, cols), codec)
 
 

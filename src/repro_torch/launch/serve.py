@@ -5,17 +5,22 @@ planned onto crossbars through one persistent ``CrossbarPool`` (cross-tensor
 seams, per-cell wear) and served as its achieved weights — ``dense`` as
 ordinary matmuls, ``packed`` straight from the bit-packed planes (kernel B2,
 or B4 under a ``*_rle`` codec), ``planes_int8`` from one byte per bit cell
-(kernel B5).  The report gives tok/s, token agreement with fp weights, the
-reprogramming speedups, pool wear and the endurance horizon.
+(built by kernel B6, served by kernel B5).  The report gives tok/s, token
+agreement with fp weights, the reprogramming speedups, pool wear and the
+endurance horizon.
 
 ``--codec`` (``core/planes.py``) changes the physical bits the pool
 programs and, with ``--materialize packed``, the serving operand layout
 (plane reorder + zero-tile skipping); tokens do not change.  Fault
-injection and scrubbing are not ported yet (ROADMAP A13).
+injection and scrubbing are not ported yet (ROADMAP A.13).  Archs: the
+dense decoders gemma-2b, yi-6b, internlm2-1.8b, phi3-medium-14b; prefill
+attention runs kernel B3 on the card.
 
 Usage (on the card):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b --layers 4 \
       --cim --materialize packed [--codec const_rle --pool-leveling lpt --p-stuck 0.5]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --layers 4 \
+      --cim --materialize planes_int8
 Add ``--reduced --device cpu`` for the small config on the CPU.
 """
 from __future__ import annotations

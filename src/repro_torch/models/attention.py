@@ -1,16 +1,64 @@
 """Attention for prefill and decode (port of ``repro.models.attention``).
 
-Plain PyTorch: the reference computes attention in pure JAX (no Pallas
-kernel is on the serving path).  The causal mask and the -1e30 fill are the
-reference's; its bidirectional and sliding-window masks come with the model
-families that use them.  GQA/MQA groups queries (B, Hkv, G, S, D) instead of
-repeating KV.
+``attention`` is the blocks' entry point, the counterpart of the
+reference's dispatcher: on CUDA tensors it runs kernel B3
+(``kernels/flash_attention``, the port of the Pallas flash-attention kernel
+that implements this contract for the TPU); on CPU tensors it runs
+``blockwise_attention``, the reference's default attention, in plain
+PyTorch.  ``decode_attention`` stays plain PyTorch on every device, as the
+reference's decode does.
+
+Mask kinds: "causal", "bidir", "swa" (sliding window, causal); masked
+scores are filled with -1e30.  GQA/MQA groups queries (B, Hkv, G, S, D)
+instead of repeating KV.  The reference's ``banded_swa_attention`` (off by
+default, used by no dense config) is not ported (ROADMAP A.16).
 """
 from __future__ import annotations
 
+from typing import Optional, Union
+
 import torch
 
+from repro_torch.kernels._util import use_kernel
+from repro_torch.kernels.flash_attention import ops as fa_ops
+
 NEG_INF = -1e30
+
+
+def attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    kind: str = "causal",
+    window: Optional[int] = None,
+    q_offset: Union[int, torch.Tensor] = 0,
+    block_k: int = 1024,
+) -> torch.Tensor:
+    """Attention entry point used by the blocks: kernel B3 on CUDA tensors,
+    ``blockwise_attention`` on CPU tensors (same contract)."""
+    if use_kernel(q):
+        return fa_ops.flash_attention(q, k, v, kind=kind, window=window, q_offset=q_offset)
+    return blockwise_attention(q, k, v, kind=kind, window=window, q_offset=q_offset,
+                               block_k=block_k)
+
+
+def _block_mask(
+    q_pos: torch.Tensor, k_pos: torch.Tensor, kind: str, window: Optional[int]
+) -> torch.Tensor:
+    """(..., Sq, bk) boolean visibility mask from absolute positions;
+    ``q_pos`` is (Sq,) or (B, Sq) for per-row offsets."""
+    qp = q_pos[..., None]
+    if kind == "bidir":
+        return torch.ones(q_pos.shape + (k_pos.shape[0],), dtype=torch.bool, device=q_pos.device)
+    if kind not in ("causal", "swa"):
+        raise ValueError(f"unknown attention kind {kind!r}")
+    mask = k_pos <= qp
+    if kind == "swa":
+        if window is None:
+            raise ValueError("kind='swa' needs a window")
+        mask = mask & (k_pos > qp - window)
+    return mask
 
 
 def blockwise_attention(
@@ -18,16 +66,23 @@ def blockwise_attention(
     k: torch.Tensor,
     v: torch.Tensor,
     *,
+    kind: str = "causal",
+    window: Optional[int] = None,
+    q_offset: Union[int, torch.Tensor] = 0,
     block_k: int = 1024,
+    kv_valid_len: Union[int, torch.Tensor, None] = None,
 ) -> torch.Tensor:
-    """Causal online-softmax attention over key blocks of ``block_k``.
+    """Online-softmax attention over key blocks of ``block_k``.
 
-    q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D); q holds positions [0, Sq).
-    Returns (B, Hq, Sq, Dv) in q's dtype.
+    q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D) with Hq % Hkv == 0.
+    ``q_offset``: absolute position of q[0], a scalar or a (B,) vector of
+    per-row offsets.  ``kv_valid_len``: optional scalar or (B,) vector; key
+    positions >= it are masked.  Returns (B, Hq, Sq, Dv) in q's dtype.
     """
+    blockwise_attention.calls += 1
     b, hq, sq, d = q.shape
     _, hkv, sk, _ = k.shape
-    dv = v.shape[-1]
+    dv = v.shape[-1]  # v head dim may differ from qk head dim (MLA)
     g = hq // hkv
     if hq != hkv * g:
         raise ValueError(f"query heads {hq} not a multiple of kv heads {hkv}")
@@ -39,7 +94,10 @@ def blockwise_attention(
         k = torch.nn.functional.pad(k, (0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, pad))
     qg = q.reshape(b, hkv, g, sq, d).to(torch.float32)
-    q_pos = torch.arange(sq, device=dev)
+    # (Sq,) shared positions, or (B, Sq) per-row
+    off = torch.as_tensor(q_offset, device=dev)
+    q_pos = (off[..., None] if off.ndim else off) + torch.arange(sq, device=dev)
+    vl = None if kv_valid_len is None else torch.as_tensor(kv_valid_len, device=dev).reshape(-1, 1)
 
     m = torch.full((b, hkv, g, sq), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((b, hkv, g, sq), dtype=torch.float32, device=dev)
@@ -49,8 +107,14 @@ def blockwise_attention(
         vb = v[:, :, kj * block_k:(kj + 1) * block_k].to(torch.float32)
         s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kb) * scale
         k_pos = kj * block_k + torch.arange(block_k, device=dev)
-        mask = (k_pos[None, :] <= q_pos[:, None]) & (k_pos < sk)[None, :]
-        s = torch.where(mask, s, NEG_INF)
+        mask = _block_mask(q_pos, k_pos, kind, window)  # (Sq, bk) or (B, Sq, bk)
+        valid = k_pos < sk
+        if vl is not None:
+            valid = valid & (k_pos[None, :] < vl)  # (1|B, bk)
+        mask = mask & valid[..., None, :]
+        if mask.ndim == 2:
+            mask = mask[None]
+        s = torch.where(mask[:, None, None], s, NEG_INF)
         m_new = torch.maximum(m, s.max(dim=-1).values)
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new[..., None])
@@ -61,16 +125,23 @@ def blockwise_attention(
     return out.reshape(b, hq, sq, dv).to(q.dtype)
 
 
+blockwise_attention.calls = 0
+
+
 def decode_attention(
     q: torch.Tensor,
     k_cache: torch.Tensor,
     v_cache: torch.Tensor,
-    valid_len: int,
+    valid_len: Union[int, torch.Tensor],
+    *,
+    window: Optional[int] = None,
 ) -> torch.Tensor:
     """Single-step attention against a partially filled KV cache.
 
     q: (B, Hq, 1, D); caches: (B, Hkv, S, D); ``valid_len`` cache positions
-    are valid (the new token's KV already written).
+    are valid (the new token's KV already written): a scalar, or a (B,)
+    vector of per-row lengths.  ``window`` keeps only the last ``window``
+    valid positions (sliding-window layers).
     """
     b, hq, _, d = q.shape
     _, hkv, s, _ = k_cache.shape
@@ -78,7 +149,12 @@ def decode_attention(
     qg = q.reshape(b, hkv, g, 1, d).to(torch.float32)
     scores = torch.einsum("bhgqd,bhkd->bhgqk", qg, k_cache.to(torch.float32)) * d**-0.5
     pos = torch.arange(s, device=q.device)
-    scores = torch.where(pos < valid_len, scores, NEG_INF)
+    # a Python int stays on the host (no per-step copy to the card)
+    vl = valid_len if isinstance(valid_len, int) else valid_len.to(q.device).reshape(-1, 1)
+    mask = pos < vl  # (S,) or (B, S)
+    if window is not None:
+        mask = mask & (pos >= vl - window)
+    scores = torch.where(mask.reshape(-1, 1, 1, 1, s), scores, NEG_INF)
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v_cache.to(torch.float32))
     return out.reshape(b, hq, 1, d).to(q.dtype)

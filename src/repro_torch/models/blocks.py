@@ -13,7 +13,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers
-from repro_torch.models.attention import blockwise_attention, decode_attention
+from repro_torch.models.attention import attention, decode_attention
 from repro_torch.models.layers import Params
 
 
@@ -56,10 +56,11 @@ def attention_fwd(
     *,
     return_cache: bool = False,
 ):
-    """Causal self-attention over the whole of ``x`` (positions from 0)."""
+    """Causal self-attention over the whole of ``x`` (positions from 0):
+    kernel B3 on the card, ``blockwise_attention`` on the CPU."""
     b, s, _ = x.shape
     q, k, v = _qkv(p, cfg, x, torch.arange(s, device=x.device))
-    out = blockwise_attention(q, k, v)
+    out = attention(q, k, v, kind="causal")
     out = out.transpose(1, 2).reshape(b, s, -1)
     y = layers.linear(p["wo"], out, x.dtype)
     return y, ({"k": k, "v": v} if return_cache else None)

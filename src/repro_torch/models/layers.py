@@ -100,13 +100,14 @@ def init_glu_mlp(gen, d_model: int, d_ff: int, device, lead: tuple[int, ...] = (
 
 
 def glu_mlp(p: Params, x: torch.Tensor, act: str, dtype: torch.dtype) -> torch.Tensor:
-    if act != "geglu":
-        raise NotImplementedError(
-            f"MLP activation {act!r} is ported with the model-families slice (ROADMAP A16)"
-        )
     gate = linear(p["wi_gate"], x, dtype)
     up = linear(p["wi_up"], x, dtype)
-    h = F.gelu(gate, approximate="tanh") * up
+    if act == "swiglu":
+        h = F.silu(gate) * up
+    elif act == "geglu":
+        h = F.gelu(gate, approximate="tanh") * up
+    else:
+        raise ValueError(f"unknown act {act!r}")
     return linear(p["wo"], h, dtype)
 
 

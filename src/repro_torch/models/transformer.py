@@ -3,8 +3,8 @@
 ``cfg.layer_kinds()`` groups consecutive identical kinds into segments; each
 segment's params are stacked on a leading layer axis (the reference scans
 over it), and the port walks that axis in a Python loop, handing each layer
-its slice — dense tensors and packed operand dicts alike.  This slice ports
-the ``attn`` kind only.
+its slice — dense tensors and packed operand dicts alike.  The port has
+the ``attn`` kind only (the dense decoders).
 
 Interface:
   init(cfg, seed=, device=)                        -> params (device: cuda default)
@@ -33,7 +33,7 @@ def segments_of(cfg: ArchConfig) -> list[tuple[str, int]]:
     for kind in cfg.layer_kinds():
         if kind not in KINDS:
             raise NotImplementedError(
-                f"block kind {kind!r} is ported with the model-families slice (ROADMAP A16)"
+                f"block kind {kind!r} is ported with the other model families (ROADMAP A.16)"
             )
         if runs and runs[-1][0] == kind:
             runs[-1] = (kind, runs[-1][1] + 1)
