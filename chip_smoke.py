@@ -16,11 +16,14 @@ Phases (one line each, any failed check exits 1):
      different orders, each within K * eps of exact);
      B4 (the zero-tile skipping twin) == B2 bit for bit on synthetic
      operands with 0-90% zero tiles, with and without permuted plane_ids;
-     B5 (int8-plane matmul, both modes) vs its plain version, same bound;
+     B5 (int8-plane matmul, both modes, cols 10 and 16, M from 1 to 300)
+     vs its plain version, same bound, bf16 fused_dequant on its
+     tensor-core kernel and the rest on its FMA kernel;
      B3 (flash attention) vs its plain version at yi-6b's and gemma-2b's
      serve shapes and a 2048-token prefill of each, causal / bidir /
-     swa(256), scalar and per-row offsets and valid lengths, f32 within
-     2e-5 (abs + rel) and bf16 within one bf16 ulp more;
+     swa(256), scalar and per-row offsets and valid lengths, f32 (FMA
+     kernel) within 2e-5 (abs + rel) and bf16 (tensor-core kernel) within
+     one bf16 ulp more;
      B6 (bitslice) == its plain version bit for bit on [4, 4096, 11008]
      weights with planted .5 ties;
   4. plan: build_deployment on the card, B1 launches > 0, and one stacked
@@ -34,13 +37,17 @@ Phases (one line each, any failed check exits 1):
      (planes built by B6, one launch per operand dict; B5), each launching
      7 * layers * gen times with no plain-version call;
      col_perm_rle at 1 layer (B4 with plane_ids, 7 * gen launches);
-     every generate runs B3 once per layer in its prefill;
+     every generate runs B3 once per layer in its prefill, on the
+     tensor-core kernel (B3_tc), and planes_int8 runs every bf16 matmul on
+     B5's tensor-core kernel (B5_tc);
   5b. yi-6b: plan at full width (4 layers), CPU re-plan of
      segments/0/attn/wk; B6 planes of every planned tensor == the route
      before B6 (q = round(|w_hat| / scale)); serve fp, cim-dense,
      cim-packed and cim-planes_int8 with (7 * layers + 1) * gen B2 / B5
      launches (the +1: the planned LM head), B3 = layers per prefill;
-  6. kernels: time, bound, plain-version and library times.
+  6. kernels: time, bound (the bf16 tensor-core rate for the tensor-core
+     paths, the f32 rate for the FMA kernels), plain-version and library
+     times; B3 and B5 on both paths.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
@@ -61,6 +68,7 @@ sys.path.insert(0, str(ROOT / "src"))
 LAYERS, BATCH, PROMPT, GEN, P_STUCK = 4, 4, 32, 16, 0.5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_TC_FLOPS = 989e12  # H100 SXM dense bf16 on the tensor cores (B3's and B5's bf16 paths)
 B2_BOUND_C = 2.0
 CHECK_TENSOR = "segments/0/attn/wk"
 CODEC = "const_rle"  # the pool plan's codec; col_perm_rle runs at COLPERM_LAYERS
@@ -70,7 +78,6 @@ QUANT_MSE_RTOL = 1e-6
 F32_LOGIT_RTOL = 1e-3  # f32 prefill, packed vs dense: sums of <= 16384 terms reordered
 BF16_LOGIT_RTOL = 0.02  # bf16 prefill: dense rounds w_hat to bf16, packed keeps it exact
 YI_LAYERS = 4
-B3_TOL = 2e-5  # f32 attention, kernel vs plain: the reference's own kernel tolerance
 B3_WINDOW = 256
 B3_LONG = 2048  # the long-prefill check and timing length
 
@@ -97,6 +104,32 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 20, warmup: int = 3) -> float | None:
+    """Device time of one ``fn()`` in ms: for each kernel it launches (once a
+    call), its mean time under torch.profiler (CUPTI), summed; the host's
+    gaps between launches, which ``cuda_ms`` includes when the host is the
+    slower side, are left out.  A mean per recorded launch, so a dropped
+    record does not bias it; None when no device record came back."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    per_kernel = [e.self_device_time_total / e.count for e in prof.key_averages()
+                  if str(getattr(e, "device_type", "")).endswith("CUDA") and e.count
+                  and getattr(e, "self_device_time_total", 0) > 0]
+    return sum(per_kernel) / 1e3 if per_kernel else None
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
 
 
 def trace(run, top: int = 6) -> str:
@@ -174,11 +207,13 @@ def counts() -> dict:
             **bs_ops.LAUNCHES, "plain": sum(fn.calls for fn in plain_fns())}
 
 
-def served(label, cfg, params, batch, gen, kernel, want):
+def served(label, cfg, params, batch, gen, kernel, want, want_tc=0):
     """Warm up, then one timed generate with the counts zeroed just before
     and read just after; tok/s is the best of 3 timed passes.  Fails unless
-    ``kernel`` launched ``want`` times (None: no CIM kernel), B3 once per
-    layer, nothing else, and no plain version was called."""
+    ``kernel`` launched ``want`` times (None: no CIM kernel), ``want_tc`` of
+    them on its tensor-core kernel, B3 once per layer (on the tensor-core
+    kernel in bf16 compute), nothing else, and no plain version was
+    called."""
     from repro_torch.launch import serve
 
     timed = serve.make_generator(cfg, params, batch, gen_len=gen)
@@ -191,7 +226,10 @@ def served(label, cfg, params, batch, gen, kernel, want):
         tps = max(tps, b * gen / timed()[1])
     if toks.shape != (b, gen) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
         fail(f"{label} tokens malformed: shape {tuple(toks.shape)}")
-    expect = {"B3": cfg.n_layers, **({kernel: want} if kernel else {})}
+    expect = {"B3": cfg.n_layers, **({kernel: want} if kernel else {}),
+              **({f"{kernel}_tc": want_tc} if want_tc else {})}
+    if cfg.dtype == "bfloat16":
+        expect["B3_tc"] = cfg.n_layers
     got = {k: v for k, v in c.items() if k != "plain" and v}
     if got != expect or c["plain"]:
         fail(f"{label} generate launched {c} (want {expect}, nothing else, no plain-version "
@@ -252,18 +290,23 @@ def deploy_int8(params, plan):
     return p_int8, c
 
 
-def bound(nbytes, flops):
-    """Least time in ms for moving ``nbytes`` through HBM and doing ``flops``
-    f32 operations, and which of the two bounds it."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+def bound(nbytes, flops, rate=F32_FLOPS):
+    """Least time in ms for moving ``nbytes`` through HBM and doing the
+    function's ``flops`` at ``rate`` (the f32 FMA rate for the FMA kernels,
+    the bf16 tensor-core rate for the tensor-core paths), and which of the
+    two bounds it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def time_attention(dev) -> dict:
-    """B3, bf16 causal, at yi-6b's and gemma-2b's serve prefill shapes and a
-    2048-token prefill of each: kernel, plain version, SDPA (timed as a
-    yardstick only) and the bound (q, k, v, o bytes; 4 * D FLOPs per
-    visible pair).  Returns the record at yi-6b's serve shape."""
+    """B3, causal, at yi-6b's and gemma-2b's serve prefill shapes and a
+    2048-token prefill of each: the bf16 tensor-core kernel (the main
+    path) and the f32 FMA kernel, the plain version, SDPA (timed as a
+    yardstick only) and each path's bound (q, k, v, o bytes; 4 * D FLOPs per
+    visible pair at the bf16 tensor-core rate or the f32 rate).  Also the
+    host time of one bf16 call's TMA descriptor encoding.  Returns the
+    record at yi-6b's serve shape."""
     import torch
     import torch.nn.functional as F
 
@@ -276,18 +319,30 @@ def time_attention(dev) -> dict:
             lay = layout if s == PROMPT else (1,) + layout[1:]
             b, hq, _, d = lay
             q, k, v, _, _ = attention_inputs(dev, lay, s, False, torch.bfloat16, seed=s + d)
+            if (name, s) == ("yi-6b", PROMPT):
+                say(f"phase kernels: B3 TMA descriptor encoding (3 maps, host) "
+                    f"{fa_ops.encode_us(q, k, v):.3f} us a call")
             ms = cuda_ms(lambda: fa_ops.flash_attention(q, k, v, kind="causal"))
+            qf, kf, vf = q.float(), k.float(), v.float()
+            ms_f32 = cuda_ms(lambda: fa_ops.flash_attention(qf, kf, vf, kind="causal"))
             plain = cuda_ms(lambda: fa_ref.flash_attention(q, k, v, kind="causal"), reps=5)
             library = cuda_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True))
+            flops = 4 * d * hq * live_pairs(b, s, s, "causal", s, 0, None)
             nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
-            bnd, by = bound(nbytes, 4 * d * hq * live_pairs(b, s, s, "causal", s, 0, None))
+            bnd, by = bound(nbytes, flops, BF16_TC_FLOPS)
+            bnd32, by32 = bound(2 * nbytes, flops)
+            dev_tc = device_ms(lambda: fa_ops.flash_attention(q, k, v, kind="causal"))
+            dev_lib = device_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True))
             records[(name, s)] = dict(ms=ms, plain_ms=plain, library_ms=library, bound_ms=bnd,
                                       bound_by=by)
-            lines.append(f"{name} B={b} S={s}: {ms:.4f} ms (bound {bnd:.4f} by {by}, plain "
-                         f"{plain:.4f}, SDPA {library:.4f})")
-            del q, k, v
-    say("phase kernels: B3 bf16 causal: " + "; ".join(lines))
+            lines.append(f"{name} B={b} S={s}: bf16 tensor cores {ms:.4f} ms (device only "
+                         f"{fmt_ms(dev_tc)}; bound {bnd:.4f} by {by}), f32 FMA {ms_f32:.4f} ms "
+                         f"(bound {bnd32:.4f} by {by32}), plain {plain:.4f}, SDPA {library:.4f} "
+                         f"(device only {fmt_ms(dev_lib)})")
+            del q, k, v, qf, kf, vf
+    say("phase kernels: B3 causal: " + "; ".join(lines))
     torch.cuda.empty_cache()
     return records[("yi-6b", PROMPT)]
 
@@ -311,20 +366,6 @@ def time_bitslice(dev) -> dict:
     del w
     torch.cuda.empty_cache()
     return dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bnd, bound_by=by)
-
-
-def attention_bound(want):
-    """Allowed |kernel - plain| of B3 per element: 2e-5 abs + rel, and one
-    bf16 ulp of the output more in bf16 (both round an f32 result)."""
-    import torch
-
-    w = want.float().abs()
-    bound = B3_TOL + B3_TOL * w
-    if want.dtype == torch.bfloat16:
-        tiny = torch.finfo(torch.float32).tiny
-        bound = bound + torch.finfo(torch.bfloat16).eps * torch.exp2(
-            torch.floor(torch.log2(w.clamp_min(tiny))))
-    return bound
 
 
 def attention_inputs(dev, layout, s, per_row, dtype, seed):
@@ -365,8 +406,9 @@ def live_pairs(b, s, sk, kind, kvl, off, window):
 
 
 def check_b3(dev):
-    """B3 against its plain version in every case; returns the max |d| and
-    the per-case lines."""
+    """B3 against its plain version in every case (bf16 on the tensor-core
+    kernel, f32 on the FMA kernel, which the launch counts must show);
+    returns the max |d| and the number of cases."""
     import torch
 
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -383,16 +425,20 @@ def check_b3(dev):
                 for per_row in (False, True):
                     for dtype in (torch.float32, torch.bfloat16):
                         q, k, v, kvl, off = attention_inputs(dev, lay, s, per_row, dtype, seed=n)
+                        fa_ops.reset_launches()
                         got = fa_ops.flash_attention(q, k, v, kvl, kind=kind, window=window,
                                                      q_offset=off)
+                        path = dict(fa_ops.LAUNCHES)
                         want = fa_ref.flash_attention(q, k, v, kvl, kind=kind, window=window,
                                                       q_offset=off)
                         torch.cuda.synchronize()
                         err = (got.float() - want.float()).abs()
                         tag = (f"{kind} {'per-row' if per_row else 'scalar'} "
                                f"{str(dtype).split('.')[-1]}")
+                        if path != {"B3": 1, "B3_tc": int(dtype == torch.bfloat16)}:
+                            fail(f"B3 {name} S={s} {tag} took the wrong kernel: {path}")
                         if got.shape != want.shape or got.dtype != dtype or not bool(
-                                (err <= attention_bound(want)).all()):
+                                (err <= fa_ref.attention_bound(want)).all()):
                             fail(f"B3 outside its tolerance on {name} B={lay[0]} S={s} {tag}: "
                                  f"max |d| {err.max().item():.3e}")
                         errs.append(f"{tag} {err.max().item():.2e}")
@@ -515,14 +561,17 @@ def yi_phases(dev) -> dict:
     int8_gb = sum(v["splanes"].numel() for v in _operand_dicts(p_int8)) / 1e9
     say(f"phase yi-B6: planes of all {n_eq} planned matmul tensors built by {c6['B6']} B6 "
         f"launches ({int8_gb:.2f} GB) equal the route before B6 bit for bit")
+    # bf16 activations on the tensor-core kernel; the planned head's f32
+    # activations on the FMA kernel (GEN launches)
     tok_int8, tps_int8, timed_int8, c = served("yi-6b planes_int8", cfg, p_int8, batch, GEN,
-                                               "B5", want)
+                                               "B5", want, want_tc=want - GEN)
     # packed and int8 planes both compute on the exact deployed weights;
     # dense rounds them to bf16, which flips yi's near-tied random logits
     say(f"phase yi-serve-int8: cim-planes_int8 {tps_int8:.1f} tok/s; token agreement with "
         f"dense {(tok_int8 == tok_dense).float().mean().item():.3f}, with packed "
         f"{(tok_int8 == tok_packed).float().mean().item():.3f}; B5 launches {c['B5']} "
-        f"(want {want}); B3 launches {c['B3']}; plain-version calls 0")
+        f"(want {want}), on tensor cores {c['B5_tc']} (want {want - GEN}); B3 launches "
+        f"{c['B3']}, on tensor cores {c['B3_tc']}; plain-version calls 0")
     say(f"phase trace: yi-6b cim-planes_int8 generate: {trace(timed_int8)}")
     logit_check(cfg, p_dense, p_int8, batch, "planes_int8")
     # in float32 compute all three serve the same weights (dense no longer
@@ -549,6 +598,7 @@ def main() -> None:
         from repro_torch.kernels.bitslice import ref as bs_ref
         from repro_torch.kernels.cim_matmul import ops as cim_ops
         from repro_torch.kernels.cim_matmul import ref as cim_ref
+        from repro_torch.kernels.flash_attention import ref as fa_ref
         from repro_torch.kernels.hamming import ops as ham_ops
         from repro_torch.kernels.hamming import ref as ham_ref
         from repro_torch.models import api
@@ -662,32 +712,42 @@ def main() -> None:
         f"bit-equal to B2; max |d| to the plain version {b4_err:.3e}")
 
     b5_err, n5 = 0.0, 0
-    for m, k, n in cases:
-        gg = torch.Generator(device=dev).manual_seed(m + k + n)
-        q = torch.randint(0, 1024, (k, n), dtype=torch.int32, device=dev, generator=gg)
+    # the B2 cases, M in {16, 17, 300}, and cols 16 (weights up to 2^16 - 1)
+    b5_cases = [(m, k, n, 10) for m, k, n in cases] + [
+        (16, 2048, 16384, 10), (17, 2048, 2048, 10), (300, 2048, 2048, 10),
+        (4, 2048, 2048, 16), (128, 2048, 16384, 16), (17, 1001, 333, 16)]
+    for m, k, n, cols in b5_cases:
+        gg = torch.Generator(device=dev).manual_seed(m + k + n + cols)
+        q = torch.randint(0, 2**cols, (k, n), dtype=torch.int32, device=dev, generator=gg)
         s = torch.where(torch.rand(k, n, device=dev, generator=gg) < 0.5, -1, 1).to(torch.int8)
-        op = simulator.int8_plane_operands(q, s, 0.02 / 1023, 0.0, 10)
+        op = simulator.int8_plane_operands(q, s, 0.02 / (2**cols - 1), 0.0, cols)
         w_abs = q.float() * op["scale"]
         del q, s
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(m, k, device=dev, generator=g).to(dtype)
             for mode in cim_ref.MODES:
+                cim_ops.reset_launches()
                 got = cim_ops.cim_matmul(x, op["splanes"], op["scale"], mode=mode)
+                path = {key: v for key, v in cim_ops.LAUNCHES.items() if v}
+                tc = dtype == torch.bfloat16 and mode == "fused_dequant"
+                if path != {"B5": 1, **({"B5_tc": 1} if tc else {})}:
+                    fail(f"B5 {mode} {dtype} at M={m} took the wrong kernel: {path}")
                 want = cim_ref.cim_matmul(x, op["splanes"], op["scale"], mode)
                 torch.cuda.synchronize()
                 err = (got - want).abs()
                 if got.shape != (m, n) or not bool((err <= matmul_bound(x, w_abs)).all()):
                     fail(f"B5 {mode} outside |d| <= {B2_BOUND_C}*eps*K*(|x|@|w|) at M={m} "
-                         f"K={k} N={n} {dtype}: max err {err.max().item():.3e}")
+                         f"K={k} N={n} cols={cols} {dtype}: max err {err.max().item():.3e}")
                 b5_err = max(b5_err, err.max().item())
                 n5 += 1
         del op, w_abs
-    say(f"phase B5: {n5} cases (both modes, f32 and bf16 x) within {B2_BOUND_C}*eps*K*(|x|@|w|), "
-        f"max |d| {b5_err:.3e}")
+    say(f"phase B5: {n5} cases (both modes, f32 and bf16 x, cols 10 and 16; bf16 fused_dequant "
+        f"on the tensor-core kernel) within {B2_BOUND_C}*eps*K*(|x|@|w|), max |d| {b5_err:.3e}")
     torch.cuda.empty_cache()
 
     b3_err, n3 = check_b3(dev)
-    say(f"phase B3: {n3} cases within {B3_TOL:g} (abs + rel; bf16 one ulp more), max |d| "
+    say(f"phase B3: {n3} cases within {fa_ref.TOL:g} (abs + rel; bf16 one ulp more; bf16 on "
+        f"the tensor-core kernel, f32 on the FMA kernel), max |d| "
         f"{b3_err:.3e}")
 
     inv = torch.tensor(4096.0, device=dev)  # a power of two keeps the planted ties exact
@@ -797,7 +857,8 @@ def main() -> None:
     say(f"phase serve: batch {BATCH} prompt {PROMPT} gen {GEN} greedy; tok/s fp "
         f"{tps_fp:.1f} cim-dense {tps_dense:.1f} cim-packed {tps_packed:.1f}; packed/dense "
         f"token agreement {agree:.3f}; B2 launches {b2_launches} (want {want_launch}); "
-        f"B3 launches {c['B3']} (want {LAYERS}, every variant); plain-version calls 0")
+        f"B3 launches {c['B3']} (want {LAYERS}, every variant), on tensor cores {c['B3_tc']}; "
+        f"plain-version calls 0")
 
     say(f"phase trace: cim-packed generate: {trace(timed_packed)}")
     say(f"phase trace: cim-dense generate: {trace(timed_dense)}")
@@ -809,12 +870,13 @@ def main() -> None:
     p_int8, c6 = deploy_int8(params, plan)
     int8_gb = sum(v["splanes"].numel() for v in _operand_dicts(p_int8)) / 1e9
     tok_int8, tps_int8, timed_int8, c = served("planes_int8", cfg, p_int8, batch, GEN, "B5",
-                                               want_launch)
+                                               want_launch, want_tc=want_launch)
     b5_launches = c["B5"]
     agree_int8 = (tok_int8 == tok_dense).float().mean().item()
     say(f"phase serve-int8: cim-planes_int8 {tps_int8:.1f} tok/s ({int8_gb:.2f} GB of int8 "
         f"planes built by {c6['B6']} B6 launches, one per operand dict); token agreement with "
-        f"dense {agree_int8:.3f}; B5 launches {b5_launches} (want {want_launch}); "
+        f"dense {agree_int8:.3f}; B5 launches {b5_launches} (want {want_launch}), on tensor "
+        f"cores {c['B5_tc']} (want {want_launch}); B3 on tensor cores {c['B3_tc']}; "
         f"plain-version calls 0")
     say(f"phase trace: cim-planes_int8 generate: {trace(timed_int8)}")
     logit_check(cfg, p_dense, p_int8, batch, "planes_int8")
@@ -982,15 +1044,25 @@ def main() -> None:
         nxt = cycle(4)
         ms5 = {mode: cuda_ms(lambda: cim_ops.cim_matmul(
             x, i8[nxt()]["splanes"], i8[0]["scale"], mode=mode)) for mode in cim_ref.MODES}
+        ms5_f32 = cuda_ms(lambda: cim_ops.cim_matmul(xf, i8[nxt()]["splanes"], i8[0]["scale"]))
         plain5 = cuda_ms(lambda: cim_ref.cim_matmul(x, i8[nxt()]["splanes"], i8[0]["scale"]),
                          reps=3)
         library5 = cuda_ms(lambda: torch.matmul(xf, i8[nxt()]["dense"]))
-        b, by = bound(m * k * 2 + 10 * k * n + m * n * 4, 2 * m * k * n)
+        b, by = bound(m * k * 2 + 10 * k * n + m * n * 4, 2 * m * k * n, BF16_TC_FLOPS)
+        b32, by32 = bound(m * k * 4 + 10 * k * n + m * n * 4, 2 * m * k * n)
         records[f"B5 {label}"] = dict(ms=ms5["fused_dequant"], plain_ms=plain5,
                                       library_ms=library5, bound_ms=b, bound_by=by)
-        say(f"phase kernels: B5 {label} M={m} K={k} N={n} bf16: fused_dequant "
-            f"{ms5['fused_dequant']:.4f} ms, planes {ms5['planes']:.4f} ms (bound {b:.4f} by "
-            f"{by}, plain {plain5:.4f}, torch.matmul on dense f32 {library5:.4f})")
+        dev5 = device_ms(lambda: cim_ops.cim_matmul(x, i8[nxt()]["splanes"], i8[0]["scale"]))
+        nwg, splits5, _ = cim_ops.tc_launch_plan(m, k, n, 10, torch.cuda.get_device_properties(
+            0).multi_processor_count)
+        say(f"phase kernels: B5 {label} tensor-core plan: {nwg} wgmma warpgroup(s), {splits5} "
+            f"K split(s)")
+        say(f"phase kernels: B5 {label} M={m} K={k} N={n}: fused_dequant bf16 x on tensor cores "
+            f"{ms5['fused_dequant']:.4f} ms (device only {fmt_ms(dev5)}; bound {b:.4f} by {by}); "
+            f"f32 x on the FMA kernel "
+            f"{ms5_f32:.4f} ms (bound {b32:.4f} by {by32}); planes bf16 x (FMA) "
+            f"{ms5['planes']:.4f} ms; plain {plain5:.4f}, torch.matmul on dense f32 "
+            f"{library5:.4f}")
         del i8
         torch.cuda.empty_cache()
 

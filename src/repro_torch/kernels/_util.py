@@ -10,7 +10,8 @@ Build: each ``csrc/<name>.cu`` exposes a plain C interface and is compiled
 by ``nvcc -shared`` into its own library under ``_build/`` (listed in
 ``.gitignore``) at first use, then loaded with ``ctypes``.  Sources are
 compiled in parallel, one ``nvcc`` process each; the library name carries a
-hash of its source, so an edited kernel is rebuilt.
+hash of its source and of the shared headers (``csrc/*.cuh``), so an edited
+kernel is rebuilt.
 """
 from __future__ import annotations
 
@@ -101,7 +102,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

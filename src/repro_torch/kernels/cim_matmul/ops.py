@@ -6,11 +6,13 @@ Counterparts of ``repro.kernels.cim_matmul.ops``:
   const_rle codec's ``tile_nz`` flags are given; both take the col_perm
   codec's ``plane_ids``;
 * ``cim_matmul`` — int8 signed planes: kernel B5 (``fused_dequant`` or the
-  per-plane ``planes`` oracle).
+  per-plane ``planes`` oracle); ``fused_dequant`` on bf16 x takes B5's
+  tensor-core kernel.
 
 CUDA tensors launch the kernels, CPU tensors run the plain versions in
 ``ref.py``.  ``LAUNCHES`` counts kernel launches by kernel (``"B2"``,
-``"B4"``, ``"B5"``); ``reset_launches`` zeroes it.
+``"B4"``, ``"B5"``; ``"B5_tc"`` counts the B5 launches that took the
+tensor-core kernel); ``reset_launches`` zeroes it.
 """
 from __future__ import annotations
 
@@ -35,7 +37,11 @@ _THREADS, _COLS_PER_THREAD = 128, 4  # block shape of both kernel sources
 _MIN_K_PER_SPLIT = 128
 TILE_ROWS = 128  # K rows per tile_nz flag
 
-LAUNCHES = {"B2": 0, "B4": 0, "B5": 0}
+TC_BK = 64  # K rows per stage of B5's tensor-core kernel
+TC_MIN_TILES = 4  # K stages per split at least (the ring's depth plus one)
+TC_FILL = 2  # stages' worth of time a block spends filling its ring and in its epilogue
+
+LAUNCHES = {"B2": 0, "B4": 0, "B5": 0, "B5_tc": 0}
 
 
 def reset_launches() -> None:
@@ -66,6 +72,15 @@ def _planes_lib():
 
 
 @functools.cache
+def _planes_tc_lib():
+    """The C launcher of B5's tensor-core kernel, argument types set once per process."""
+    fn = load_kernel_lib("cim_planes").cim_planes_tc_launch
+    fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
 def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
@@ -84,6 +99,26 @@ def launch_plan(
     splits = max(1, min(cdiv(blocks_per_sm * sms, blocks), cdiv(k, _MIN_K_PER_SPLIT)))
     k_per_split = round_up(cdiv(k, splits), 8)
     return mt, cdiv(k, k_per_split), k_per_split
+
+
+def tc_launch_plan(m: int, k: int, n: int, cols: int, sms: int) -> tuple[int, int, int]:
+    """(wgmma warpgroups, K splits, K per split) for B5's tensor-core kernel.
+
+    A block (one an SM: its ring takes the shared memory) owns 64 rows of x
+    per wgmma warpgroup, two where M > 64, by 128 columns (64 where
+    cols > 10), and streams its K range in 64-row stages.  The split count
+    minimises waves x (stages per split + ``TC_FILL``): a plane-bound
+    block's time is its stage count plus the filling of its ring; the
+    fewest splits among equals, with at least ``TC_MIN_TILES`` stages a
+    split.
+    """
+    nwg = 1 if m <= 64 else 2
+    blocks = cdiv(n, 128 if cols <= 10 else 64) * cdiv(m, 64 * nwg)
+    tiles = cdiv(k, TC_BK)
+    splits = min(range(1, max(1, tiles // TC_MIN_TILES) + 1),
+                 key=lambda s: (cdiv(blocks * s, sms) * (cdiv(tiles, s) + TC_FILL), s))
+    k_per_split = round_up(cdiv(k, splits), TC_BK)
+    return nwg, cdiv(k, k_per_split), k_per_split
 
 
 def _check_x_scale(x: torch.Tensor, scale: torch.Tensor) -> None:
@@ -181,16 +216,30 @@ def cim_matmul(
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0 or k == 0:
         return out.zero_()
-    # B5 streams 8x the bytes of B2 with little work per byte: more blocks
-    # per SM keep more of its loads in flight
-    mt, splits, k_per_split = launch_plan(m, k, n, _sm_count(x.device.index), blocks_per_sm=4)
-    vec = n % 4 == 0 and splanes.data_ptr() % 4 == 0
+    tensor_cores = x.dtype == torch.bfloat16 and mode == "fused_dequant"
+    if tensor_cores:
+        nwg, splits, k_per_split = tc_launch_plan(m, k, n, cols, _sm_count(x.device.index))
+        vec = (n % 16 == 0 and k % 8 == 0 and splanes.data_ptr() % 16 == 0
+               and x.data_ptr() % 16 == 0)
+    else:
+        # B5 streams 8x the bytes of B2 with little work per byte: more
+        # blocks per SM keep more of its loads in flight
+        mt, splits, k_per_split = launch_plan(m, k, n, _sm_count(x.device.index),
+                                              blocks_per_sm=4)
+        vec = n % 4 == 0 and splanes.data_ptr() % 4 == 0
     ws = torch.empty((splits, m, n), dtype=torch.float32, device=x.device) if splits > 1 else out
-    err = _planes_lib()(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), splanes.data_ptr(), scale.data_ptr(),
-        out.data_ptr(), ws.data_ptr(), m, k, n, cols, mt, int(vec), int(mode == "planes"),
-        splits, k_per_split, current_stream(),
-    )
+    if tensor_cores:
+        err = _planes_tc_lib()(
+            x.data_ptr(), splanes.data_ptr(), scale.data_ptr(), out.data_ptr(), ws.data_ptr(),
+            m, k, n, cols, nwg, int(vec), splits, k_per_split, current_stream(),
+        )
+    else:
+        err = _planes_lib()(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), splanes.data_ptr(), scale.data_ptr(),
+            out.data_ptr(), ws.data_ptr(), m, k, n, cols, mt, int(vec), int(mode == "planes"),
+            splits, k_per_split, current_stream(),
+        )
     check_launch(err, "B5")
     LAUNCHES["B5"] += 1
+    LAUNCHES["B5_tc"] += int(tensor_cores)
     return out

@@ -68,6 +68,24 @@ def cim_matmul(
     return torch.cat(out, dim=-1) * scale
 
 
+def hi_lo(splanes: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The exact split of B5's tensor-core kernel: w = 256 * hi + lo.
+
+    ``splanes`` int8[cols <= 16, K, N] -> int32 (hi, lo), each in
+    [-255, 255] (exact in bf16): lo = sum_{b<8} 2**b P_b and
+    hi = sum_{b>=8} 2**(b-8) P_b.
+    """
+    hi = torch.zeros(splanes.shape[1:], dtype=torch.int32, device=splanes.device)
+    lo = torch.zeros_like(hi)
+    for b in range(splanes.shape[0]):
+        plane = splanes[b].to(torch.int32)
+        if b < 8:
+            lo += plane * (1 << b)
+        else:
+            hi += plane * (1 << (b - 8))
+    return hi, lo
+
+
 @_count
 def unpack_weights(
     planes_packed: torch.Tensor,

@@ -2,11 +2,14 @@
 
 ``flash_attention`` is the counterpart of
 ``repro.kernels.flash_attention.ops.flash_attention``: CUDA tensors launch
-B3, CPU tensors run the plain version ``ref.flash_attention``.  The wrapper
-pads Sq and Sk to the kernel's tiles (the static ``sk_valid`` tail masks the
-padded keys).  A Python int ``q_offset`` / ``kv_valid_len`` goes to the
-kernel as a scalar argument; a tensor (scalar or (B,)) as per-row int32 on
-the card.  ``LAUNCHES["B3"]`` counts kernel launches.
+B3, CPU tensors run the plain version ``ref.flash_attention``.  bf16 q/k/v
+take B3's tensor-core kernel, which reads any Sq and Sk through TMA (zeros
+past the edges), so nothing is padded; f32 q/k/v take its FMA kernel, for
+which the wrapper pads Sq and Sk to the tiles (the static ``sk_valid`` tail
+masks the padded keys).  A Python int ``q_offset`` / ``kv_valid_len`` goes
+to the kernel as a scalar argument; a tensor (scalar or (B,)) as per-row
+int32 on the card.  ``LAUNCHES["B3"]`` counts every launch,
+``LAUNCHES["B3_tc"]`` those of the tensor-core kernel.
 """
 from __future__ import annotations
 
@@ -29,13 +32,15 @@ from repro_torch.kernels.flash_attention import ref as fa_ref
 
 KINDS = {"causal": 0, "bidir": 1, "swa": 2}
 HEAD_DIMS = (128, 256)  # the head dims the kernel is built for
-BQ = 32  # q rows per block (kBQ in the source)
+BQ = 32  # q rows per block of the f32 kernel (kBQ in the source)
+TMA_ALIGN = 16  # bytes: TMA's base-address alignment
 
-LAUNCHES = {"B3": 0}
+LAUNCHES = {"B3": 0, "B3_tc": 0}
 
 
 def reset_launches() -> None:
-    LAUNCHES["B3"] = 0
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -43,7 +48,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 @functools.cache
 def _lib():
-    """The C launcher and the key-tile query, argument types set once per process."""
+    """The C launcher, the key-tile query and the descriptor timer, argument
+    types set once per process."""
     lib = load_kernel_lib("flash_attention")
     fn = lib.flash_attention_launch
     fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -51,7 +57,25 @@ def _lib():
     fn.restype = ctypes.c_int
     lib.flash_attention_tile_k.argtypes = [_I]
     lib.flash_attention_tile_k.restype = ctypes.c_int
-    return fn, lib.flash_attention_tile_k
+    lib.flash_attention_encode_us.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I]
+    lib.flash_attention_encode_us.restype = ctypes.c_double
+    return fn, lib.flash_attention_tile_k, lib.flash_attention_encode_us
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a TMA-aligned address (a copy only if it is not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % TMA_ALIGN == 0 else t.clone()
+
+
+def encode_us(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, reps: int = 1000) -> float:
+    """Host microseconds B3 spends encoding one bf16 call's TMA descriptors."""
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    us = _lib()[2](q.data_ptr(), k.data_ptr(), v.data_ptr(), b, hq, hkv, sq, sk, d, reps)
+    if us < 0:
+        raise RuntimeError("B3 could not encode its TMA descriptors")
+    return us
 
 
 def _per_row(value, b: int, device) -> tuple[torch.Tensor | None, int]:
@@ -92,18 +116,22 @@ def flash_attention(
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
-    launch, tile_k = _lib()
-    bk = tile_k(d)
-    qp = pad_axis_to(q, 2, round_up(max(sq, 1), BQ)).contiguous()
-    kp = pad_axis_to(k, 2, round_up(max(sk, 1), bk)).contiguous()
-    vp = pad_axis_to(v, 2, round_up(max(sk, 1), bk)).contiguous()
+    launch, tile_k, _ = _lib()
+    tensor_cores = q.dtype == torch.bfloat16
+    if tensor_cores:
+        qp, kp, vp = _aligned(q), _aligned(k), _aligned(v)
+    else:
+        bk = tile_k(d)
+        qp = pad_axis_to(q, 2, round_up(max(sq, 1), BQ)).contiguous()
+        kp = pad_axis_to(k, 2, round_up(max(sk, 1), bk)).contiguous()
+        vp = pad_axis_to(v, 2, round_up(max(sk, 1), bk)).contiguous()
     for name, t in (("q", qp), ("k", kp), ("v", vp)):
         check_cuda_operand(t, name, q.dtype, 4)
     qoff, qoff0 = _per_row(q_offset, b, q.device)
     kvl, kvl0 = _per_row(sk if kv_valid_len is None else kv_valid_len, b, q.device)
     out = torch.empty_like(qp)
-    if out.numel() == 0:
-        return out[:, :, :sq]
+    if out.numel() == 0 or kp.shape[2] == 0:
+        return out.zero_()[:, :, :sq]
     err = launch(
         qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
         None if qoff is None else qoff.data_ptr(), None if kvl is None else kvl.data_ptr(),
@@ -113,4 +141,5 @@ def flash_attention(
     )
     check_launch(err, "B3")
     LAUNCHES["B3"] += 1
+    LAUNCHES["B3_tc"] += int(tensor_cores)
     return out[:, :, :sq]

@@ -70,3 +70,18 @@ def flash_attention(
 
 
 flash_attention.calls = 0
+
+TOL = 2e-5  # the reference's own kernel tolerance (both sum f32 in another order)
+
+
+def attention_bound(want: torch.Tensor) -> torch.Tensor:
+    """Allowed |kernel - plain| of B3 per element of the plain output
+    ``want``: 2e-5 absolute + relative, and in bf16 one bf16 ulp of the
+    output more (both round an f32 result to bf16)."""
+    w = want.float().abs()
+    bound = TOL + TOL * w
+    if want.dtype == torch.bfloat16:
+        ulp = torch.finfo(torch.bfloat16).eps * torch.exp2(torch.floor(torch.log2(
+            w.clamp_min(torch.finfo(torch.float32).tiny))))
+        bound = bound + ulp
+    return bound

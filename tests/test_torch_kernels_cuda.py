@@ -1,5 +1,5 @@
-"""Kernels B3 (flash attention) and B6 (bitslice) against their plain
-versions on the card.
+"""Kernels B3 (flash attention), B5 (int8-plane matmul) and B6 (bitslice)
+against their plain versions on the card.
 
 Every test here is marked ``cuda`` and skips without a CUDA device (the
 kernels have no CPU mode).  The file imports neither JAX nor the reference
@@ -9,7 +9,9 @@ package, so it also runs where only the port is installed:
 Tolerances: B3 in float32 within 2e-5 (absolute + relative, as the
 reference holds its Pallas kernel to its oracle: both sum in f32 in
 another order); in bfloat16 within one bf16 ulp of the output plus that
-(both round an f32 result to bf16).  B6 is exact.
+(both round an f32 result to bf16).  B5 within 2 * eps_f32 * K * (|x| @ |w|)
+(the kernel and the plain version sum the same exact products in another
+order).  B6 is exact.
 """
 from __future__ import annotations
 
@@ -19,10 +21,13 @@ import torch
 from repro_torch.core import simulator
 from repro_torch.kernels.bitslice import ops as bs_ops
 from repro_torch.kernels.bitslice import ref as bs_ref
+from repro_torch.kernels.cim_matmul import ops as cim_ops
+from repro_torch.kernels.cim_matmul import ref as cim_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 
 TOL = 2e-5
+F32_EPS = torch.finfo(torch.float32).eps
 
 
 @pytest.fixture
@@ -46,7 +51,8 @@ def attention_bound(want: torch.Tensor) -> torch.Tensor:
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,hq,hkv,sq,sk,d", [
     (2, 4, 1, 37, 50, 128), (2, 8, 2, 64, 64, 256), (1, 4, 4, 16, 200, 128),
-    (2, 4, 1, 40, 70, 256), (2, 32, 4, 32, 32, 128),
+    (2, 4, 1, 40, 70, 256), (2, 32, 4, 32, 32, 128), (4, 8, 1, 32, 32, 256),
+    (2, 16, 2, 40, 100, 128),  # a packed GQA group of 320 rows spans three tiles
 ])
 @pytest.mark.parametrize("kind", ["causal", "bidir", "swa"])
 @pytest.mark.parametrize("per_row", [False, True])
@@ -73,13 +79,57 @@ def test_flash_attention_kernel_matches_plain(cuda_device, b, hq, hkv, sq, sk, d
 
 
 @pytest.mark.cuda
-def test_flash_attention_kernel_counts_launches(cuda_device):
-    q = torch.randn(1, 2, 8, 128, device=cuda_device)
-    k = torch.randn(1, 1, 8, 128, device=cuda_device)
+@pytest.mark.parametrize("b,hq,hkv,d", [(1, 32, 4, 128), (1, 8, 1, 256)])
+def test_flash_attention_kernel_long_prefill_bf16(cuda_device, b, hq, hkv, d):
+    """A 2048-token causal prefill in yi-6b's and gemma-2b's layouts, on the
+    tensor-core path."""
+    g = torch.Generator(device=cuda_device).manual_seed(hq + d)
+    q, k, v = (torch.randn(b, h, 2048, d, device=cuda_device, generator=g).to(torch.bfloat16)
+               for h in (hq, hkv, hkv))
+    fa_ops.reset_launches()
+    got = fa_ops.flash_attention(q, k, v, kind="causal")
+    assert fa_ops.LAUNCHES == {"B3": 1, "B3_tc": 1}
+    want = fa_ref.flash_attention(q, k, v, kind="causal")
+    torch.cuda.synchronize()
+    assert bool(((got.float() - want.float()).abs() <= attention_bound(want)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_counts_launches(cuda_device, dtype):
+    q = torch.randn(1, 2, 8, 128, device=cuda_device).to(dtype)
+    k = torch.randn(1, 1, 8, 128, device=cuda_device).to(dtype)
     fa_ops.reset_launches()
     fa_ref.flash_attention.calls = 0
     fa_ops.flash_attention(q, k, k)
-    assert fa_ops.LAUNCHES["B3"] == 1 and fa_ref.flash_attention.calls == 0
+    tc = int(dtype == torch.bfloat16)
+    assert fa_ops.LAUNCHES == {"B3": 1, "B3_tc": tc} and fa_ref.flash_attention.calls == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [
+    (1, 2048, 2048), (16, 2048, 256), (17, 1001, 333), (300, 2048, 512), (4, 16384, 2048),
+    (128, 4000, 1030),
+])
+@pytest.mark.parametrize("cols", [10, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_plane_kernel_paths(cuda_device, m, k, n, cols, dtype):
+    """fused_dequant: bf16 x on the tensor-core kernel, f32 x on the FMA
+    kernel; ragged K and N, M from 1 to 300, cols 10 and 16."""
+    g = torch.Generator(device=cuda_device).manual_seed(m + k + n + cols)
+    q = torch.randint(0, 2**cols, (k, n), dtype=torch.int32, device=cuda_device, generator=g)
+    s = torch.where(torch.rand(k, n, device=cuda_device, generator=g) < 0.5, -1, 1).to(torch.int8)
+    op = simulator.int8_plane_operands(q, s, 1e-3, 0.0, cols)
+    x = torch.randn(m, k, device=cuda_device, generator=g).to(dtype)
+    cim_ops.reset_launches()
+    cim_ref.cim_matmul.calls = 0
+    got = cim_ops.cim_matmul(x, op["splanes"], op["scale"])
+    assert cim_ops.LAUNCHES["B5"] == 1 and cim_ref.cim_matmul.calls == 0
+    assert cim_ops.LAUNCHES["B5_tc"] == int(dtype == torch.bfloat16)
+    want = cim_ref.cim_matmul(x, op["splanes"], op["scale"])
+    torch.cuda.synchronize()
+    bound = 2 * F32_EPS * k * (x.float().abs() @ (q.float() * 1e-3))
+    assert got.shape == (m, n) and bool(((got - want).abs() <= bound).all())
 
 
 def _weights_with_ties(shape, inv_scale, device, seed):
