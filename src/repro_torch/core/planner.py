@@ -20,10 +20,15 @@ achieved weights come back through its inverse, so index matching is exact.
 A stacked segment tensor (leading layer axis) is planned as ONE tensor,
 exactly as the reference does.
 
-Parts of the reference that later slices port raise ``NotImplementedError``:
-the ``impl="bool"`` oracle and the ``section_order="tsp"`` reorder.  A pool
-prices physical seam programs, so ``include_initial=False`` (which only the
-reference's stateless path reads) is a ``ValueError``.
+``section_order="tsp"`` reorders the magnitude-sorted sections by the
+nearest-neighbour walk of ``sws.tsp_greedy_order`` (the reference's
+beyond-paper option).  ``include_initial=False`` leaves each chain's first
+program from the pristine crossbar out of every transition count and
+lockstep time, as the reference's stateless path does; ``w_hat`` does not
+depend on it.  A pool prices physical seam programs, so with ``pool=`` (or a
+non-raw codec, which the reference also routes through a pool) it is a
+``ValueError``, as in the reference.  The ``impl="bool"`` oracle is not
+ported and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -59,6 +64,7 @@ class PlannerConfig:
     p_stuck: float = 1.0  # 1.0 = full reprogramming (no stucking)
     stuck_cols: int = 1
     include_initial: bool = True
+    section_order: str = "magnitude"  # "magnitude" | "tsp" (beyond-paper)
     min_size: int = 4096
     min_ndim: int = 2
     exclude: tuple[str, ...] = ("embed", "embedding", "lm_head", "pos_emb")
@@ -122,7 +128,10 @@ class DeploymentPlan:
         }
 
 
-def _check_supported(config: PlannerConfig) -> None:
+SECTION_ORDERS = ("magnitude", "tsp")
+
+
+def _check_supported(config: PlannerConfig, pool: CrossbarPool | None = None) -> None:
     if config.codec not in planes.CODECS:
         raise ValueError(f"unknown plane codec {config.codec!r}; choose from {planes.CODECS}")
     if config.impl == "bool":
@@ -131,10 +140,15 @@ def _check_supported(config: PlannerConfig) -> None:
         )
     if config.impl != "packed":
         raise ValueError(f"unknown planner impl: {config.impl!r}")
-    if not config.include_initial:
+    if config.section_order not in SECTION_ORDERS:
         raise ValueError(
-            "every plan programs a crossbar pool, which prices physical seam "
-            "programs; include_initial=False has no pool interpretation"
+            f"unknown section_order {config.section_order!r}; choose from {SECTION_ORDERS}"
+        )
+    if not config.include_initial and (pool is not None or config.codec != "raw"):
+        raise ValueError(
+            "pool streaming (and a non-raw codec, which is priced through a "
+            "pool) prices physical seam programs; include_initial=False has "
+            "no pool interpretation"
         )
 
 
@@ -189,12 +203,18 @@ def _prep(w: torch.Tensor, spec: CrossbarSpec, config: PlannerConfig) -> _Prep:
 
     # baseline: unsorted natural order, full reprogramming
     jobs_u = schedule.schedule_job_costs(
-        bitslice.section_planes_packed(q_padded, rows, cols), chains
+        bitslice.section_planes_packed(q_padded, rows, cols), chains,
+        include_initial=config.include_initial,
     )
 
     # SWS order (|w| of the padded vector: padding sorts with the zeros)
     if config.sws:
         perm, inv_perm = sws.stable_argsort(flat_padded.abs(), with_inverse=True)
+        if config.section_order == "tsp":
+            order = sws.tsp_greedy_order(bitslice.section_planes_packed(q_padded[perm], rows, cols))
+            slot = order[:, None] * rows + torch.arange(rows, device=order.device)
+            perm = perm[slot.reshape(-1)]
+            inv_perm = sws.inverse_permutation(perm)
     else:
         perm = inv_perm = torch.arange(n + pad, device=flat.device)
     return _Prep(
@@ -267,7 +287,7 @@ def analyze_tensor(
     bits (``PlaneSet.physical``) and logical planes are recovered after the
     read.
     """
-    _check_supported(config)
+    _check_supported(config, pool)
     if pool is None:
         pool = CrossbarPool(spec, max(1, config.crossbars), device=w.device)
     if (spec.rows, spec.cols) != (pool.spec.rows, pool.spec.cols):
@@ -292,8 +312,13 @@ def analyze_tensor(
     if pset is not None:
         achieved = planes.logical_from_physical(achieved, pset.col_order)
     w_hat_flat, w_hat = _w_hat(achieved, prep, w, spec.rows)
-    report = _report(name, w, spec, config, prep, res.job_costs,
-                     res.transitions_programmed, w_hat_flat)
+    jobs_s, trans_final = res.job_costs, res.transitions_programmed
+    if not config.include_initial:
+        # the pristine pool's seams are the initial programs: drop them
+        seams = np.cumsum([0] + [len(c) for c in prep.chains[:-1]])
+        jobs_s = np.delete(jobs_s, seams)
+        trans_final -= int(res.programmed_job_costs[seams].sum())
+    report = _report(name, w, spec, config, prep, jobs_s, trans_final, w_hat_flat)
     return report, w_hat
 
 

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import bitslice
+from repro_torch.kernels.hamming import ops as hamming_ops
 
 
 def stable_argsort(keys: torch.Tensor, *, with_inverse: bool = False):
@@ -50,3 +51,29 @@ def sorted_sections(flat: torch.Tensor, rows: int) -> tuple[torch.Tensor, torch.
 def restore_flat(sections: torch.Tensor, perm: torch.Tensor, n: int) -> torch.Tensor:
     """Undo sort + section: sections[S, rows] -> flat[n] in logical order."""
     return bitslice.unsection(sections, n)[inverse_permutation(perm)]
+
+
+def tsp_greedy_order(packed_planes: torch.Tensor, *, start: int = 0) -> torch.Tensor:
+    """Beyond-paper: nearest-neighbour section order on true Hamming distance.
+
+    packed_planes: uint8[S, W, cols].  Returns an int64[S] visiting order
+    from ``start``: each step prices the current section against all S
+    (``price_pairs``, the Hamming kernel on CUDA), masks the visited ones
+    with int32 max and moves to the first nearest, the tie rule of the
+    reference's ``jnp.argmin``.  O(S^2) work in S - 1 steps, meant for
+    per-tensor section counts up to a few thousand.
+    """
+    s = packed_planes.shape[0]
+    dev = packed_planes.device
+    visited = torch.zeros((s,), dtype=torch.bool, device=dev)
+    order = torch.empty((s,), dtype=torch.int64, device=dev)
+    order[0] = current = start
+    visited[start] = True
+    big = torch.iinfo(torch.int32).max
+    for i in range(1, s):
+        d = hamming_ops.price_pairs(packed_planes[current].expand_as(packed_planes), packed_planes)
+        nxt = torch.argmin(d.masked_fill(visited, big))
+        order[i] = nxt
+        visited[nxt] = True
+        current = nxt
+    return order

@@ -20,6 +20,7 @@ from repro.configs import get_arch as jax_get_arch
 from repro.core import bitslice as jbits
 from repro.core import cost as jcost
 from repro.core import planner as jplanner
+from repro.core import pool as jpool
 from repro.core import schedule as jsched
 from repro.core import stucking as jstuck
 from repro.core import sws as jsws
@@ -258,6 +259,77 @@ def test_analyze_tensor_stacked(p, kind):
     assert np.asarray(jw).tobytes() == tw.numpy().tobytes()
 
 
+@pytest.mark.parametrize("order", ["magnitude", "tsp"])
+@pytest.mark.parametrize("p", [1.0, 0.5])
+@pytest.mark.parametrize("inc", [False, True])
+def test_analyze_tensor_initial_and_section_order(inc, p, order):
+    """include_initial=False (stateless) and the TSP section reorder price
+    the reference's integers and deploy its w_hat bytes."""
+    w = _weights((2, 96, 80), seed=14)
+    kw = dict(p_stuck=p, include_initial=inc, section_order=order, crossbars=5)
+    jr, jw = jplanner.analyze_tensor(jnp.asarray(w), jplanner.CrossbarSpec(),
+                                     jplanner.PlannerConfig(**kw), jax.random.PRNGKey(6))
+    tr, tw = planner.analyze_tensor(_t(w), planner.CrossbarSpec(), planner.PlannerConfig(**kw),
+                                    prng.PRNGKey(6))
+    assert_reports_equal(jr, tr)
+    assert np.asarray(jw).tobytes() == tw.numpy().tobytes()
+    if not inc:  # the flag changes the counts, never the deployed weights
+        _, tw_inc = planner.analyze_tensor(
+            _t(w), planner.CrossbarSpec(),
+            planner.PlannerConfig(**{**kw, "include_initial": True}), prng.PRNGKey(6))
+        assert tw_inc.numpy().tobytes() == tw.numpy().tobytes()
+
+
+def _tie_packed(s, seed):
+    """Packed planes with repeated sections and few distinct bytes, so that
+    the nearest-neighbour walk meets equal distances."""
+    rng = np.random.default_rng(seed)
+    p = (rng.integers(0, 2, (s, 2, 3)) * 255).astype(np.uint8)
+    p[rng.integers(0, s, s // 3)] = p[rng.integers(0, s, s // 3)]
+    return p
+
+
+@pytest.mark.parametrize("planes_of", [lambda: _packed(50, seed=15), lambda: _tie_packed(40, 16)],
+                         ids=["random", "ties"])
+@pytest.mark.parametrize("start", [0, 7])
+def test_tsp_greedy_order_matches_reference(planes_of, start):
+    p = planes_of()
+    jo = np.asarray(jsws.tsp_greedy_order(jnp.asarray(p), start=start))
+    to = sws.tsp_greedy_order(_t(p), start=start)
+    assert to.dtype == torch.int64
+    np.testing.assert_array_equal(jo, to.numpy())
+
+
+@pytest.mark.parametrize("case", ["pool_without_initial", "codec_without_initial",
+                                  "unknown_section_order"])
+def test_planner_settings_the_reference_refuses(case):
+    """include_initial=False has no pool interpretation (with pool= or a
+    codec, which is planned through one), as in the reference; an unknown
+    section_order is refused."""
+    from repro_torch.core import pool as tpool
+
+    spec = planner.CrossbarSpec()
+    w = _weights((64, 80))
+    cfg, kw = {
+        "pool_without_initial": (dict(include_initial=False),
+                                 {"pool": tpool.CrossbarPool(spec, 16, device="cpu")}),
+        "codec_without_initial": (dict(include_initial=False, codec="col_perm"), {}),
+        "unknown_section_order": (dict(section_order="norm"), {}),
+    }[case]
+    with pytest.raises(ValueError) as terr:
+        planner.analyze_tensor(_t(w), spec, planner.PlannerConfig(**cfg), prng.PRNGKey(0), **kw)
+    if case == "unknown_section_order":
+        # the reference plans any other value as "magnitude"; the port names the choices
+        assert "magnitude" in str(terr.value) and "tsp" in str(terr.value)
+        return
+    assert "no pool interpretation" in str(terr.value)
+    if "pool" in kw:
+        kw = {"pool": jpool.CrossbarPool(jplanner.CrossbarSpec(), 16)}
+    with pytest.raises(ValueError, match="no pool interpretation"):
+        jplanner.analyze_tensor(jnp.asarray(w), jplanner.CrossbarSpec(),
+                                jplanner.PlannerConfig(**cfg), jax.random.PRNGKey(0), **kw)
+
+
 @pytest.fixture(scope="module")
 def reduced_gemma():
     jcfg = jax_get_arch("gemma-2b", reduced=True)
@@ -265,13 +337,17 @@ def reduced_gemma():
     return jparams, from_numpy_tree(jax.tree.map(np.asarray, jparams), device="cpu")
 
 
-@pytest.mark.parametrize("p", [1.0, 0.5])
-def test_build_deployment_reduced_gemma(reduced_gemma, p):
+@pytest.mark.parametrize("p,kw", [
+    pytest.param(1.0, {}, id="1.0"),
+    pytest.param(0.5, {}, id="0.5"),
+    pytest.param(0.5, {"include_initial": False, "section_order": "tsp"}, id="0.5-tsp-no_initial"),
+])
+def test_build_deployment_reduced_gemma(reduced_gemma, p, kw):
     jparams, tparams = reduced_gemma
     jplan = jplanner.build_deployment(
-        jparams, jplanner.CrossbarSpec(), jplanner.PlannerConfig(p_stuck=p, min_size=1024))
+        jparams, jplanner.CrossbarSpec(), jplanner.PlannerConfig(p_stuck=p, min_size=1024, **kw))
     tplan = planner.build_deployment(
-        tparams, planner.CrossbarSpec(), planner.PlannerConfig(p_stuck=p, min_size=1024),
+        tparams, planner.CrossbarSpec(), planner.PlannerConfig(p_stuck=p, min_size=1024, **kw),
         device="cpu")
     assert list(jplan.reports) == list(tplan.reports)
     assert "segments/0/mlp/wi_gate" in tplan.reports

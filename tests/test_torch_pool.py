@@ -168,10 +168,12 @@ def test_pool_validation_and_unported_parts():
             packed, schedule.make_chains(6, 2, "stride1"))
     with pytest.raises(ValueError):
         pool.CrossbarPool(spec, 2, leveling="wearless", device="cpu")
-    for kw in ({"pool": tpool}, {}):  # pools price physical seams; every plan runs one
-        with pytest.raises(ValueError):
+    # pools price physical seams: include_initial=False raises with a pool,
+    # and with a codec, whose stateless plan runs through one (the reference's rule)
+    for kw, codec in (({"pool": tpool}, "raw"), ({}, "const_rle")):
+        with pytest.raises(ValueError, match="no pool interpretation"):
             planner.analyze_tensor(_t(np.zeros((64, 64), np.float32)), spec,
-                                   planner.PlannerConfig(include_initial=False),
+                                   planner.PlannerConfig(include_initial=False, codec=codec),
                                    prng.PRNGKey(0), **kw)
     with pytest.raises(NotImplementedError):
         tpool.program(packed, schedule.make_chains(6, 2, "stride1"), impl="bool")
