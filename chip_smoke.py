@@ -13,9 +13,11 @@ Phases (one line each, any failed check exits 1):
   3. B2 (packed CIM matmul) vs its plain version at gemma-2b's shapes and
      yi-6b's f32 LM head (M = 4, K = 4096, N = 64000), within
      |d| <= 2 * eps_f32 * K * (|x| @ |w|) (the two sum K products in
-     different orders, each within K * eps of exact);
+     different orders, each within K * eps of exact), bf16 x on its
+     tensor-core kernel and f32 x on its FMA kernel;
      B4 (the zero-tile skipping twin) == B2 bit for bit on synthetic
-     operands with 0-90% zero tiles, with and without permuted plane_ids;
+     operands with 0-90% zero tiles, with and without permuted plane_ids,
+     on both kernels;
      B5 (int8-plane matmul, both modes, cols 10 and 16, M from 1 to 300)
      vs its plain version, same bound, bf16 fused_dequant on its
      tensor-core kernel and the rest on its FMA kernel;
@@ -38,16 +40,17 @@ Phases (one line each, any failed check exits 1):
      7 * layers * gen times with no plain-version call;
      col_perm_rle at 1 layer (B4 with plane_ids, 7 * gen launches);
      every generate runs B3 once per layer in its prefill, on the
-     tensor-core kernel (B3_tc), and planes_int8 runs every bf16 matmul on
-     B5's tensor-core kernel (B5_tc);
+     tensor-core kernel (B3_tc), and every bf16 matmul on the tensor-core
+     kernel of B2, B4 or B5 (B2_tc, B4_tc, B5_tc);
   5b. yi-6b: plan at full width (4 layers), CPU re-plan of
      segments/0/attn/wk; B6 planes of every planned tensor == the route
      before B6 (q = round(|w_hat| / scale)); serve fp, cim-dense,
      cim-packed and cim-planes_int8 with (7 * layers + 1) * gen B2 / B5
-     launches (the +1: the planned LM head), B3 = layers per prefill;
+     launches (the +1: the planned LM head, whose f32 activations take the
+     FMA kernels), B3 = layers per prefill;
   6. kernels: time, bound (the bf16 tensor-core rate for the tensor-core
      paths, the f32 rate for the FMA kernels), plain-version and library
-     times; B3 and B5 on both paths.
+     times; B2, B3 and B5 on both paths.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
@@ -68,7 +71,7 @@ sys.path.insert(0, str(ROOT / "src"))
 LAYERS, BATCH, PROMPT, GEN, P_STUCK = 4, 4, 32, 16, 0.5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
-BF16_TC_FLOPS = 989e12  # H100 SXM dense bf16 on the tensor cores (B3's and B5's bf16 paths)
+BF16_TC_FLOPS = 989e12  # H100 SXM dense bf16 on the tensor cores (B2/B4's, B3's and B5's bf16 paths)
 B2_BOUND_C = 2.0
 CHECK_TENSOR = "segments/0/attn/wk"
 CODEC = "const_rle"  # the pool plan's codec; col_perm_rle runs at COLPERM_LAYERS
@@ -478,7 +481,8 @@ def yi_phases(dev) -> dict:
     """yi-6b at its published width with the depth cut to YI_LAYERS: plan on
     the card (and one tensor again on the CPU), B6's planes of every planned
     tensor against the route before it, then serve fp, cim-dense, cim-packed
-    and cim-planes_int8.  Returns the main path's B3 / B6 launch counts."""
+    and cim-planes_int8.  Returns the main path's B3 (B3_tc) / B6 launch
+    counts."""
     import torch
 
     from repro_torch.configs import get_arch
@@ -530,13 +534,16 @@ def yi_phases(dev) -> dict:
     _, tps_fp, _, _ = served("yi-6b fp", cfg, params, batch, GEN, None, 0)
     tok_dense, tps_dense, _, _ = served("yi-6b dense", cfg, p_dense, batch, GEN, None, 0)
     p_packed = planner.deploy_params(params, plan, materialize="packed")
+    # bf16 activations on the tensor-core kernel; the planned head's f32
+    # activations on the FMA kernel (GEN launches)
     tok_packed, tps_packed, timed_packed, c = served("yi-6b packed", cfg, p_packed, batch, GEN,
-                                                     "B2", want)
-    b3_launches = c["B3"]
+                                                     "B2", want, want_tc=want - GEN)
+    b3_launches, b3_tc = c["B3"], c["B3_tc"]
     say(f"phase yi-serve: batch {BATCH} prompt {PROMPT} gen {GEN} greedy bf16; tok/s fp "
         f"{tps_fp:.1f} cim-dense {tps_dense:.1f} cim-packed {tps_packed:.1f}; packed/dense "
         f"token agreement {(tok_packed == tok_dense).float().mean().item():.3f}; B2 launches "
-        f"{c['B2']} (want (7 * {YI_LAYERS} + 1) * {GEN} = {want}); B3 launches {b3_launches} "
+        f"{c['B2']} (want (7 * {YI_LAYERS} + 1) * {GEN} = {want}), on tensor cores {c['B2_tc']} "
+        f"(want {want - GEN}); B3 launches {b3_launches} "
         f"(want {YI_LAYERS}, every variant); plain-version calls 0")
     say(f"phase trace: yi-6b cim-packed generate: {trace(timed_packed)}")
     logit_check(cfg, p_dense, p_packed, batch, "packed")
@@ -582,7 +589,7 @@ def yi_phases(dev) -> dict:
     say(f"phase yi-serve-f32: float32 compute, token agreement with dense: packed "
         f"{(t32['packed'] == t32['dense']).float().mean().item():.3f}, planes_int8 "
         f"{(t32['planes_int8'] == t32['dense']).float().mean().item():.3f}")
-    return {"B3": b3_launches, "B6": c6["B6"]}
+    return {"B3": b3_launches, "B3_tc": b3_tc, "B6": c6["B6"]}
 
 
 def main() -> None:
@@ -656,7 +663,11 @@ def main() -> None:
         w_abs = cim_ref.unpack_weights(planes_, signs, k).abs() * scale
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(m, k, device=dev, generator=g).to(dtype)
+            cim_ops.reset_launches()
             got = cim_ops.cim_matmul_packed(x, planes_, signs, scale)
+            path = {key: v for key, v in cim_ops.LAUNCHES.items() if v}
+            if path != {"B2": 1, **({"B2_tc": 1} if dtype == torch.bfloat16 else {})}:
+                fail(f"B2 {dtype} at M={m} took the wrong kernel: {path}")
             want = cim_ref.cim_matmul_packed(x, planes_, signs, scale)
             torch.cuda.synchronize()
             err = (got - want).abs()
@@ -666,8 +677,8 @@ def main() -> None:
             b2_err = max(b2_err, err.max().item())
             n_checks += 1
         del w_abs
-    say(f"phase B2: {n_checks} cases within {B2_BOUND_C}*eps*K*(|x|@|w|), "
-        f"max |d| {b2_err:.3e}")
+    say(f"phase B2: {n_checks} cases (bf16 x on the tensor-core kernel, f32 x on the FMA "
+        f"kernel) within {B2_BOUND_C}*eps*K*(|x|@|w|), max |d| {b2_err:.3e}")
 
     def zero_tile_operands(k, n, seed, share):
         """Packed operands whose (plane, 128-row K block) tiles are zero with
@@ -682,16 +693,24 @@ def main() -> None:
             op["planes_packed"] = op["planes_packed"] * (~rows)[:, :, None]
         return planes.encode_operands(op, "const_rle")
 
-    def check_b4(op, m, k, ids, what):
-        """B4 == B2 bit for bit and within the bound of the plain version."""
-        x = torch.randn(m, k, device=dev, generator=g).to(torch.bfloat16)
+    def check_b4(op, m, k, ids, what, dtype=torch.bfloat16):
+        """B4 == B2 bit for bit (both on the tensor-core kernel for bf16 x,
+        on the FMA kernel for f32 x) and within the bound of the plain
+        version."""
+        x = torch.randn(m, k, device=dev, generator=g).to(dtype)
         args = (x, op["planes_packed"], op["sign_packed"], op["scale"])
+        cim_ops.reset_launches()
         b2 = cim_ops.cim_matmul_packed(*args, plane_ids=ids)
         b4 = cim_ops.cim_matmul_packed(*args, tile_nz=op["plane_tile_nz"], plane_ids=ids)
+        path = {key: v for key, v in cim_ops.LAUNCHES.items() if v}
+        tc = {"B2_tc": 1, "B4_tc": 1} if dtype == torch.bfloat16 else {}
+        if path != {"B2": 1, "B4": 1, **tc}:
+            fail(f"B2/B4 {dtype} on {what} at M={m} took the wrong kernels: {path}")
         want = cim_ref.cim_matmul_packed(*args, plane_ids=ids)
         torch.cuda.synchronize()
         if not torch.equal(b2, b4):
-            fail(f"B4 differs from B2 on {what} at M={m}: max |d| {(b2 - b4).abs().max().item():.3e}")
+            fail(f"B4 differs from B2 on {what} {dtype} at M={m}: max |d| "
+                 f"{(b2 - b4).abs().max().item():.3e}")
         w_abs = cim_ref.unpack_weights(op["planes_packed"], op["sign_packed"], k, ids).abs() * op["scale"]
         err = (b4 - want).abs()
         if not bool((err <= matmul_bound(x, w_abs)).all()):
@@ -705,11 +724,14 @@ def main() -> None:
             op = zero_tile_operands(k, n, k + n + int(100 * share), share)
             for ids in (None, perm):
                 for m in (1, 4, 128):
-                    b4_err = max(b4_err, check_b4(op, m, k, ids, f"{k}x{n}, {share:.0%} zero tiles"))
-                    n4 += 1
+                    for dtype in (torch.bfloat16, torch.float32):
+                        b4_err = max(b4_err, check_b4(op, m, k, ids,
+                                                      f"{k}x{n}, {share:.0%} zero tiles", dtype))
+                        n4 += 1
     say(f"phase B4: {n4} synthetic cases (K x N in {{2048x16384, 16384x2048}}, zero tiles "
-        f"0/50/90%, plane_ids identity and permuted {perm.tolist()}, M in {{1, 4, 128}}): "
-        f"bit-equal to B2; max |d| to the plain version {b4_err:.3e}")
+        f"0/50/90%, plane_ids identity and permuted {perm.tolist()}, M in {{1, 4, 128}}, bf16 "
+        f"x on the tensor-core kernels and f32 x on the FMA kernels): bit-equal to B2; max "
+        f"|d| to the plain version {b4_err:.3e}")
 
     b5_err, n5 = 0.0, 0
     # the B2 cases, M in {16, 17, 300}, and cols 16 (weights up to 2^16 - 1)
@@ -851,13 +873,13 @@ def main() -> None:
     tok_fp, tps_fp, _, _ = served("fp", cfg, params, batch, GEN, None, 0)
     tok_dense, tps_dense, timed_dense, _ = served("dense", cfg, p_dense, batch, GEN, None, 0)
     tok_packed, tps_packed, timed_packed, c = served("packed", cfg, p_packed, batch, GEN, "B2",
-                                                     want_launch)
-    b2_launches = c["B2"]
+                                                     want_launch, want_tc=want_launch)
+    b2_launches, b2_tc = c["B2"], c["B2_tc"]
     agree = (tok_packed == tok_dense).float().mean().item()
     say(f"phase serve: batch {BATCH} prompt {PROMPT} gen {GEN} greedy; tok/s fp "
         f"{tps_fp:.1f} cim-dense {tps_dense:.1f} cim-packed {tps_packed:.1f}; packed/dense "
-        f"token agreement {agree:.3f}; B2 launches {b2_launches} (want {want_launch}); "
-        f"B3 launches {c['B3']} (want {LAYERS}, every variant), on tensor cores {c['B3_tc']}; "
+        f"token agreement {agree:.3f}; B2 launches {b2_launches} (want {want_launch}), on "
+        f"tensor cores {b2_tc} (want {want_launch}); B3 launches {c['B3']} (want {LAYERS}, every variant), on tensor cores {c['B3_tc']}; "
         f"plain-version calls 0")
 
     say(f"phase trace: cim-packed generate: {trace(timed_packed)}")
@@ -871,7 +893,7 @@ def main() -> None:
     int8_gb = sum(v["splanes"].numel() for v in _operand_dicts(p_int8)) / 1e9
     tok_int8, tps_int8, timed_int8, c = served("planes_int8", cfg, p_int8, batch, GEN, "B5",
                                                want_launch, want_tc=want_launch)
-    b5_launches = c["B5"]
+    b5_launches, b5_tc = c["B5"], c["B5_tc"]
     agree_int8 = (tok_int8 == tok_dense).float().mean().item()
     say(f"phase serve-int8: cim-planes_int8 {tps_int8:.1f} tok/s ({int8_gb:.2f} GB of int8 "
         f"planes built by {c6['B6']} B6 launches, one per operand dict); token agreement with "
@@ -899,15 +921,16 @@ def main() -> None:
         f"{{1, 4, 128}}: bit-equal to B2 ({n_planned} cases); live tiles {live}/{tiles} "
         f"({100 * live / tiles:.2f}%)")
     tok_raw_pool, tps_raw_pool, _, _ = served("packed (pool plan)", cfg, p_raw_pool, batch, GEN,
-                                              "B2", want_launch)
+                                              "B2", want_launch, want_tc=want_launch)
     tok_rle, tps_rle, timed_rle, c = served(f"packed {CODEC}", cfg, p_rle, batch, GEN, "B4",
-                                            want_launch)
-    b4_launches = c["B4"]
+                                            want_launch, want_tc=want_launch)
+    b4_launches, b4_tc = c["B4"], c["B4_tc"]
     if not torch.equal(tok_rle, tok_raw_pool):
         fail(f"{CODEC} tokens differ from raw-packed tokens of the same plan")
     say(f"phase serve-{CODEC}: pool plan served raw-packed {tps_raw_pool:.1f} tok/s and "
         f"{CODEC} {tps_rle:.1f} tok/s; tokens identical; B4 launches {b4_launches} "
-        f"(want {want_launch}); plain-version calls 0")
+        f"(want {want_launch}), on tensor cores {b4_tc} (want {want_launch}); plain-version "
+        f"calls 0")
     say(f"phase trace: cim-packed-{CODEC} generate: {trace(timed_rle)}")
     del timed_rle, p_raw_pool
     rle_ops = [{k: v[i] for k, v in p_rle["segments"][0]["mlp"]["wi_gate"].items()}
@@ -943,12 +966,15 @@ def main() -> None:
     want1 = 7 * COLPERM_LAYERS * GEN
     p1_raw = planner.deploy_params(params1, plan1, materialize="packed", codec="raw")
     p1_cp = planner.deploy_params(params1, plan1, materialize="packed", codec="col_perm_rle")
-    tok1_raw, _, _, _ = served("packed (1 layer)", cfg1, p1_raw, batch, GEN, "B2", want1)
-    tok1_cp, tps1_cp, _, c = served("packed col_perm_rle", cfg1, p1_cp, batch, GEN, "B4", want1)
+    tok1_raw, _, _, _ = served("packed (1 layer)", cfg1, p1_raw, batch, GEN, "B2", want1,
+                               want_tc=want1)
+    tok1_cp, tps1_cp, _, c = served("packed col_perm_rle", cfg1, p1_cp, batch, GEN, "B4", want1,
+                                    want_tc=want1)
     if not torch.equal(tok1_cp, tok1_raw):
         fail("col_perm_rle tokens differ from raw-packed tokens of the same plan")
     say(f"phase serve-col_perm_rle: {COLPERM_LAYERS} layer, {tps1_cp:.1f} tok/s; tokens "
-        f"identical to raw-packed; B4 launches {c['B4']} (want {want1}); plain-version calls 0")
+        f"identical to raw-packed; B4 launches {c['B4']} (want {want1}), on tensor cores "
+        f"{c['B4_tc']} (want {want1}); plain-version calls 0")
     del params1, plan1, p1_raw, p1_cp, w_ff
     torch.cuda.empty_cache()
 
@@ -986,12 +1012,19 @@ def main() -> None:
         xf = x.float()
         nxt = cycle(4)
         ms = cuda_ms(lambda: cim_ops.cim_matmul_packed(x, *ops[nxt()]))
+        ms_f32 = cuda_ms(lambda: cim_ops.cim_matmul_packed(xf, *ops[nxt()]))
+        dev2 = device_ms(lambda: cim_ops.cim_matmul_packed(x, *ops[nxt()]))
         plain = cuda_ms(lambda: cim_ref.cim_matmul_packed(x, *ops[nxt()]), reps=5)
         library = cuda_ms(lambda: torch.matmul(xf, dense[nxt()]))
-        b, by = bound(m * k * 2 + 11 * (k // 8) * n + m * n * 4, 2 * m * k * n)
+        b, by = bound(m * k * 2 + 11 * (k // 8) * n + m * n * 4, 2 * m * k * n, BF16_TC_FLOPS)
+        b32, by32 = bound(m * k * 4 + 11 * (k // 8) * n + m * n * 4, 2 * m * k * n)
         records[label] = dict(ms=ms, plain_ms=plain, library_ms=library, bound_ms=b, bound_by=by)
-        say(f"phase kernels: B2 {label} M={m} K={k} N={n} bf16: {ms:.4f} ms (bound "
-            f"{b:.4f} by {by}, plain {plain:.4f}, torch.matmul on dense f32 {library:.4f})")
+        nwg2, splits2, _ = cim_ops.tc_packed_launch_plan(
+            m, k, n, torch.cuda.get_device_properties(0).multi_processor_count)
+        say(f"phase kernels: B2 {label} M={m} K={k} N={n}: bf16 x on tensor cores {ms:.4f} ms "
+            f"(device only {fmt_ms(dev2)}; {nwg2} wgmma warpgroup(s), {splits2} K split(s); "
+            f"bound {b:.4f} by {by}); f32 x on the FMA kernel {ms_f32:.4f} ms (bound "
+            f"{b32:.4f} by {by32}); plain {plain:.4f}, torch.matmul on dense f32 {library:.4f}")
 
         # B4 on the const_rle deployment's wi_gate, one copy per layer
         nxt = cycle(LAYERS)
@@ -1008,7 +1041,7 @@ def main() -> None:
         dense4 = [simulator.densify_operands(op) for op in rle_ops]
         library4 = cuda_ms(lambda: torch.matmul(xf, dense4[nxt()]))
         payload = planes.operand_payload_bytes(rle_ops[0])["total_bytes"]
-        b, by = bound(m * k * 2 + payload + m * n * 4, 2 * m * k * n)
+        b, by = bound(m * k * 2 + payload + m * n * 4, 2 * m * k * n, BF16_TC_FLOPS)
         records[f"B4 {label}"] = dict(ms=ms4, plain_ms=plain4, library_ms=library4, bound_ms=b,
                                       bound_by=by)
         say(f"phase kernels: B4 {label} M={m} on the {CODEC} wi_gate operands (all tiles "
@@ -1026,7 +1059,7 @@ def main() -> None:
                 x, *(zops[nxt()][f] for f in ("planes_packed", "sign_packed", "scale"))))
             live_share = float(zops[0]["plane_tile_nz"].float().mean())
             zb, _ = bound(m * k * 2 + planes.operand_payload_bytes(zops[0])["total_bytes"]
-                          + m * n * 4, 2 * m * k * n)
+                          + m * n * 4, 2 * m * k * n, BF16_TC_FLOPS)
             sweep.append(f"{share:.0%}: B4 {z4:.4f} / B2 {z2:.4f} ms (live {live_share:.1%}, "
                          f"bound {zb:.4f})")
             del zops
@@ -1068,11 +1101,16 @@ def main() -> None:
 
     rec_b3, rec_b6 = time_attention(dev), time_bitslice(dev)
 
-    def row(name, source, replaces, launches, err, rec):
-        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches, "max_abs_err": err, "ms": rec["ms"],
-                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-                "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
+    def row(name, source, replaces, launches, err, rec, launches_tc=None):
+        """One kernel's record; ``launches_tc``: how many of the main path's
+        launches took its tensor-core kernel (where it has one)."""
+        r = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+             "launches": launches, "max_abs_err": err, "ms": rec["ms"],
+             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
+        if launches_tc is not None:
+            r["launches_tc"] = launches_tc
+        return r
 
     kernels = [
         row("hamming_pairs", "src/repro_torch/csrc/hamming.cu",
@@ -1081,20 +1119,23 @@ def main() -> None:
                  library_ms=None)),
         row("cim_matmul_packed", "src/repro_torch/csrc/cim_matmul.cu",
             "src/repro/kernels/cim_matmul/kernel.py:242", b2_launches, b2_err,
-            records["decode"]),
+            records["decode"], b2_tc),
         row("cim_matmul_packed_skip", "src/repro_torch/csrc/cim_matmul.cu",
             "src/repro/kernels/cim_matmul/kernel.py:193", b4_launches, b4_err,
-            records["B4 decode"]),
+            records["B4 decode"], b4_tc),
         row("cim_matmul_planes", "src/repro_torch/csrc/cim_planes.cu",
             "src/repro/kernels/cim_matmul/kernel.py:74", b5_launches, b5_err,
-            records["B5 decode"]),
+            records["B5 decode"], b5_tc),
         row("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-            "src/repro/kernels/flash_attention/kernel.py:109", yi["B3"], b3_err, rec_b3),
+            "src/repro/kernels/flash_attention/kernel.py:109", yi["B3"], b3_err, rec_b3,
+            yi["B3_tc"]),
         row("bitslice", "src/repro_torch/csrc/bitslice.cu",
             "src/repro/kernels/bitslice/kernel.py:35", yi["B6"], 0.0, rec_b6),
     ]
     say("kernels: " + ", ".join(
-        f"{r['name']} launches={r['launches']} max_abs_err={r['max_abs_err']:.3e} "
+        f"{r['name']} launches={r['launches']}"
+        + (f" launches_tc={r['launches_tc']}" if "launches_tc" in r else "")
+        + f" max_abs_err={r['max_abs_err']:.3e} "
         f"ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f}"
         + (f" library_ms={r['library_ms']:.4f}" if r["library_ms"] is not None else "")
         for r in kernels))

@@ -1,6 +1,6 @@
 // Bit-packed CIM matmul for Hopper: y = scale * (x @ (sign * sum_p 2^id[p] bits_p)).
 //
-// Two kernels, one template:
+// Two TPU kernels, one template flag (kSkip) in each kernel of this file:
 //   B2 replaces repro/kernels/cim_matmul/kernel.py::cim_matmul_packed_kernel
 //      (bodies _packed_kernel and _unpack_bits);
 //   B4 replaces repro/kernels/cim_matmul/kernel.py::cim_matmul_packed_skip_kernel
@@ -21,51 +21,83 @@
 //
 // What bounds it: at decode (M = batch) the packed weight bytes,
 // (cols + 1) / 8 * K * N (B4: the flagged-live tiles only), over 3.35 TB/s;
-// at prefill (M = 128) the f32 multiply-adds, 2 * M * K * N over 67 TFLOP/s.
-// Tensor cores are not used: bf16 does not hold magnitudes up to
-// 2^cols - 1 exactly, and TF32 does not hold an f32 x exactly, so the
-// product is plain f32 FMA on exact integer weights.
+// at prefill (M = 128) the same bytes for the tensor-core path (2 * M * K * N
+// bf16 operations over 989 TFLOP/s take less time), the f32 multiply-adds
+// over 67 TFLOP/s for f32 x.  Between the two sits the unpack, which is
+// integer work on every weight and, in practice, what the time follows.
 //
-// Design: each thread owns 4 adjacent output columns (one 32-bit load per
-// plane per byte row: a warp reads 128 contiguous bytes of each plane) and
-// MT rows of x.  Per byte row it rebuilds the 4 x 8 integer magnitudes in
-// registers, applies the signs and accumulates in f32 FMA; x is staged in
-// shared memory as f32, so bf16 activations are converted once per block.
-// B4 reads its flags once per 128-row tile (the same for the whole warp); a
-// tile with every plane live takes B2's path, one with dead planes loads and
-// unpacks the live planes only.  The magnitudes are exact integers however
-// they are built, and the FMA order is the same on every path, so B2 and B4
-// agree bit for bit.  The dead-plane path saves loads but unpacks plane by
-// plane into a 32-register magnitude array, which costs more per live plane
-// than B2's unpack.  Measured by chip_smoke.py on an H100 80GB HBM3 at 700 W
-// (2048 x 16384), at 25% zero tiles B4 takes 0.97-1.14x B2's time at decode
-// (M = 4; it varies from run to run) and 1.07x at prefill (M = 128); from
-// 50% zero tiles on it is faster at both.  So skipping pays once about half
-// the tiles are dead.  Operands whose every tile is live (const_rle on
-// random weights) take B2's path and do not see this.  plane_ids makes the
-// bit positions runtime values, so it is a template flag: without it they
-// are constants the compiler folds.  The weights are read once per M tile
-// (MT = 4 at decode, 16 at prefill).  Gemma's narrow matrices (N = 256 or 2048)
-// have too few column blocks to fill 132 SMs, so K is split across blocks:
-// each split writes an f32 partial to a workspace and a second pass sums the
-// partials in a fixed order, so repeated runs give identical results (no
-// float atomics).  Split boundaries are multiples of 8, not of 128, so B4
-// indexes its flags by absolute K row / 128.  Ragged N is masked with byte
-// loads; ragged K needs nothing, since padded K bits are zero and the staged
-// x is zero past K.
+// Two kernels, each with B4 as a template flag.  bf16 x runs the
+// tensor-core kernel `cim_packed_tc_kernel`; f32 x runs the FMA kernel
+// `cim_packed_kernel` (the port runs no f32 matmul in TF32).
+//
+// Tensor-core kernel (B5's tensor-core kernel in csrc/cim_planes.cu with
+// another stage loader and dequantisation).  |w| < 2^16 for cols <= 16, so
+// w = sign * (256 * hi + lo) with hi = |w| >> 8 and lo = |w| & 255, both
+// integers in [0, 255] and exact in bf16; with bf16 x every product is
+// exact in f32, and y = scale * (256 * (x @ (s hi)) + x @ (s lo)) differs
+// from the FMA loop only in the order of the f32 sums (within
+// 2 * eps_f32 * K * (|x| @ |w|)).  A block owns 64 rows of x per wgmma
+// warpgroup (two where M > 64) by 128 columns and streams 64-row K stages
+// (8 packed byte rows of every plane and of the signs, and the x tile) with
+// 16-byte cp.async into a two-stage ring.  Its 256 threads then dequantise
+// the stage, one byte row by 4 columns each: the words of planes 0-7 hold
+// an 8 x 8 bit matrix per column byte (plane x K value), and three rounds of
+// masked shifts transpose all four at once, leaving in byte c of word q the
+// value lo of K value 7 - q; planes 8 .. cols - 1 give hi the same way (for
+// cols = 10 the compiler drops the rounds on zero words).  A byte b becomes
+// bf16 as the f32 0x4B000000 | b minus 2^23 and cvt.rn.bf16x2, and the sign
+// is XORed into the bf16 sign bit from the sign byte (one multiply spreads
+// two sign bits to bits 15 and 31).  Each thread then writes one 16-byte
+// chunk of the K-major, 128-byte-swizzled hi and lo tiles per column; the
+// wgmma warpgroups run two SS wgmmas a 16-deep step (x @ hi, x @ lo) into
+// f32 accumulators, combined as 256 * acc_hi + acc_lo at the end.  Packed
+// rows sit 144 bytes apart in shared memory, so the eight byte rows a warp
+// reads, and the chunks it writes, fall on distinct banks.  Decode (M < 16)
+// runs the same kernel with x zero-filled to 64 rows, as B5 does.  Split K
+// (f32 workspace, fixed-order reduce) only where the column tiles alone do
+// not fill the SMs.  N % 16, K % 8 or base alignment failing selects
+// element loads into the same layout.
+//   plane_ids: stored plane p holds logical plane plane_ids[p]; the
+//     transpose reads stored plane inv[b] for logical plane b, so the ids
+//     must be a permutation of 0 .. cols - 1 (what the col_perm codec
+//     stores).
+//   B4: a stage is half of a 128-row flag tile.  A dead plane's bytes are
+//     not loaded and its words are zero in the transpose; a stage whose
+//     planes are all dead skips its loads, its dequantisation and its
+//     wgmmas.  Adding exactly zero products leaves an f32 accumulator as it
+//     was, and B2 and B4 take one launch plan, so they agree bit for bit.
+//
+// FMA kernel (f32 x): each thread owns 4 adjacent output columns (one
+// 32-bit load per plane per byte row: a warp reads 128 contiguous bytes of
+// each plane) and MT rows of x.  Per byte row it rebuilds the 4 x 8 integer
+// magnitudes in registers, applies the signs and accumulates in f32 FMA; x
+// is staged in shared memory.  B4 reads its flags once per 128-row tile
+// (the same for the whole warp); a tile with every plane live takes B2's
+// path, one with dead planes loads and unpacks the live planes only.  The
+// magnitudes are exact integers however they are built, and the FMA order
+// is the same on every path, so B2 and B4 agree bit for bit.  plane_ids
+// makes the bit positions runtime values, so it is a template flag: without
+// it they are constants the compiler folds.  The weights are read once per
+// M tile (MT = 4 at decode, 16 at prefill).  Gemma's narrow matrices
+// (N = 256 or 2048) have too few column blocks to fill 132 SMs, so K is
+// split across blocks: each split writes an f32 partial to a workspace and
+// a second pass sums the partials in a fixed order, so repeated runs give
+// identical results (no float atomics).  Split boundaries are multiples of
+// 8, not of 128, so B4 indexes its flags by absolute K row / 128.  Ragged N
+// is masked with byte loads; ragged K needs nothing, since padded K bits
+// are zero and the staged x is zero past K.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "wgmma.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;  // threads per block
 constexpr int kCols = 4;       // output columns per thread
 constexpr int kKChunk = 128;   // K values of x staged in shared memory at once
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 // Four adjacent bytes of one packed row starting at column n0, as one word
 // (byte c = column n0 + c); columns past N read as zero.
@@ -101,9 +133,9 @@ __device__ __forceinline__ void fma_row(float (&acc)[MT][kCols], float (*xs)[kKC
   }
 }
 
-template <typename XT, int MT, int COLS, bool kVec, bool kSkip, bool kIds>
+template <int MT, int COLS, bool kVec, bool kSkip, bool kIds>
 __global__ void __launch_bounds__(kThreads)
-cim_packed_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ planes,
+cim_packed_kernel(const float* __restrict__ x, const uint8_t* __restrict__ planes,
                   const uint8_t* __restrict__ sign, const int* __restrict__ plane_ids,
                   const uint8_t* __restrict__ tile_nz, const float* __restrict__ scale,
                   float* __restrict__ dst, int m_rows, int k_dim, int n_cols,
@@ -137,7 +169,7 @@ cim_packed_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ planes,
     for (int i = threadIdx.x; i < MT * kKChunk; i += kThreads) {
       const int mm = i / kKChunk, kk = i % kKChunk;
       const int m = m0 + mm, k = kc + kk;
-      xs[mm][kk] = (m < m_rows && k < k_end) ? to_f32(x[(size_t)m * k_dim + k]) : 0.f;
+      xs[mm][kk] = (m < m_rows && k < k_end) ? x[(size_t)m * k_dim + k] : 0.f;
     }
     __syncthreads();
     if (!live) continue;
@@ -216,6 +248,15 @@ __global__ void splitk_reduce_kernel(const float* __restrict__ ws,
   out[i] = acc * __ldg(scale);
 }
 
+cudaError_t reduce_splits(const float* ws, const float* scale, float* out, int splits, int m,
+                          int n, cudaStream_t st) {
+  const long long mn = (long long)m * n;
+  const int threads = 256;
+  splitk_reduce_kernel<<<(unsigned)((mn + threads - 1) / threads), threads, 0, st>>>(
+      ws, scale, out, splits, mn);
+  return cudaGetLastError();
+}
+
 struct Args {
   const void *x, *planes, *sign, *plane_ids, *tile_nz, *scale;
   float* dst;
@@ -223,69 +264,389 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename XT, int MT, int COLS, bool kVec, bool kSkip, bool kIds>
+template <int MT, int COLS, bool kVec, bool kSkip, bool kIds>
 void launch_main(const Args& a) {
   const int col_groups = (a.n + kCols - 1) / kCols;
   dim3 grid((col_groups + kThreads - 1) / kThreads, a.splits, (a.m + MT - 1) / MT);
-  cim_packed_kernel<XT, MT, COLS, kVec, kSkip, kIds><<<grid, kThreads, 0, a.stream>>>(
-      (const XT*)a.x, (const uint8_t*)a.planes, (const uint8_t*)a.sign,
+  cim_packed_kernel<MT, COLS, kVec, kSkip, kIds><<<grid, kThreads, 0, a.stream>>>(
+      (const float*)a.x, (const uint8_t*)a.planes, (const uint8_t*)a.sign,
       (const int*)a.plane_ids, (const uint8_t*)a.tile_nz, (const float*)a.scale,
       a.dst, a.m, a.k, a.n, a.cols, a.k_per_split, a.apply_scale);
 }
 
-template <typename XT, int MT, int COLS, bool kSkip, bool kIds>
+template <int MT, int COLS, bool kSkip, bool kIds>
 void launch_vec(bool vec, const Args& a) {
-  if (vec) launch_main<XT, MT, COLS, true, kSkip, kIds>(a);
-  else launch_main<XT, MT, COLS, false, kSkip, kIds>(a);
+  if (vec) launch_main<MT, COLS, true, kSkip, kIds>(a);
+  else launch_main<MT, COLS, false, kSkip, kIds>(a);
 }
 
-template <typename XT, int MT, bool kSkip, bool kIds>
+template <int MT, bool kSkip, bool kIds>
 void launch_cols(bool vec, const Args& a) {
-  if (a.cols == 10) launch_vec<XT, MT, 10, kSkip, kIds>(vec, a);
-  else launch_vec<XT, MT, 16, kSkip, kIds>(vec, a);
-}
-
-template <typename XT, bool kSkip, bool kIds>
-void launch_mt(int mt, bool vec, const Args& a) {
-  if (mt == 4) launch_cols<XT, 4, kSkip, kIds>(vec, a);
-  else launch_cols<XT, 16, kSkip, kIds>(vec, a);
+  if (a.cols == 10) launch_vec<MT, 10, kSkip, kIds>(vec, a);
+  else launch_vec<MT, 16, kSkip, kIds>(vec, a);
 }
 
 template <bool kSkip, bool kIds>
-void launch_x(bool bf16, int mt, bool vec, const Args& a) {
-  if (bf16) launch_mt<__nv_bfloat16, kSkip, kIds>(mt, vec, a);
-  else launch_mt<float, kSkip, kIds>(mt, vec, a);
+void launch_mt(int mt, bool vec, const Args& a) {
+  if (mt == 4) launch_cols<4, kSkip, kIds>(vec, a);
+  else launch_cols<16, kSkip, kIds>(vec, a);
 }
 
 template <bool kSkip>
-void launch_ids(bool bf16, int mt, bool vec, const Args& a) {
-  if (a.plane_ids != nullptr) launch_x<kSkip, true>(bf16, mt, vec, a);
-  else launch_x<kSkip, false>(bf16, mt, vec, a);
+void launch_ids(int mt, bool vec, const Args& a) {
+  if (a.plane_ids != nullptr) launch_mt<kSkip, true>(mt, vec, a);
+  else launch_mt<kSkip, false>(mt, vec, a);
 }
+
+// ---- tensor-core kernel (bf16 x) --------------------------------------------
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int kThreadsTc = 256;  // two warpgroups dequantise; NWG of them run wgmma
+constexpr int kBK = 64;          // K rows per stage (one 128-byte swizzled row of bf16)
+constexpr int kRowsK = kBK / 8;  // packed byte rows per stage
+constexpr int kBN = 128;         // output columns per block
+constexpr int kRow = kBN + 16;   // shared-memory stride of a packed row (bank spread)
+constexpr int kWBytes = kBN * kBK * 2;  // one of hi / lo: bf16 [kBN][kBK], K-major, swizzled
+
+template <int COLS, int NWG>
+struct Cfg {
+  static constexpr int BM = NWG * 64;                      // x rows per block
+  static constexpr int X_BYTES = BM * kBK * 2;             // bf16 [BM][kBK], swizzled
+  static constexpr int PLANE_BYTES = COLS * kRowsK * kRow;  // uint8 [COLS][kRowsK][kRow]
+  static constexpr int SIGN_BYTES = kRowsK * kRow;          // uint8 [kRowsK][kRow]
+  // x first, at a 1024-byte boundary (the swizzle's period), as every stage
+  static constexpr int STAGE_BYTES = (X_BYTES + PLANE_BYTES + SIGN_BYTES + 1023) / 1024 * 1024;
+  static constexpr int SMEM = 1024 + 2 * STAGE_BYTES + 2 * kWBytes;
+  static_assert(SMEM <= 232448, "a block's shared memory exceeds 227 KB");
+};
+
+// Stage <- the x tile [m0, m0 + BM) x [kc, kc + kBK), the kRowsK packed byte
+// rows from kc / 8 of every live plane and of the signs, columns
+// [n0, n0 + kBN); zeros past K (the split's end), M and N.  A plane whose
+// bit of `live` is 0 is not loaded (B4).  kVec: 16-byte cp.async (N % 16 == 0,
+// K % 8 == 0, aligned bases); otherwise element loads.
+template <int COLS, int NWG, bool kVec>
+__device__ __forceinline__ void load_stage(uint8_t* stage, const bf16* __restrict__ x,
+                                           const uint8_t* __restrict__ planes,
+                                           const uint8_t* __restrict__ sign, uint32_t live,
+                                           int m0, int n0, int kc, int k_end, int m_rows,
+                                           int k_dim, int n_cols, int cols) {
+  using C = Cfg<COLS, NWG>;
+  uint8_t* xs = stage;
+  uint8_t* ps = stage + C::X_BYTES;
+  const int kb0 = kc / 8, kb_end = (k_end + 7) / 8;
+  const size_t plane_stride = (size_t)((k_dim + 7) / 8) * n_cols;
+  // row block b < cols: plane b; b == cols: the signs (stored after COLS planes)
+  auto src_of = [&](int b) { return b < cols ? planes + b * plane_stride : sign; };
+  auto dst_of = [&](int b, int r) { return ps + ((b < cols ? b : COLS) * kRowsK + r) * kRow; };
+  if (kVec) {
+    constexpr int CH = kBN / 16;  // 16-byte chunks of a packed row
+    for (int i = threadIdx.x; i < (cols + 1) * kRowsK * CH; i += kThreadsTc) {
+      const int b = i / (kRowsK * CH), r = (i / CH) % kRowsK, c = i % CH;
+      if (b < cols && !((live >> b) & 1u)) continue;
+      const int kb = kb0 + r, n = n0 + 16 * c;
+      const bool ok = kb < kb_end && n < n_cols;
+      const uint8_t* src = ok ? src_of(b) + (size_t)kb * n_cols + n : sign;
+      hopper::cp_async16(dst_of(b, r) + 16 * c, src, ok ? 16 : 0);
+    }
+    for (int i = threadIdx.x; i < C::BM * (kBK / 8); i += kThreadsTc) {
+      const int r = i / (kBK / 8), c = i % (kBK / 8);
+      const int m = m0 + r, k = kc + 8 * c;
+      const bool ok = m < m_rows && k < k_end;
+      const bf16* src = ok ? x + (size_t)m * k_dim + k : x;
+      hopper::cp_async16(xs + hopper::swz128(r, c), src, ok ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < (cols + 1) * kRowsK * kBN; i += kThreadsTc) {
+      const int b = i / (kRowsK * kBN), r = (i / kBN) % kRowsK, c = i % kBN;
+      if (b < cols && !((live >> b) & 1u)) continue;
+      const int kb = kb0 + r, n = n0 + c;
+      dst_of(b, r)[c] = (kb < kb_end && n < n_cols) ? src_of(b)[(size_t)kb * n_cols + n]
+                                                    : (uint8_t)0;
+    }
+    for (int i = threadIdx.x; i < C::BM * kBK; i += kThreadsTc) {
+      const int r = i / kBK, kk = i % kBK;
+      const int m = m0 + r, k = kc + kk;
+      *reinterpret_cast<bf16*>(xs + hopper::swz128(r, kk / 8) + 2 * (kk % 8)) =
+          (m < m_rows && k < k_end) ? x[(size_t)m * k_dim + k] : __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
+// Exchange the bits of b under mask with the bits of a under mask << sh.
+__device__ __forceinline__ void swap_bits(uint32_t& a, uint32_t& b, int sh, uint32_t mask) {
+  const uint32_t t = ((a >> sh) ^ b) & mask;
+  b ^= t;
+  a ^= t << sh;
+}
+
+// In each byte lane, the 8 x 8 bit matrix (word p, bit q) -> (word q, bit p):
+// swap the off-diagonal 4 x 4 blocks, then the 2 x 2 blocks within them,
+// then single bits.
+__device__ __forceinline__ void transpose8(uint32_t (&w)[8]) {
+  swap_bits(w[0], w[4], 4, 0x0F0F0F0Fu);
+  swap_bits(w[1], w[5], 4, 0x0F0F0F0Fu);
+  swap_bits(w[2], w[6], 4, 0x0F0F0F0Fu);
+  swap_bits(w[3], w[7], 4, 0x0F0F0F0Fu);
+  swap_bits(w[0], w[2], 2, 0x33333333u);
+  swap_bits(w[1], w[3], 2, 0x33333333u);
+  swap_bits(w[4], w[6], 2, 0x33333333u);
+  swap_bits(w[5], w[7], 2, 0x33333333u);
+  swap_bits(w[0], w[1], 1, 0x55555555u);
+  swap_bits(w[2], w[3], 1, 0x55555555u);
+  swap_bits(w[4], w[5], 1, 0x55555555u);
+  swap_bits(w[6], w[7], 1, 0x55555555u);
+}
+
+// bf16 pair (byte c of a, byte c of b) as exact values, a in the low half.
+__device__ __forceinline__ uint32_t bytes_to_bf16x2(uint32_t a, uint32_t b, int c) {
+  const float fa = __uint_as_float(__byte_perm(a, 0x4B000000u, 0x7540 | c)) - 8388608.f;
+  const float fb = __uint_as_float(__byte_perm(b, 0x4B000000u, 0x7540 | c)) - 8388608.f;
+  const __nv_bfloat162 h = __floats2bfloat162_rn(fa, fb);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// One thread's share of a stage: byte row kb (8 K values) of 4 columns from
+// column 4 nq -> one 16-byte chunk of the hi and lo tiles per column.
+// `plane_row[b]` is the stored plane of logical plane b; `live` flags
+// stored planes (B4: a dead plane's words are zero).
+template <int COLS>
+__device__ __forceinline__ void dequant(const uint8_t* __restrict__ ps, uint8_t* w_hi,
+                                        uint8_t* w_lo, const int (&plane_row)[COLS],
+                                        uint32_t live, int cols) {
+  const int kb = threadIdx.x & 7, nq = threadIdx.x >> 3;
+  const int at = kb * kRow + 4 * nq;
+  // word of logical plane b (zero past cols and for a dead plane)
+  auto word = [&](int b) -> uint32_t {
+    if (b >= COLS || b >= cols) return 0u;
+    const int r = plane_row[b < COLS ? b : 0];
+    if (!((live >> r) & 1u)) return 0u;
+    return *reinterpret_cast<const uint32_t*>(ps + r * (kRowsK * kRow) + at);
+  };
+  uint32_t lo[8], hi[8];
+#pragma unroll
+  for (int b = 0; b < 8; ++b) {
+    lo[b] = word(b);
+    hi[b] = word(b + 8);
+  }
+  const uint32_t sw = *reinterpret_cast<const uint32_t*>(ps + COLS * (kRowsK * kRow) + at);
+  transpose8(lo);  // byte c of lo[q]: lo of K value 7 - q, column 4 nq + c
+  transpose8(hi);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const uint32_t sc = __byte_perm(sw, 0, 0x4440 | c);  // the sign byte of column c
+    uint32_t h[4], l[4];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      // sign of K value 2 jj (bit 7 - 2 jj) to bit 15, of 2 jj + 1 to bit 31
+      const uint32_t s = (sc * ((1u << (8 + 2 * jj)) | (1u << (25 + 2 * jj)))) & 0x80008000u;
+      h[jj] = bytes_to_bf16x2(hi[7 - 2 * jj], hi[6 - 2 * jj], c) ^ s;
+      l[jj] = bytes_to_bf16x2(lo[7 - 2 * jj], lo[6 - 2 * jj], c) ^ s;
+    }
+    const uint32_t off = hopper::swz128(4 * nq + c, kb);
+    *reinterpret_cast<uint4*>(w_hi + off) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(w_lo + off) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
+// y[m0:m0+BM, n0:n0+kBN] (+ split part) = scale * (256 * (x @ s hi) + x @ s lo).
+template <int COLS, int NWG, bool kVec, bool kSkip, bool kIds>
+__global__ void __launch_bounds__(kThreadsTc, 1)
+cim_packed_tc_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ planes,
+                     const uint8_t* __restrict__ sign, const int* __restrict__ plane_ids,
+                     const uint8_t* __restrict__ tile_nz, const float* __restrict__ scale,
+                     float* __restrict__ dst, int m_rows, int k_dim, int n_cols, int cols,
+                     int k_per_split, int apply_scale) {
+  using C = Cfg<COLS, NWG>;
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ int inv_ids[COLS];
+  uint8_t* stages = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* w_hi = stages + 2 * C::STAGE_BYTES;
+  uint8_t* w_lo = w_hi + kWBytes;
+
+  const int n0 = blockIdx.x * kBN, split = blockIdx.y, m0 = blockIdx.z * C::BM;
+  const int k_begin = split * k_per_split;  // a multiple of kBK
+  const int k_end = min(k_dim, k_begin + k_per_split);
+  const int n_tiles = (k_end - k_begin + kBK - 1) / kBK;
+  const int k_flag_tiles = (k_dim + 127) / 128;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wg = warp / 4, wl = warp % 4;
+
+  // logical plane b is stored plane plane_row[b] (the inverse of plane_ids)
+  int plane_row[COLS];
+  if (kIds) {
+    const int id = tid < cols ? __ldg(plane_ids + tid) : -1;
+    if (id >= 0 && id < cols) inv_ids[id] = tid;
+    __syncthreads();
+  }
+#pragma unroll
+  for (int b = 0; b < COLS; ++b) plane_row[b] = (kIds && b < cols) ? inv_ids[b] : b;
+  // stored planes with a nonzero flag in the 128-row tile of K row kc (B4)
+  auto live_at = [&](int kc) {
+    if (!kSkip) return (1u << cols) - 1u;
+    uint32_t l = 0;
+    for (int b = 0; b < cols; ++b)
+      l |= (uint32_t)(__ldg(tile_nz + (size_t)b * k_flag_tiles + (kc >> 7)) != 0) << b;
+    return l;
+  };
+
+  constexpr int NACC = kBN / 2;  // f32 accumulators a thread, each of hi and lo
+  float acc_hi[NACC], acc_lo[NACC];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) acc_hi[i] = acc_lo[i] = 0.f;
+
+  uint32_t live = n_tiles > 0 ? live_at(k_begin) : 0u;
+  if (live)
+    load_stage<COLS, NWG, kVec>(stages, x, planes, sign, live, m0, n0, k_begin, k_end, m_rows,
+                                k_dim, n_cols, cols);
+  cp_async_commit();
+  for (int t = 0; t < n_tiles; ++t) {
+    uint8_t* stage = stages + (t % 2) * C::STAGE_BYTES;
+    cp_async_wait<0>();
+    __syncthreads();  // tile t is in; every warpgroup is done with tile t - 1
+    const uint32_t live_next = t + 1 < n_tiles ? live_at(k_begin + (t + 1) * kBK) : 0u;
+    if (live_next)
+      load_stage<COLS, NWG, kVec>(stages + ((t + 1) % 2) * C::STAGE_BYTES, x, planes, sign,
+                                  live_next, m0, n0, k_begin + (t + 1) * kBK, k_end, m_rows,
+                                  k_dim, n_cols, cols);
+    cp_async_commit();
+    const uint32_t live_now = live;
+    live = live_next;
+    // B4: every plane of this stage dead -> nothing to add (the same for every thread)
+    if (live_now == 0u) continue;
+
+    dequant<COLS>(stage + C::X_BYTES, w_hi, w_lo, plane_row, live_now, cols);
+    fence_proxy_async();  // the hi / lo and x writes, for wgmma's reads
+    __syncthreads();
+
+    if (wg >= NWG) continue;  // a dequant-only warpgroup (M <= 64)
+    const uint32_t xa = smem_u32(stage + wg * 64 * (2 * kBK));
+    const uint32_t ha = smem_u32(w_hi), la = smem_u32(w_lo);
+    fence_regs<NACC>(acc_hi);
+    fence_regs<NACC>(acc_lo);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kBK / 16; ++j) {
+      const uint64_t da = desc_sw128(xa + 32 * j, 16, 1024);
+      wgmma_ss_n128(acc_hi, da, desc_sw128(ha + 32 * j, 16, 1024), 1);
+      wgmma_ss_n128(acc_lo, da, desc_sw128(la + 32 * j, 16, 1024), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<NACC>(acc_hi);
+    fence_regs<NACC>(acc_lo);
+  }
+
+  if (wg >= NWG) return;
+  // fragment i: row 16 wl + lane / 4 + 8 * ((i >> 1) & 1), column 8 (i / 4) + 2 (lane % 4) + (i & 1)
+  const float s = apply_scale ? __ldg(scale) : 1.f;
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) {
+    const int m = m0 + wg * 64 + 16 * wl + lane / 4 + 8 * ((i >> 1) & 1);
+    const int n = n0 + 8 * (i / 4) + 2 * (lane % 4) + (i & 1);
+    if (m < m_rows && n < n_cols)
+      dst[((size_t)split * m_rows + m) * n_cols + n] = (256.f * acc_hi[i] + acc_lo[i]) * s;
+  }
+}
+
+struct TcArgs {
+  const void *x, *planes, *sign, *plane_ids, *tile_nz, *scale;
+  float* dst;
+  int m, k, n, cols, splits, k_per_split, apply_scale;
+  cudaStream_t stream;
+};
+
+template <int COLS, int NWG, bool kVec, bool kSkip, bool kIds>
+cudaError_t launch(const TcArgs& a) {
+  using C = Cfg<COLS, NWG>;
+  auto kern = cim_packed_tc_kernel<COLS, NWG, kVec, kSkip, kIds>;
+  static unsigned long long opted_in = 0;  // > 48 KB of shared memory, once per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64 || !(opted_in >> dev & 1ULL)) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (err != cudaSuccess) return err;
+    if (dev < 64) opted_in |= 1ULL << dev;
+  }
+  dim3 grid((a.n + kBN - 1) / kBN, a.splits, (a.m + C::BM - 1) / C::BM);
+  kern<<<grid, kThreadsTc, C::SMEM, a.stream>>>(
+      static_cast<const bf16*>(a.x), static_cast<const uint8_t*>(a.planes),
+      static_cast<const uint8_t*>(a.sign), static_cast<const int*>(a.plane_ids),
+      static_cast<const uint8_t*>(a.tile_nz), static_cast<const float*>(a.scale), a.dst, a.m,
+      a.k, a.n, a.cols, a.k_per_split, a.apply_scale);
+  return cudaGetLastError();
+}
+
+template <int COLS, int NWG, bool kVec, bool kSkip>
+cudaError_t launch_ids(const TcArgs& a) {
+  return a.plane_ids != nullptr ? launch<COLS, NWG, kVec, kSkip, true>(a)
+                                : launch<COLS, NWG, kVec, kSkip, false>(a);
+}
+
+template <int COLS, int NWG, bool kVec>
+cudaError_t launch_skip(const TcArgs& a) {
+  return a.tile_nz != nullptr ? launch_ids<COLS, NWG, kVec, true>(a)
+                              : launch_ids<COLS, NWG, kVec, false>(a);
+}
+
+template <int COLS, int NWG>
+cudaError_t launch_vec(bool vec, const TcArgs& a) {
+  return vec ? launch_skip<COLS, NWG, true>(a) : launch_skip<COLS, NWG, false>(a);
+}
+
+template <int COLS>
+cudaError_t launch_nwg(int nwg, bool vec, const TcArgs& a) {
+  return nwg == 1 ? launch_vec<COLS, 1>(vec, a) : launch_vec<COLS, 2>(vec, a);
+}
+
+}  // namespace tc
 
 }  // namespace
 
-// The wrapper validates shapes and pointers.  cols <= 16; k_per_split is a
+// The FMA kernel, f32 x only (bf16 x runs cim_matmul_packed_tc_launch).  The
+// wrapper validates shapes and pointers.  cols <= 16; k_per_split is a
 // multiple of 8; mt is 4 or 16; vec requires n % 4 == 0 and 4-byte aligned
 // planes and sign.  plane_ids may be null; tile_nz non-null selects B4.
 // With splits > 1, ws holds f32[splits, m, n].
 // Returns the first CUDA error of the launches (0 on success).
-extern "C" int cim_matmul_packed_launch(const void* x, int x_is_bf16, const void* planes,
-                                        const void* sign, const void* plane_ids,
-                                        const void* tile_nz, const void* scale, void* out,
-                                        void* ws, int m, int k, int n, int cols, int mt,
-                                        int vec, int splits, int k_per_split, void* stream) {
+extern "C" int cim_matmul_packed_launch(const void* x, const void* planes, const void* sign,
+                                        const void* plane_ids, const void* tile_nz,
+                                        const void* scale, void* out, void* ws, int m, int k,
+                                        int n, int cols, int mt, int vec, int splits,
+                                        int k_per_split, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   Args a{x, planes, sign, plane_ids, tile_nz, scale,
          splits > 1 ? (float*)ws : (float*)out,
          m, k, n, cols, splits, k_per_split, splits > 1 ? 0 : 1, st};
-  if (tile_nz != nullptr) launch_ids<true>(x_is_bf16 != 0, mt, vec != 0, a);
-  else launch_ids<false>(x_is_bf16 != 0, mt, vec != 0, a);
+  if (tile_nz != nullptr) launch_ids<true>(mt, vec != 0, a);
+  else launch_ids<false>(mt, vec != 0, a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits <= 1) return (int)err;
-  const long long mn = (long long)m * n;
-  const int threads = 256;
-  splitk_reduce_kernel<<<(unsigned)((mn + threads - 1) / threads), threads, 0, st>>>(
-      (const float*)ws, (const float*)scale, (float*)out, splits, mn);
-  return (int)cudaGetLastError();
+  return (int)reduce_splits((const float*)ws, (const float*)scale, (float*)out, splits, m, n, st);
+}
+
+// The tensor-core kernel for bf16 x (the wrapper validates): cols <= 16;
+// nwg 1 (M <= 64) or 2; vec requires n % 16 == 0, k % 8 == 0 and 16-byte
+// aligned x, planes and sign; k_per_split a multiple of 64; plane_ids, if
+// not null, a permutation of 0 .. cols - 1; tile_nz non-null selects B4.
+// With splits > 1, ws holds f32[splits, m, n] and the fixed-order reduce
+// scales.  Returns the first CUDA error of the launches (0 on success).
+extern "C" int cim_matmul_packed_tc_launch(const void* x, const void* planes, const void* sign,
+                                           const void* plane_ids, const void* tile_nz,
+                                           const void* scale, void* out, void* ws, int m,
+                                           int k, int n, int cols, int nwg, int vec,
+                                           int splits, int k_per_split, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  tc::TcArgs a{x, planes, sign, plane_ids, tile_nz, scale,
+               splits > 1 ? (float*)ws : (float*)out,
+               m, k, n, cols, splits, k_per_split, splits > 1 ? 0 : 1, st};
+  const cudaError_t err = cols <= 10 ? tc::launch_nwg<10>(nwg, vec != 0, a)
+                                     : tc::launch_nwg<16>(nwg, vec != 0, a);
+  if (err != cudaSuccess || splits <= 1) return (int)err;
+  return (int)reduce_splits((const float*)ws, (const float*)scale, (float*)out, splits, m, n, st);
 }

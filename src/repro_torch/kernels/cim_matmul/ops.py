@@ -4,15 +4,15 @@ Counterparts of ``repro.kernels.cim_matmul.ops``:
 
 * ``cim_matmul_packed`` — bit-packed planes: kernel B2, or B4 when the
   const_rle codec's ``tile_nz`` flags are given; both take the col_perm
-  codec's ``plane_ids``;
+  codec's ``plane_ids``; bf16 x takes their tensor-core kernel;
 * ``cim_matmul`` — int8 signed planes: kernel B5 (``fused_dequant`` or the
   per-plane ``planes`` oracle); ``fused_dequant`` on bf16 x takes B5's
   tensor-core kernel.
 
 CUDA tensors launch the kernels, CPU tensors run the plain versions in
 ``ref.py``.  ``LAUNCHES`` counts kernel launches by kernel (``"B2"``,
-``"B4"``, ``"B5"``; ``"B5_tc"`` counts the B5 launches that took the
-tensor-core kernel); ``reset_launches`` zeroes it.
+``"B4"``, ``"B5"``; ``"B2_tc"``, ``"B4_tc"`` and ``"B5_tc"`` count the
+launches that took a tensor-core kernel); ``reset_launches`` zeroes it.
 """
 from __future__ import annotations
 
@@ -33,15 +33,16 @@ from repro_torch.kernels._util import (
 from repro_torch.kernels.cim_matmul import ref as cim_ref
 
 MAX_COLS = 16
-_THREADS, _COLS_PER_THREAD = 128, 4  # block shape of both kernel sources
+_THREADS, _COLS_PER_THREAD = 128, 4  # block shape of the FMA kernels (f32 x, B5 planes)
 _MIN_K_PER_SPLIT = 128
 TILE_ROWS = 128  # K rows per tile_nz flag
 
-TC_BK = 64  # K rows per stage of B5's tensor-core kernel
+TC_BK = 64  # K rows per stage of the tensor-core kernels (B2/B4 and B5)
 TC_MIN_TILES = 4  # K stages per split at least (the ring's depth plus one)
 TC_FILL = 2  # stages' worth of time a block spends filling its ring and in its epilogue
+TC_PACKED_BN = 128  # output columns per block of B2/B4's tensor-core kernel
 
-LAUNCHES = {"B2": 0, "B4": 0, "B5": 0, "B5_tc": 0}
+LAUNCHES = {"B2": 0, "B2_tc": 0, "B4": 0, "B4_tc": 0, "B5": 0, "B5_tc": 0}
 
 
 def reset_launches() -> None:
@@ -54,9 +55,19 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 @functools.cache
 def _packed_lib():
-    """The C launcher of B2/B4, its argument types set once per process."""
+    """The C launcher of B2/B4's FMA kernel (f32 x), argument types set once per process."""
     fn = load_kernel_lib("cim_matmul").cim_matmul_packed_launch
-    fn.argtypes = [_P, _I, _P, _P, _P, _P, _P, _P, _P,
+    fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P,
+                   _I, _I, _I, _I, _I, _I, _I, _I, _P]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _packed_tc_lib():
+    """The C launcher of B2/B4's tensor-core kernel (bf16 x), argument types set once per process."""
+    fn = load_kernel_lib("cim_matmul").cim_matmul_packed_tc_launch
+    fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P,
                    _I, _I, _I, _I, _I, _I, _I, _I, _P]
     fn.restype = ctypes.c_int
     return fn
@@ -101,24 +112,37 @@ def launch_plan(
     return mt, cdiv(k, k_per_split), k_per_split
 
 
-def tc_launch_plan(m: int, k: int, n: int, cols: int, sms: int) -> tuple[int, int, int]:
-    """(wgmma warpgroups, K splits, K per split) for B5's tensor-core kernel.
+def _tc_plan(m: int, k: int, n: int, bn: int, sms: int) -> tuple[int, int, int]:
+    """(wgmma warpgroups, K splits, K per split) of a tensor-core kernel
+    whose block owns 64 rows of x per wgmma warpgroup (two where M > 64) by
+    ``bn`` columns and streams its K range in 64-row stages.
 
-    A block (one an SM: its ring takes the shared memory) owns 64 rows of x
-    per wgmma warpgroup, two where M > 64, by 128 columns (64 where
-    cols > 10), and streams its K range in 64-row stages.  The split count
-    minimises waves x (stages per split + ``TC_FILL``): a plane-bound
+    The split count minimises waves x (stages per split + ``TC_FILL``): a
     block's time is its stage count plus the filling of its ring; the
     fewest splits among equals, with at least ``TC_MIN_TILES`` stages a
     split.
     """
     nwg = 1 if m <= 64 else 2
-    blocks = cdiv(n, 128 if cols <= 10 else 64) * cdiv(m, 64 * nwg)
+    blocks = cdiv(n, bn) * cdiv(m, 64 * nwg)
     tiles = cdiv(k, TC_BK)
     splits = min(range(1, max(1, tiles // TC_MIN_TILES) + 1),
                  key=lambda s: (cdiv(blocks * s, sms) * (cdiv(tiles, s) + TC_FILL), s))
     k_per_split = round_up(cdiv(k, splits), TC_BK)
     return nwg, cdiv(k, k_per_split), k_per_split
+
+
+def tc_launch_plan(m: int, k: int, n: int, cols: int, sms: int) -> tuple[int, int, int]:
+    """(wgmma warpgroups, K splits, K per split) for B5's tensor-core kernel:
+    128 columns a block (64 where cols > 10, whose 16 int8 planes would not
+    fit two stages), one block an SM (its ring takes the shared memory)."""
+    return _tc_plan(m, k, n, 128 if cols <= 10 else 64, sms)
+
+
+def tc_packed_launch_plan(m: int, k: int, n: int, sms: int) -> tuple[int, int, int]:
+    """(wgmma warpgroups, K splits, K per split) for B2/B4's tensor-core
+    kernel: 128 columns a block for every cols (a packed stage is small).
+    B2 and B4 take the same plan, so their split boundaries agree."""
+    return _tc_plan(m, k, n, TC_PACKED_BN, sms)
 
 
 def _check_x_scale(x: torch.Tensor, scale: torch.Tensor) -> None:
@@ -146,6 +170,11 @@ def cim_matmul_packed(
     codec) select kernel B4, which skips the flagged-zero tiles;
     ``plane_ids`` int32[cols] (the col_perm codec) weighs stored plane ``p``
     by ``2**plane_ids[p]``.  Both kernels give the same bits.
+
+    On CUDA, bf16 x runs the tensor-core kernel and f32 x the FMA kernel.
+    The tensor-core kernel reads ``plane_ids`` as a permutation of
+    ``range(cols)`` (what the col_perm codec stores: an argsort); the FMA
+    kernel and the plain version take any ids.
     """
     m, k = x.shape
     cols, kw, n = planes_packed.shape
@@ -172,18 +201,28 @@ def cim_matmul_packed(
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0 or k == 0:
         return out.zero_()
-    mt, splits, k_per_split = launch_plan(m, k, n, _sm_count(x.device.index))
-    vec = n % 4 == 0 and planes_packed.data_ptr() % 4 == 0 and sign_packed.data_ptr() % 4 == 0
+    sms = _sm_count(x.device.index)
+    tensor_cores = x.dtype == torch.bfloat16
+    if tensor_cores:
+        nwg, splits, k_per_split = tc_packed_launch_plan(m, k, n, sms)
+        vec = (n % 16 == 0 and k % 8 == 0 and x.data_ptr() % 16 == 0
+               and planes_packed.data_ptr() % 16 == 0 and sign_packed.data_ptr() % 16 == 0)
+    else:
+        mt, splits, k_per_split = launch_plan(m, k, n, sms)
+        vec = n % 4 == 0 and planes_packed.data_ptr() % 4 == 0 and sign_packed.data_ptr() % 4 == 0
     ws = torch.empty((splits, m, n), dtype=torch.float32, device=x.device) if splits > 1 else out
-    err = _packed_lib()(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), planes_packed.data_ptr(),
-        sign_packed.data_ptr(), None if plane_ids is None else plane_ids.data_ptr(),
-        None if tile_nz is None else tile_nz.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        ws.data_ptr(), m, k, n, cols, mt, int(vec), splits, k_per_split, current_stream(),
-    )
+    args = (x.data_ptr(), planes_packed.data_ptr(), sign_packed.data_ptr(),
+            None if plane_ids is None else plane_ids.data_ptr(),
+            None if tile_nz is None else tile_nz.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            ws.data_ptr(), m, k, n, cols)
+    if tensor_cores:
+        err = _packed_tc_lib()(*args, nwg, int(vec), splits, k_per_split, current_stream())
+    else:
+        err = _packed_lib()(*args, mt, int(vec), splits, k_per_split, current_stream())
     kernel = "B2" if tile_nz is None else "B4"
     check_launch(err, kernel)
     LAUNCHES[kernel] += 1
+    LAUNCHES[f"{kernel}_tc"] += int(tensor_cores)
     return out
 
 

@@ -1,5 +1,5 @@
-"""Kernels B3 (flash attention), B5 (int8-plane matmul) and B6 (bitslice)
-against their plain versions on the card.
+"""Kernels B2/B4 (bit-packed matmul), B3 (flash attention), B5 (int8-plane
+matmul) and B6 (bitslice) against their plain versions on the card.
 
 Every test here is marked ``cuda`` and skips without a CUDA device (the
 kernels have no CPU mode).  The file imports neither JAX nor the reference
@@ -9,16 +9,17 @@ package, so it also runs where only the port is installed:
 Tolerances: B3 in float32 within 2e-5 (absolute + relative, as the
 reference holds its Pallas kernel to its oracle: both sum in f32 in
 another order); in bfloat16 within one bf16 ulp of the output plus that
-(both round an f32 result to bf16).  B5 within 2 * eps_f32 * K * (|x| @ |w|)
-(the kernel and the plain version sum the same exact products in another
-order).  B6 is exact.
+(both round an f32 result to bf16).  B2, B4 and B5 within
+2 * eps_f32 * K * (|x| @ |w|) (the kernel and the plain version sum the same
+exact products in another order), and B4 equal to B2 bit for bit.  B6 is
+exact.
 """
 from __future__ import annotations
 
 import pytest
 import torch
 
-from repro_torch.core import simulator
+from repro_torch.core import planes, simulator
 from repro_torch.kernels.bitslice import ops as bs_ops
 from repro_torch.kernels.bitslice import ref as bs_ref
 from repro_torch.kernels.cim_matmul import ops as cim_ops
@@ -130,6 +131,65 @@ def test_int8_plane_kernel_paths(cuda_device, m, k, n, cols, dtype):
     torch.cuda.synchronize()
     bound = 2 * F32_EPS * k * (x.float().abs() @ (q.float() * 1e-3))
     assert got.shape == (m, n) and bool(((got - want).abs() <= bound).all())
+
+
+_PACKED_OPS: dict = {}
+
+
+def _packed_operands(device, k, n, cols, share):
+    """const_rle-encoded packed operands with (plane, 128-row) tiles zeroed
+    at ``share``, and |w| * scale for the bound (cached across cases)."""
+    key = (k, n, cols, share)
+    if key not in _PACKED_OPS:
+        _PACKED_OPS.clear()  # one shape's operands at a time
+        g = torch.Generator(device=device).manual_seed(k + n + cols + int(100 * share))
+        q = torch.randint(0, 2**cols, (k, n), dtype=torch.int32, device=device, generator=g)
+        s = torch.where(torch.rand(k, n, device=device, generator=g) < 0.5, -1, 1).to(torch.int8)
+        op = simulator.packed_operands(q, s, 1e-3, 0.0, cols)
+        if share:
+            dead = torch.rand(cols, -(-k // 128), device=device, generator=g) < share
+            rows = dead.repeat_interleave(16, dim=1)[:, : op["planes_packed"].shape[1]]
+            op["planes_packed"] = op["planes_packed"] * (~rows)[:, :, None]
+        op = planes.encode_operands(op, "const_rle")
+        w_abs = cim_ref.unpack_weights(op["planes_packed"], op["sign_packed"], k).abs() * 1e-3
+        _PACKED_OPS[key] = (op, w_abs)
+    return _PACKED_OPS[key]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(2048, 16384), (16384, 2048), (1001, 333), (4096, 64000)])
+@pytest.mark.parametrize("cols", [10, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_kernels_match_plain(cuda_device, k, n, cols, dtype):
+    """B2 and B4 against the plain version, M from 1 to 300, zero tiles
+    0 / 50 / 90%, identity and permuted plane_ids (stored plane p holds
+    logical plane ids[p]): bf16 x on the tensor-core kernel, f32 x on the FMA
+    kernel, and B4 equal to B2 bit for bit."""
+    g = torch.Generator(device=cuda_device).manual_seed(k + n + cols)
+    perm = torch.randperm(cols, generator=torch.Generator().manual_seed(cols)).to(torch.int32)
+    tc = int(dtype == torch.bfloat16)
+    for share in (0.0, 0.5, 0.9):
+        op, w_abs = _packed_operands(cuda_device, k, n, cols, share)
+        for ids in (None, perm.to(cuda_device)):
+            # permuting stored planes (and their flags) keeps the weights
+            pp = op["planes_packed"] if ids is None else op["planes_packed"][ids.long()]
+            nz = op["plane_tile_nz"] if ids is None else op["plane_tile_nz"][ids.long()]
+            args = (pp, op["sign_packed"], op["scale"])
+            for m in (1, 4, 16, 17, 128, 300):
+                x = torch.randn(m, k, device=cuda_device, generator=g).to(dtype)
+                cim_ops.reset_launches()
+                cim_ref.cim_matmul_packed.calls = 0
+                b2 = cim_ops.cim_matmul_packed(x, *args, plane_ids=ids)
+                b4 = cim_ops.cim_matmul_packed(x, *args, tile_nz=nz, plane_ids=ids)
+                assert {key: v for key, v in cim_ops.LAUNCHES.items() if v} == {
+                    "B2": 1, "B4": 1, **({"B2_tc": 1, "B4_tc": 1} if tc else {})}
+                assert cim_ref.cim_matmul_packed.calls == 0
+                want = cim_ref.cim_matmul_packed(x, *args, plane_ids=ids)
+                torch.cuda.synchronize()
+                bound = 2 * F32_EPS * k * (x.float().abs() @ w_abs)
+                what = f"share {share} ids {ids is not None} M {m}"
+                assert b2.shape == (m, n) and bool(((b2 - want).abs() <= bound).all()), what
+                assert torch.equal(b2, b4), what
 
 
 def _weights_with_ties(shape, inv_scale, device, seed):

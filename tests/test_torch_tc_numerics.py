@@ -1,4 +1,4 @@
-"""The arithmetic of the tensor-core paths of kernels B3 and B5, on the CPU.
+"""The arithmetic of the tensor-core paths of kernels B2/B4, B3 and B5, on the CPU.
 
 The kernels run only on the card; these tests hold the argument that lets
 them use bf16 tensor cores without loosening a tolerance, with plain-torch
@@ -9,6 +9,12 @@ emulations of what the kernels compute:
   scale * (256 * (x @ hi) + x @ lo), with f32 sums, stays within the
   kernel's bound 2 * eps_f32 * K * (|x| @ |w|) of the plain version (and of
   the reference's jnp oracle);
+* B2/B4 (bit-packed matmul, bf16 x): the kernel's dequantisation (an 8 x 8
+  bit transpose of the plane words into lo = |w| & 255 and hi = |w| >> 8,
+  bytes to bf16 through the f32 0x4B000000 trick, the sign XORed into the
+  bf16 sign bit) rebuilds ``unpack_weights`` exactly, and the split
+  matmul stays within the same bound of the plain version and of the
+  reference's jnp oracle;
 * B3 (flash attention, bf16 q/k/v): unscaled q . k^T on exact bf16
   products with f32 sums, the D^-0.5 scale after it, and P entering P . V
   as P_hi + P_lo (two bf16 values), tile by tile with the online softmax,
@@ -25,7 +31,8 @@ import pytest
 import torch
 
 from repro.kernels.cim_matmul import ref as jcim_ref
-from repro_torch.core import simulator
+from repro_torch.kernels.cim_matmul import ops as cim_ops
+from repro_torch.core import bitslice, simulator
 from repro_torch.kernels.cim_matmul import ref as cim_ref
 from repro_torch.kernels.flash_attention import ref as fa_ref
 
@@ -151,13 +158,151 @@ def test_tensor_core_launch_plan_covers_k(m, k, n, cols):
     """B5's tensor-core plan: 64-row K stages, every K row in exactly one
     split, no split without work, and no slower (in waves x stages) than
     no split at all."""
-    from repro_torch.kernels.cim_matmul import ops as cim_ops
-
     sms = 132
     nwg, splits, k_per_split = cim_ops.tc_launch_plan(m, k, n, cols, sms)
     assert nwg == (1 if m <= 64 else 2)
     assert k_per_split % 64 == 0 and (splits - 1) * k_per_split < k <= splits * k_per_split
     blocks = -(-n // (128 if cols <= 10 else 64)) * -(-m // (64 * nwg))
+    tiles, fill = -(-k // 64), cim_ops.TC_FILL
+    assert (-(-blocks * splits // sms) * (-(-tiles // splits) + fill)
+            <= -(-blocks // sms) * (tiles + fill))
+
+
+# ---------------------------------------------------------------------------
+# B2/B4: the bit-transpose dequantisation of the tensor-core kernel
+# ---------------------------------------------------------------------------
+
+_U32 = 0xFFFFFFFF
+
+
+def _swap_bits(w, a, b, sh, mask):
+    t = ((w[a] >> sh) ^ w[b]) & mask
+    w[b] = w[b] ^ t
+    w[a] = (w[a] ^ (t << sh)) & _U32
+
+
+def _transpose8(w):
+    """In each byte lane of 8 uint32 words: bit q of word p -> bit p of word q."""
+    for sh, mask, pairs in ((4, 0x0F0F0F0F, ((0, 4), (1, 5), (2, 6), (3, 7))),
+                            (2, 0x33333333, ((0, 2), (1, 3), (4, 6), (5, 7))),
+                            (1, 0x55555555, ((0, 1), (2, 3), (4, 5), (6, 7)))):
+        for a, b in pairs:
+            _swap_bits(w, a, b, sh, mask)
+
+
+def _bytes_to_bf16(byte, neg):
+    """Exact bf16 of integer bytes: f32 0x4B000000 | b minus 2**23, rounded to
+    bf16, with the sign bit set where ``neg``."""
+    f = ((byte | 0x4B000000).to(torch.int32).view(torch.float32) - 8388608.0).to(torch.bfloat16)
+    bits = f.view(torch.int16) | torch.where(neg, torch.tensor(-32768, dtype=torch.int16),
+                                              torch.tensor(0, dtype=torch.int16))
+    return bits.view(torch.bfloat16)
+
+
+def emulate_packed_dequant(planes_packed, sign_packed, k, plane_ids=None):
+    """The tensor-core kernel's hi, lo bf16[K, N] (w = 256 * hi + lo).
+
+    Per byte row and group of 4 columns the kernel holds one little-endian
+    word per plane (logical plane b read from stored plane inv[b]);
+    transposing planes 0-7 leaves lo of K value 7 - q in word q, planes
+    8-15 give hi; the sign byte's bits go into the bf16 sign bits.
+    """
+    cols, kb, n = planes_packed.shape
+    n4 = -(-n // 4) * 4
+    pp = torch.nn.functional.pad(planes_packed, (0, n4 - n)).to(torch.int64)
+    sp = torch.nn.functional.pad(sign_packed, (0, n4 - n)).to(torch.int64)
+
+    def words(t):  # [..., KB, N4] bytes -> [..., KB, N4 / 4] words, byte c = column 4 g + c
+        t = t.reshape(*t.shape[:-1], n4 // 4, 4)
+        return t[..., 0] | t[..., 1] << 8 | t[..., 2] << 16 | t[..., 3] << 24
+
+    pw = words(pp)
+    inv = (list(range(cols)) if plane_ids is None
+           else torch.argsort(plane_ids.to(torch.int64)).tolist())
+    zero = torch.zeros_like(pw[0])
+    lo = [pw[inv[b]] if b < cols else zero for b in range(8)]
+    hi = [pw[inv[b]] if b < cols else zero for b in range(8, 16)]
+    _transpose8(lo)
+    _transpose8(hi)
+    sw = words(sp)
+    out_hi = torch.empty(kb, 8, n4 // 4, 4, dtype=torch.bfloat16)  # [byte row, j, group, c]
+    out_lo = torch.empty_like(out_hi)
+    for c in range(4):
+        for j in range(8):
+            neg = ((sw >> (8 * c + 7 - j)) & 1).bool()
+            out_hi[:, j, :, c] = _bytes_to_bf16((hi[7 - j] >> (8 * c)) & 255, neg)
+            out_lo[:, j, :, c] = _bytes_to_bf16((lo[7 - j] >> (8 * c)) & 255, neg)
+    return tuple(t.reshape(kb * 8, n4)[:k, :n] for t in (out_hi, out_lo))
+
+
+def _packed(rng, k, n, cols):
+    q = torch.from_numpy(rng.integers(0, 2**cols, (k, n)).astype(np.int32))
+    sign = torch.from_numpy(rng.choice(np.array([-1, 1], np.int8), (k, n)))
+    return q, bitslice.pack_linear_planes(q, cols), bitslice.pack_linear_sign(sign)
+
+
+def _ids(rng, cols, permuted):
+    return torch.from_numpy(rng.permutation(cols).astype(np.int32)) if permuted else None
+
+
+@pytest.mark.parametrize("cols", [10, 16])
+@pytest.mark.parametrize("permuted", [False, True])
+@pytest.mark.parametrize("k,n", [(64, 128), (1001, 333)])
+def test_packed_dequant_rebuilds_unpack_weights(cols, permuted, k, n):
+    rng = np.random.default_rng(cols + k + n + permuted)
+    q, planes_, signs = _packed(rng, k, n, cols)
+    ids = _ids(rng, cols, permuted)
+    if ids is not None:  # stored plane p holds logical plane ids[p]
+        planes_ = planes_[ids.to(torch.int64)]
+    hi, lo = emulate_packed_dequant(planes_, signs, k, ids)
+    for half in (hi, lo):
+        assert half.dtype == torch.bfloat16 and float(half.float().abs().max()) <= 255
+    got = 256.0 * hi.float() + lo.float()
+    want = cim_ref.unpack_weights(planes_, signs, k, ids)
+    assert torch.equal(got, want)
+    assert torch.equal(got.abs(), q.float())
+    # the sign sits in both halves, zero magnitudes included
+    neg = torch.from_numpy(np.unpackbits(signs.numpy(), axis=0, count=k).astype(bool))
+    assert torch.equal(torch.signbit(hi), neg) and torch.equal(torch.signbit(lo), neg)
+
+
+@pytest.mark.parametrize("m", [4, 128])
+@pytest.mark.parametrize("cols", [10, 16])
+@pytest.mark.parametrize("permuted", [False, True])
+def test_packed_split_matmul_within_b2_bound(m, cols, permuted):
+    k, n = 2048, 520
+    rng = np.random.default_rng(m + cols + permuted)
+    q, planes_, signs = _packed(rng, k, n, cols)
+    ids = _ids(rng, cols, permuted)
+    if ids is not None:
+        planes_ = planes_[ids.to(torch.int64)]
+    scale = torch.tensor(SCALE, dtype=torch.float32)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(torch.bfloat16)
+    xf = x.float()
+    hi, lo = emulate_packed_dequant(planes_, signs, k, ids)
+    got = (256.0 * (xf @ hi.float()) + xf @ lo.float()) * scale
+    bound = 2 * F32_EPS * k * (xf.abs() @ (q.float() * SCALE))
+    want = cim_ref.cim_matmul_packed(x, planes_, signs, scale, ids)
+    assert bool(((got - want).abs() <= bound).all())
+    want_jax = torch.from_numpy(np.array(jcim_ref.cim_matmul_packed(
+        jnp.asarray(xf.numpy()), jnp.asarray(planes_.numpy()), jnp.asarray(signs.numpy()),
+        jnp.float32(SCALE), plane_ids=None if ids is None else jnp.asarray(ids.numpy()))))
+    assert bool(((got - want_jax).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (m, k, n) for k, n in ((2048, 2048), (2048, 256), (2048, 16384), (16384, 2048))
+    for m in (1, 4, 128)] + [(5, 1001, 333), (4, 4096, 64000), (300, 11008, 4096)])
+def test_packed_tensor_core_launch_plan_covers_k(m, k, n):
+    """B2/B4's tensor-core plan at the shapes chip_smoke.py checks: 64-row K
+    stages (so none straddles one of B4's 128-row flag tiles), every K row
+    in exactly one split, no split without work, and no slower (in waves x
+    stages) than no split at all."""
+    sms = 132
+    nwg, splits, k_per_split = cim_ops.tc_packed_launch_plan(m, k, n, sms)
+    assert nwg == (1 if m <= 64 else 2)
+    assert k_per_split % 64 == 0 and (splits - 1) * k_per_split < k <= splits * k_per_split
+    blocks = -(-n // 128) * -(-m // (64 * nwg))
     tiles, fill = -(-k // 64), cim_ops.TC_FILL
     assert (-(-blocks * splits // sms) * (-(-tiles // splits) + fill)
             <= -(-blocks // sms) * (tiles + fill))
