@@ -32,40 +32,51 @@
 //
 // Tensor-core kernel (B5's tensor-core kernel in csrc/cim_planes.cu with
 // another stage loader and dequantisation).  |w| < 2^16 for cols <= 16, so
-// w = sign * (256 * hi + lo) with hi = |w| >> 8 and lo = |w| & 255, both
-// integers in [0, 255] and exact in bf16; with bf16 x every product is
-// exact in f32, and y = scale * (256 * (x @ (s hi)) + x @ (s lo)) differs
-// from the FMA loop only in the order of the f32 sums (within
-// 2 * eps_f32 * K * (|x| @ |w|)).  A block owns 64 rows of x per wgmma
-// warpgroup (two where M > 64) by 128 columns and streams 64-row K stages
-// (8 packed byte rows of every plane and of the signs, and the x tile) with
-// 16-byte cp.async into a two-stage ring.  Its 256 threads then dequantise
-// the stage, one byte row by 4 columns each: the words of planes 0-7 hold
-// an 8 x 8 bit matrix per column byte (plane x K value), and three rounds of
-// masked shifts transpose all four at once, leaving in byte c of word q the
-// value lo of K value 7 - q; planes 8 .. cols - 1 give hi the same way (for
-// cols = 10 the compiler drops the rounds on zero words).  A byte b becomes
-// bf16 as the f32 0x4B000000 | b minus 2^23 and cvt.rn.bf16x2, and the sign
-// is XORed into the bf16 sign bit from the sign byte (one multiply spreads
-// two sign bits to bits 15 and 31).  Each thread then writes one 16-byte
-// chunk of the K-major, 128-byte-swizzled hi and lo tiles per column; the
-// wgmma warpgroups run two SS wgmmas a 16-deep step (x @ hi, x @ lo) into
-// f32 accumulators, combined as 256 * acc_hi + acc_lo at the end.  Packed
-// rows sit 144 bytes apart in shared memory, so the eight byte rows a warp
-// reads, and the chunks it writes, fall on distinct banks.  Decode (M < 16)
-// runs the same kernel with x zero-filled to 64 rows, as B5 does.  Split K
-// (f32 workspace, fixed-order reduce) only where the column tiles alone do
-// not fill the SMs.  N % 16, K % 8 or base alignment failing selects
-// element loads into the same layout.
+// w = sign * (2^b * hi + lo) with lo = |w| mod 2^b and hi = |w| >> b, both
+// integers exact in bf16 (b = 7 where cols <= 10, so both stay below 128;
+// b = 8 for cols up to 16); with bf16 x every product is exact in f32, and
+// y = scale * (2^b * (x @ (s hi)) + x @ (s lo)) differs from the FMA loop
+// only in the order of the f32 sums (within 2 * eps_f32 * K * (|x| @ |w|)).
+// A block owns 64 rows of x per wgmma warpgroup (two where M > 64) by 128
+// columns and streams 64-row K stages (8 packed byte rows of every plane
+// and of the signs, and the x tile) with 16-byte cp.async into a ring of
+// as many slots as fit (4-6): a packed stage holds only 11-19 KB, so the
+// plane stream needs several in flight, and x rows past M are zeroed once,
+// not loaded.  Its 256 threads dequantise a stage, one byte row by 4
+// columns each: the words of planes 0 .. b-1 hold an 8 x 8 bit matrix per
+// column byte (plane x K value), and three rounds of masked shifts
+// transpose all four at once, leaving in byte c of word q the lo of K
+// value 7 - q; planes b .. cols-1 give hi the same way (the compiler drops
+// the rounds on zero words).  A value v < 128 becomes bf16 as
+// s (128 + v) - s 128 in bf16x2 (one prmt under the magic 0x4300, one
+// subtraction for two values, the sign folded into both operands); a full
+// byte as the f32 0x4B000000 | v minus 2^23, cvt.rn.bf16x2, and the sign
+// XORed in (one multiply spreads two sign bits to bits 15 and 31).  Each
+// thread writes one 16-byte chunk of the K-major, 128-byte-swizzled hi and
+// lo tiles per column, into one of two tile buffers; the wgmma warpgroups
+// run two SS wgmmas a 16-deep step (x @ hi, x @ lo) into f32 accumulators
+// and leave them running while the next stage is dequantised (the stage
+// loop waits for the wgmmas of the stage before, so the latency of their
+// dependent chain hides behind the dequantisation), combining
+// 2^b * acc_hi + acc_lo at the end.  Packed rows sit 144 bytes apart in
+// shared memory, so the eight byte rows a warp reads, and the chunks it
+// writes, fall on distinct banks.  Decode (M < 16) runs the same kernel
+// with x zero-filled to 64 rows, as B5 does.  Split K (f32 workspace,
+// fixed-order reduce) only where the column tiles alone do not fill the
+// SMs.  N % 16, K % 8 or base alignment failing selects element loads into
+// the same layout.
 //   plane_ids: stored plane p holds logical plane plane_ids[p]; the
 //     transpose reads stored plane inv[b] for logical plane b, so the ids
 //     must be a permutation of 0 .. cols - 1 (what the col_perm codec
 //     stores).
-//   B4: a stage is half of a 128-row flag tile.  A dead plane's bytes are
-//     not loaded and its words are zero in the transpose; a stage whose
-//     planes are all dead skips its loads, its dequantisation and its
-//     wgmmas.  Adding exactly zero products leaves an f32 accumulator as it
-//     was, and B2 and B4 take one launch plan, so they agree bit for bit.
+//   B4: a stage is half of a 128-row flag tile; the block reads the flags
+//     of 256 stages at a time into shared memory.  A dead plane's bytes
+//     are not loaded and its words are zero in the transpose; a stage whose
+//     planes are all dead loads only its x rows, skips its dequantisation
+//     and multiplies a zero tile (so no branch separates the wgmmas, which
+//     the compiler would otherwise serialise).  Adding exactly zero
+//     products leaves an f32 accumulator as it was, and B2 and B4 take one
+//     launch plan, so they agree bit for bit.
 //
 // FMA kernel (f32 x): each thread owns 4 adjacent output columns (one
 // 32-bit load per plane per byte row: a warp reads 128 contiguous bytes of
@@ -309,8 +320,9 @@ constexpr int kRowsK = kBK / 8;  // packed byte rows per stage
 constexpr int kBN = 128;         // output columns per block
 constexpr int kRow = kBN + 16;   // shared-memory stride of a packed row (bank spread)
 constexpr int kWBytes = kBN * kBK * 2;  // one of hi / lo: bf16 [kBN][kBK], K-major, swizzled
+constexpr int kLiveRing = 2 * kThreadsTc;  // B4: per-stage plane flags kept in shared memory
 
-template <int COLS, int NWG>
+template <int COLS, int NWG, bool kSkip = false>
 struct Cfg {
   static constexpr int BM = NWG * 64;                      // x rows per block
   static constexpr int X_BYTES = BM * kBK * 2;             // bf16 [BM][kBK], swizzled
@@ -318,20 +330,34 @@ struct Cfg {
   static constexpr int SIGN_BYTES = kRowsK * kRow;          // uint8 [kRowsK][kRow]
   // x first, at a 1024-byte boundary (the swizzle's period), as every stage
   static constexpr int STAGE_BYTES = (X_BYTES + PLANE_BYTES + SIGN_BYTES + 1023) / 1024 * 1024;
-  static constexpr int SMEM = 1024 + 2 * STAGE_BYTES + 2 * kWBytes;
-  static_assert(SMEM <= 232448, "a block's shared memory exceeds 227 KB");
+  // a packed stage is small, so several are kept in flight: as many slots
+  // as fit (at most 6) beside two hi / lo tile pairs (one written, one read
+  // by wgmma), B4's zero tile and the static arrays; two slots are the
+  // stage being dequantised and the one whose wgmmas run, the rest are
+  // loading
+  static constexpr int ZERO_BYTES = kSkip ? 2 * kWBytes : 0;
+  static constexpr int BUDGET = 232448 - 1024 - 4 * kWBytes - ZERO_BYTES - 4 * (kLiveRing + 16);
+  static constexpr int SLOTS = BUDGET / STAGE_BYTES < 6 ? BUDGET / STAGE_BYTES : 6;
+  static constexpr int AHEAD = SLOTS - 2;  // stages loading while one is dequantised
+  static_assert(AHEAD >= 1, "too few stage slots fit in shared memory");
+  static constexpr int SMEM = 1024 + SLOTS * STAGE_BYTES + 4 * kWBytes + ZERO_BYTES;
+  // |w| = 2^LO_BITS * hi + lo: 7 bits where hi < 128 too (cols <= 14), so
+  // both convert through the bf16 magic 128 + v; else 8 (f32 magic)
+  static constexpr int LO_BITS = COLS <= 14 ? 7 : 8;
 };
 
-// Stage <- the x tile [m0, m0 + BM) x [kc, kc + kBK), the kRowsK packed byte
-// rows from kc / 8 of every live plane and of the signs, columns
-// [n0, n0 + kBN); zeros past K (the split's end), M and N.  A plane whose
-// bit of `live` is 0 is not loaded (B4).  kVec: 16-byte cp.async (N % 16 == 0,
-// K % 8 == 0, aligned bases); otherwise element loads.
+// Stage <- the x rows [m0, m0 + x_rows) (those below M; the kernel zeroes
+// the rest of the tile once) by [kc, kc + kBK), the kRowsK packed byte rows
+// from kc / 8 of every live plane and of the signs, columns [n0, n0 + kBN);
+// zeros past K (the split's end) and N.  A plane whose bit of `live` is 0
+// is not loaded, nor are the signs where no plane is live (B4).  kVec:
+// 16-byte cp.async (N % 16 == 0, K % 8 == 0, aligned bases); otherwise
+// element loads.
 template <int COLS, int NWG, bool kVec>
 __device__ __forceinline__ void load_stage(uint8_t* stage, const bf16* __restrict__ x,
                                            const uint8_t* __restrict__ planes,
                                            const uint8_t* __restrict__ sign, uint32_t live,
-                                           int m0, int n0, int kc, int k_end, int m_rows,
+                                           int m0, int x_rows, int n0, int kc, int k_end,
                                            int k_dim, int n_cols, int cols) {
   using C = Cfg<COLS, NWG>;
   uint8_t* xs = stage;
@@ -345,32 +371,32 @@ __device__ __forceinline__ void load_stage(uint8_t* stage, const bf16* __restric
     constexpr int CH = kBN / 16;  // 16-byte chunks of a packed row
     for (int i = threadIdx.x; i < (cols + 1) * kRowsK * CH; i += kThreadsTc) {
       const int b = i / (kRowsK * CH), r = (i / CH) % kRowsK, c = i % CH;
-      if (b < cols && !((live >> b) & 1u)) continue;
+      if (b < cols ? !((live >> b) & 1u) : live == 0u) continue;  // dead plane, or no plane
       const int kb = kb0 + r, n = n0 + 16 * c;
       const bool ok = kb < kb_end && n < n_cols;
       const uint8_t* src = ok ? src_of(b) + (size_t)kb * n_cols + n : sign;
       hopper::cp_async16(dst_of(b, r) + 16 * c, src, ok ? 16 : 0);
     }
-    for (int i = threadIdx.x; i < C::BM * (kBK / 8); i += kThreadsTc) {
+    for (int i = threadIdx.x; i < x_rows * (kBK / 8); i += kThreadsTc) {
       const int r = i / (kBK / 8), c = i % (kBK / 8);
-      const int m = m0 + r, k = kc + 8 * c;
-      const bool ok = m < m_rows && k < k_end;
-      const bf16* src = ok ? x + (size_t)m * k_dim + k : x;
+      const int k = kc + 8 * c;
+      const bool ok = k < k_end;
+      const bf16* src = ok ? x + (size_t)(m0 + r) * k_dim + k : x;
       hopper::cp_async16(xs + hopper::swz128(r, c), src, ok ? 16 : 0);
     }
   } else {
     for (int i = threadIdx.x; i < (cols + 1) * kRowsK * kBN; i += kThreadsTc) {
       const int b = i / (kRowsK * kBN), r = (i / kBN) % kRowsK, c = i % kBN;
-      if (b < cols && !((live >> b) & 1u)) continue;
+      if (b < cols ? !((live >> b) & 1u) : live == 0u) continue;
       const int kb = kb0 + r, n = n0 + c;
       dst_of(b, r)[c] = (kb < kb_end && n < n_cols) ? src_of(b)[(size_t)kb * n_cols + n]
                                                     : (uint8_t)0;
     }
-    for (int i = threadIdx.x; i < C::BM * kBK; i += kThreadsTc) {
+    for (int i = threadIdx.x; i < x_rows * kBK; i += kThreadsTc) {
       const int r = i / kBK, kk = i % kBK;
-      const int m = m0 + r, k = kc + kk;
+      const int k = kc + kk;
       *reinterpret_cast<bf16*>(xs + hopper::swz128(r, kk / 8) + 2 * (kk % 8)) =
-          (m < m_rows && k < k_end) ? x[(size_t)m * k_dim + k] : __float2bfloat16_rn(0.f);
+          k < k_end ? x[(size_t)(m0 + r) * k_dim + k] : __float2bfloat16_rn(0.f);
     }
   }
 }
@@ -400,19 +426,41 @@ __device__ __forceinline__ void transpose8(uint32_t (&w)[8]) {
   swap_bits(w[6], w[7], 1, 0x55555555u);
 }
 
-// bf16 pair (byte c of a, byte c of b) as exact values, a in the low half.
-__device__ __forceinline__ uint32_t bytes_to_bf16x2(uint32_t a, uint32_t b, int c) {
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t sub_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("sub.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// (byte c of a, byte c of b) as exact bf16 values, a in the low half, with
+// the sign bits of `s` (bits 15 and 31).  Bytes < 128 (LO_BITS == 7): one
+// prmt puts them under the bf16 magic 0x4300 (128; the selector's top bit
+// copies a byte's zero top bit as 0x00), and s (128 + v) - s 128 = s v, in
+// bf16x2.  Full bytes: f32 0x4B000000 | v minus 2^23, then cvt.rn.bf16x2.
+template <int LO_BITS>
+__device__ __forceinline__ uint32_t bytes_to_bf16x2(uint32_t a, uint32_t b, int c, uint32_t s) {
+  if (LO_BITS == 7) {
+    const uint32_t magic = 0x43004300u | s;
+    return sub_bf16x2(prmt(a, b, c | (8 | c) << 4 | (4 + c) << 8 | (12 + c) << 12) | magic,
+                      magic);
+  }
   const float fa = __uint_as_float(__byte_perm(a, 0x4B000000u, 0x7540 | c)) - 8388608.f;
   const float fb = __uint_as_float(__byte_perm(b, 0x4B000000u, 0x7540 | c)) - 8388608.f;
   const __nv_bfloat162 h = __floats2bfloat162_rn(fa, fb);
-  return *reinterpret_cast<const uint32_t*>(&h);
+  return *reinterpret_cast<const uint32_t*>(&h) ^ s;
 }
 
 // One thread's share of a stage: byte row kb (8 K values) of 4 columns from
 // column 4 nq -> one 16-byte chunk of the hi and lo tiles per column.
 // `plane_row[b]` is the stored plane of logical plane b; `live` flags
 // stored planes (B4: a dead plane's words are zero).
-template <int COLS>
+template <int COLS, int LO_BITS>
 __device__ __forceinline__ void dequant(const uint8_t* __restrict__ ps, uint8_t* w_hi,
                                         uint8_t* w_lo, const int (&plane_row)[COLS],
                                         uint32_t live, int cols) {
@@ -428,8 +476,8 @@ __device__ __forceinline__ void dequant(const uint8_t* __restrict__ ps, uint8_t*
   uint32_t lo[8], hi[8];
 #pragma unroll
   for (int b = 0; b < 8; ++b) {
-    lo[b] = word(b);
-    hi[b] = word(b + 8);
+    lo[b] = b < LO_BITS ? word(b) : 0u;
+    hi[b] = word(b + LO_BITS);
   }
   const uint32_t sw = *reinterpret_cast<const uint32_t*>(ps + COLS * (kRowsK * kRow) + at);
   transpose8(lo);  // byte c of lo[q]: lo of K value 7 - q, column 4 nq + c
@@ -442,8 +490,8 @@ __device__ __forceinline__ void dequant(const uint8_t* __restrict__ ps, uint8_t*
     for (int jj = 0; jj < 4; ++jj) {
       // sign of K value 2 jj (bit 7 - 2 jj) to bit 15, of 2 jj + 1 to bit 31
       const uint32_t s = (sc * ((1u << (8 + 2 * jj)) | (1u << (25 + 2 * jj)))) & 0x80008000u;
-      h[jj] = bytes_to_bf16x2(hi[7 - 2 * jj], hi[6 - 2 * jj], c) ^ s;
-      l[jj] = bytes_to_bf16x2(lo[7 - 2 * jj], lo[6 - 2 * jj], c) ^ s;
+      h[jj] = bytes_to_bf16x2<LO_BITS>(hi[7 - 2 * jj], hi[6 - 2 * jj], c, s);
+      l[jj] = bytes_to_bf16x2<LO_BITS>(lo[7 - 2 * jj], lo[6 - 2 * jj], c, s);
     }
     const uint32_t off = hopper::swz128(4 * nq + c, kb);
     *reinterpret_cast<uint4*>(w_hi + off) = make_uint4(h[0], h[1], h[2], h[3]);
@@ -451,7 +499,41 @@ __device__ __forceinline__ void dequant(const uint8_t* __restrict__ ps, uint8_t*
   }
 }
 
-// y[m0:m0+BM, n0:n0+kBN] (+ split part) = scale * (256 * (x @ s hi) + x @ s lo).
+// D[64 x 256] += A[64 x 16] * B[16 x 256], both from shared memory, K-major
+// (the N = 256 form of hopper::wgmma_ss_n128).
+__device__ __forceinline__ void wgmma_ss_n256(float* d, uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// y[m0:m0+BM, n0:n0+kBN] (+ split part) = scale * (2^LO_BITS (x @ s hi) + x @ s lo).
 template <int COLS, int NWG, bool kVec, bool kSkip, bool kIds>
 __global__ void __launch_bounds__(kThreadsTc, 1)
 cim_packed_tc_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ planes,
@@ -459,16 +541,18 @@ cim_packed_tc_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ pla
                      const uint8_t* __restrict__ tile_nz, const float* __restrict__ scale,
                      float* __restrict__ dst, int m_rows, int k_dim, int n_cols, int cols,
                      int k_per_split, int apply_scale) {
-  using C = Cfg<COLS, NWG>;
+  using C = Cfg<COLS, NWG, kSkip>;
   using namespace hopper;
   extern __shared__ uint8_t smem_raw[];
   __shared__ int inv_ids[COLS];
+  __shared__ uint32_t live_s[kLiveRing];  // B4: live stored planes of stage t at t % kLiveRing
   uint8_t* stages = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint8_t* w_hi = stages + 2 * C::STAGE_BYTES;
-  uint8_t* w_lo = w_hi + kWBytes;
+  uint8_t* tiles = stages + C::SLOTS * C::STAGE_BYTES;  // hi, lo of buffer 0, then of buffer 1
+  uint8_t* zero_tile = tiles + 4 * kWBytes;  // B4: the hi | lo that a stage with no live plane multiplies
 
   const int n0 = blockIdx.x * kBN, split = blockIdx.y, m0 = blockIdx.z * C::BM;
+  const int x_rows = min(C::BM, m_rows - m0);  // rows of x below M
   const int k_begin = split * k_per_split;  // a multiple of kBK
   const int k_end = min(k_dim, k_begin + k_per_split);
   const int n_tiles = (k_end - k_begin + kBK - 1) / kBK;
@@ -481,75 +565,113 @@ cim_packed_tc_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ pla
   if (kIds) {
     const int id = tid < cols ? __ldg(plane_ids + tid) : -1;
     if (id >= 0 && id < cols) inv_ids[id] = tid;
-    __syncthreads();
   }
-#pragma unroll
-  for (int b = 0; b < COLS; ++b) plane_row[b] = (kIds && b < cols) ? inv_ids[b] : b;
-  // stored planes with a nonzero flag in the 128-row tile of K row kc (B4)
-  auto live_at = [&](int kc) {
-    if (!kSkip) return (1u << cols) - 1u;
+  // B4: thread i flags the live stored planes of stage t0 + i (a stage lies
+  // in one 128-row flag tile)
+  auto fill_live = [&](int t0) {
+    const int t = t0 + tid;
+    if (t >= n_tiles) return;
+    const int tile = (k_begin + t * kBK) >> 7;
     uint32_t l = 0;
     for (int b = 0; b < cols; ++b)
-      l |= (uint32_t)(__ldg(tile_nz + (size_t)b * k_flag_tiles + (kc >> 7)) != 0) << b;
-    return l;
+      l |= (uint32_t)(__ldg(tile_nz + (size_t)b * k_flag_tiles + tile) != 0) << b;
+    live_s[t % kLiveRing] = l;
+  };
+  if (kSkip) {
+    fill_live(0);
+    fill_live(kThreadsTc);
+  }
+  for (int i = tid; i < C::ZERO_BYTES / 16; i += kThreadsTc)
+    reinterpret_cast<uint4*>(zero_tile)[i] = make_uint4(0u, 0u, 0u, 0u);
+  // x rows past M are zero in every slot, once
+  for (int i = tid; i < C::SLOTS * (C::BM - x_rows) * 8; i += kThreadsTc) {
+    const int slot = i / ((C::BM - x_rows) * 8), r = x_rows + (i / 8) % (C::BM - x_rows);
+    *reinterpret_cast<uint4*>(stages + slot * C::STAGE_BYTES + r * 128 + (i % 8) * 16) =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int b = 0; b < COLS; ++b) plane_row[b] = (kIds && b < cols) ? inv_ids[b] : b;
+  auto live_of = [&](int t) { return kSkip ? live_s[t % kLiveRing] : (1u << cols) - 1u; };
+  auto load = [&](int t) {  // stage t into its slot (B4: its live planes only)
+    if (t < n_tiles)
+      load_stage<COLS, NWG, kVec>(stages + (t % C::SLOTS) * C::STAGE_BYTES, x, planes, sign,
+                                  live_of(t), m0, x_rows, n0, k_begin + t * kBK, k_end, k_dim,
+                                  n_cols, cols);
+    cp_async_commit();  // one group a stage, empty or not
   };
 
-  constexpr int NACC = kBN / 2;  // f32 accumulators a thread, each of hi and lo
-  float acc_hi[NACC], acc_lo[NACC];
+  // f32 accumulators a thread: x @ [hi | lo], one 64 x 256 product (hi in
+  // columns 0-127, lo in 128-255: the two tiles are adjacent, so one wgmma
+  // of N = 256 a 16-deep step covers both)
+  constexpr int NACC = kBN;
+  float acc[NACC];
 #pragma unroll
-  for (int i = 0; i < NACC; ++i) acc_hi[i] = acc_lo[i] = 0.f;
+  for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
 
-  uint32_t live = n_tiles > 0 ? live_at(k_begin) : 0u;
-  if (live)
-    load_stage<COLS, NWG, kVec>(stages, x, planes, sign, live, m0, n0, k_begin, k_end, m_rows,
-                                k_dim, n_cols, cols);
-  cp_async_commit();
+#pragma unroll
+  for (int t = 0; t < C::AHEAD; ++t) load(t);
+  // Stage t: loaded AHEAD iterations early into slot t % SLOTS, dequantised
+  // into tile buffer t % 2, and its wgmmas run while stage t + 1 is
+  // dequantised; each wgmma warpgroup waits for stage t - 1's before the
+  // barrier of iteration t + 1, so the slot of stage t - 2 (= that of
+  // t + AHEAD) and buffer t % 2 are free when they are written again.
+  // Returns stage t's live planes once it is in and the next load is issued.
+  auto begin_stage = [&](int t) {
+    cp_async_wait<C::AHEAD - 1>();
+    __syncthreads();  // stage t is in; stage t - 1 is dequantised, stage t - 2's wgmmas are done
+    if (kSkip && t >= kThreadsTc && t % kThreadsTc == 0) {
+      fill_live(t + kThreadsTc);  // over stages t - 256 .. t - 1, all done
+      __syncthreads();
+    }
+    load(t + C::AHEAD);
+    return live_of(t);
+  };
+  auto dequant_stage = [&](int t, uint32_t live_now) {
+    uint8_t* w_hi = tiles + (t % 2) * (2 * kWBytes);
+    dequant<COLS, C::LO_BITS>(stages + (t % C::SLOTS) * C::STAGE_BYTES + C::X_BYTES, w_hi,
+                              w_hi + kWBytes, plane_row, live_now, cols);
+  };
+  // A warpgroup's role holds for the whole loop, and no branch separates a
+  // wgmma from the next (a wgmma on a divergent path is serialised): a B4
+  // stage with no live plane skips its plane loads and its dequantisation,
+  // and its wgmmas read the zero tile, adding exact zeros.
+  if (NWG == 1 && wg == 1) {  // dequantises only (M <= 64)
+    for (int t = 0; t < n_tiles; ++t) {
+      const uint32_t live_now = begin_stage(t);
+      if (!kSkip || live_now != 0u) dequant_stage(t, live_now);
+      fence_proxy_async();  // the hi / lo and x writes, for wgmma's reads
+      __syncthreads();
+    }
+    return;
+  }
   for (int t = 0; t < n_tiles; ++t) {
-    uint8_t* stage = stages + (t % 2) * C::STAGE_BYTES;
-    cp_async_wait<0>();
-    __syncthreads();  // tile t is in; every warpgroup is done with tile t - 1
-    const uint32_t live_next = t + 1 < n_tiles ? live_at(k_begin + (t + 1) * kBK) : 0u;
-    if (live_next)
-      load_stage<COLS, NWG, kVec>(stages + ((t + 1) % 2) * C::STAGE_BYTES, x, planes, sign,
-                                  live_next, m0, n0, k_begin + (t + 1) * kBK, k_end, m_rows,
-                                  k_dim, n_cols, cols);
-    cp_async_commit();
-    const uint32_t live_now = live;
-    live = live_next;
-    // B4: every plane of this stage dead -> nothing to add (the same for every thread)
-    if (live_now == 0u) continue;
-
-    dequant<COLS>(stage + C::X_BYTES, w_hi, w_lo, plane_row, live_now, cols);
+    const uint32_t live_now = begin_stage(t);
+    const bool live = !kSkip || live_now != 0u;
+    if (live) dequant_stage(t, live_now);
     fence_proxy_async();  // the hi / lo and x writes, for wgmma's reads
     __syncthreads();
-
-    if (wg >= NWG) continue;  // a dequant-only warpgroup (M <= 64)
-    const uint32_t xa = smem_u32(stage + wg * 64 * (2 * kBK));
-    const uint32_t ha = smem_u32(w_hi), la = smem_u32(w_lo);
-    fence_regs<NACC>(acc_hi);
-    fence_regs<NACC>(acc_lo);
+    const uint32_t xa = smem_u32(stages + (t % C::SLOTS) * C::STAGE_BYTES + wg * 64 * (2 * kBK));
+    const uint32_t wa = smem_u32(live ? tiles + (t % 2) * (2 * kWBytes) : zero_tile);
+    fence_regs<NACC>(acc);
     wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < kBK / 16; ++j) {
-      const uint64_t da = desc_sw128(xa + 32 * j, 16, 1024);
-      wgmma_ss_n128(acc_hi, da, desc_sw128(ha + 32 * j, 16, 1024), 1);
-      wgmma_ss_n128(acc_lo, da, desc_sw128(la + 32 * j, 16, 1024), 1);
-    }
+    for (int j = 0; j < kBK / 16; ++j)
+      wgmma_ss_n256(acc, desc_sw128(xa + 32 * j, 16, 1024), desc_sw128(wa + 32 * j, 16, 1024));
     wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs<NACC>(acc_hi);
-    fence_regs<NACC>(acc_lo);
+    wgmma_wait<1>();  // stage t - 1's wgmmas are done; stage t's run on
   }
-
-  if (wg >= NWG) return;
+  wgmma_wait<0>();
+  fence_regs<NACC>(acc);
   // fragment i: row 16 wl + lane / 4 + 8 * ((i >> 1) & 1), column 8 (i / 4) + 2 (lane % 4) + (i & 1)
   const float s = apply_scale ? __ldg(scale) : 1.f;
+  constexpr float kHiWeight = (float)(1 << C::LO_BITS);
 #pragma unroll
-  for (int i = 0; i < NACC; ++i) {
+  for (int i = 0; i < NACC / 2; ++i) {
     const int m = m0 + wg * 64 + 16 * wl + lane / 4 + 8 * ((i >> 1) & 1);
     const int n = n0 + 8 * (i / 4) + 2 * (lane % 4) + (i & 1);
     if (m < m_rows && n < n_cols)
-      dst[((size_t)split * m_rows + m) * n_cols + n] = (256.f * acc_hi[i] + acc_lo[i]) * s;
+      dst[((size_t)split * m_rows + m) * n_cols + n] = (kHiWeight * acc[i] + acc[NACC / 2 + i]) * s;
   }
 }
 
@@ -562,7 +684,7 @@ struct TcArgs {
 
 template <int COLS, int NWG, bool kVec, bool kSkip, bool kIds>
 cudaError_t launch(const TcArgs& a) {
-  using C = Cfg<COLS, NWG>;
+  using C = Cfg<COLS, NWG, kSkip>;
   auto kern = cim_packed_tc_kernel<COLS, NWG, kVec, kSkip, kIds>;
   static unsigned long long opted_in = 0;  // > 48 KB of shared memory, once per device
   int dev = 0;

@@ -10,11 +10,12 @@ emulations of what the kernels compute:
   kernel's bound 2 * eps_f32 * K * (|x| @ |w|) of the plain version (and of
   the reference's jnp oracle);
 * B2/B4 (bit-packed matmul, bf16 x): the kernel's dequantisation (an 8 x 8
-  bit transpose of the plane words into lo = |w| & 255 and hi = |w| >> 8,
-  bytes to bf16 through the f32 0x4B000000 trick, the sign XORed into the
-  bf16 sign bit) rebuilds ``unpack_weights`` exactly, and the split
-  matmul stays within the same bound of the plain version and of the
-  reference's jnp oracle;
+  bit transpose of the plane words into lo = |w| mod 2^b and hi = |w| >> b,
+  b = 7 for cols <= 10 and 8 above; 7-bit values to bf16 as s (128 + v) -
+  s 128 in bf16, 8-bit ones through the f32 0x4B000000 trick with the sign
+  XORed in) rebuilds ``unpack_weights`` exactly, and the split matmul
+  stays within the same bound of the plain version and of the reference's
+  jnp oracle;
 * B3 (flash attention, bf16 q/k/v): unscaled q . k^T on exact bf16
   products with f32 sums, the D^-0.5 scale after it, and P entering P . V
   as P_hi + P_lo (two bf16 values), tile by tile with the online softmax,
@@ -190,22 +191,37 @@ def _transpose8(w):
             _swap_bits(w, a, b, sh, mask)
 
 
-def _bytes_to_bf16(byte, neg):
-    """Exact bf16 of integer bytes: f32 0x4B000000 | b minus 2**23, rounded to
-    bf16, with the sign bit set where ``neg``."""
+def _bytes_to_bf16(byte, neg, lo_bits):
+    """Exact signed bf16 of integer bytes, as the kernel builds them.
+
+    lo_bits 7 (bytes < 128): the bf16 0x4300 | v | sign (s (128 + v)) minus
+    the bf16 s 128, in bf16 (a zero comes out +0); lo_bits 8: f32
+    0x4B000000 | v minus 2**23, rounded to bf16, with the sign bit set where
+    ``neg``."""
+    sign_bit = torch.where(neg, torch.tensor(-32768, dtype=torch.int16),
+                           torch.tensor(0, dtype=torch.int16))
+    if lo_bits == 7:
+        assert int(byte.max()) < 128
+        magic = ((byte | 0x4300).to(torch.int16) | sign_bit).view(torch.bfloat16)
+        return magic - torch.where(neg, -128.0, 128.0).to(torch.bfloat16)
     f = ((byte | 0x4B000000).to(torch.int32).view(torch.float32) - 8388608.0).to(torch.bfloat16)
-    bits = f.view(torch.int16) | torch.where(neg, torch.tensor(-32768, dtype=torch.int16),
-                                              torch.tensor(0, dtype=torch.int16))
-    return bits.view(torch.bfloat16)
+    return (f.view(torch.int16) | sign_bit).view(torch.bfloat16)
+
+
+def lo_bits_of(cols):
+    """Bits of lo in the kernel's split (its cols <= 10 template: 7)."""
+    return 7 if cols <= 10 else 8
 
 
 def emulate_packed_dequant(planes_packed, sign_packed, k, plane_ids=None):
-    """The tensor-core kernel's hi, lo bf16[K, N] (w = 256 * hi + lo).
+    """The tensor-core kernel's hi, lo bf16[K, N] (w = 2**b * hi + lo,
+    b = ``lo_bits_of(cols)``).
 
     Per byte row and group of 4 columns the kernel holds one little-endian
-    word per plane (logical plane b read from stored plane inv[b]);
-    transposing planes 0-7 leaves lo of K value 7 - q in word q, planes
-    8-15 give hi; the sign byte's bits go into the bf16 sign bits.
+    word per plane (logical plane p read from stored plane inv[p]);
+    transposing planes 0 .. b-1 leaves lo of K value 7 - q in word q,
+    planes b .. cols-1 give hi; the sign byte's bits go into the bf16 sign
+    bits.
     """
     cols, kb, n = planes_packed.shape
     n4 = -(-n // 4) * 4
@@ -220,8 +236,9 @@ def emulate_packed_dequant(planes_packed, sign_packed, k, plane_ids=None):
     inv = (list(range(cols)) if plane_ids is None
            else torch.argsort(plane_ids.to(torch.int64)).tolist())
     zero = torch.zeros_like(pw[0])
-    lo = [pw[inv[b]] if b < cols else zero for b in range(8)]
-    hi = [pw[inv[b]] if b < cols else zero for b in range(8, 16)]
+    lb = lo_bits_of(cols)
+    lo = [pw[inv[b]] if b < min(cols, lb) else zero for b in range(8)]
+    hi = [pw[inv[b]] if b < cols else zero for b in range(lb, lb + 8)]
     _transpose8(lo)
     _transpose8(hi)
     sw = words(sp)
@@ -230,8 +247,8 @@ def emulate_packed_dequant(planes_packed, sign_packed, k, plane_ids=None):
     for c in range(4):
         for j in range(8):
             neg = ((sw >> (8 * c + 7 - j)) & 1).bool()
-            out_hi[:, j, :, c] = _bytes_to_bf16((hi[7 - j] >> (8 * c)) & 255, neg)
-            out_lo[:, j, :, c] = _bytes_to_bf16((lo[7 - j] >> (8 * c)) & 255, neg)
+            out_hi[:, j, :, c] = _bytes_to_bf16((hi[7 - j] >> (8 * c)) & 255, neg, lb)
+            out_lo[:, j, :, c] = _bytes_to_bf16((lo[7 - j] >> (8 * c)) & 255, neg, lb)
     return tuple(t.reshape(kb * 8, n4)[:k, :n] for t in (out_hi, out_lo))
 
 
@@ -255,15 +272,19 @@ def test_packed_dequant_rebuilds_unpack_weights(cols, permuted, k, n):
     if ids is not None:  # stored plane p holds logical plane ids[p]
         planes_ = planes_[ids.to(torch.int64)]
     hi, lo = emulate_packed_dequant(planes_, signs, k, ids)
-    for half in (hi, lo):
-        assert half.dtype == torch.bfloat16 and float(half.float().abs().max()) <= 255
-    got = 256.0 * hi.float() + lo.float()
+    lb = lo_bits_of(cols)
+    assert torch.equal(lo.float().abs(), (q % 2**lb).float())
+    assert torch.equal(hi.float().abs(), (q >> lb).float())
+    got = 2.0**lb * hi.float() + lo.float()
     want = cim_ref.unpack_weights(planes_, signs, k, ids)
     assert torch.equal(got, want)
     assert torch.equal(got.abs(), q.float())
-    # the sign sits in both halves, zero magnitudes included
+    # the sign sits in both halves (a zero may come out +0)
     neg = torch.from_numpy(np.unpackbits(signs.numpy(), axis=0, count=k).astype(bool))
-    assert torch.equal(torch.signbit(hi), neg) and torch.equal(torch.signbit(lo), neg)
+    for half in (hi, lo):
+        assert half.dtype == torch.bfloat16
+        nz = half != 0
+        assert torch.equal(torch.signbit(half)[nz], neg[nz])
 
 
 @pytest.mark.parametrize("m", [4, 128])
@@ -280,7 +301,7 @@ def test_packed_split_matmul_within_b2_bound(m, cols, permuted):
     x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(torch.bfloat16)
     xf = x.float()
     hi, lo = emulate_packed_dequant(planes_, signs, k, ids)
-    got = (256.0 * (xf @ hi.float()) + xf @ lo.float()) * scale
+    got = (2.0**lo_bits_of(cols) * (xf @ hi.float()) + xf @ lo.float()) * scale
     bound = 2 * F32_EPS * k * (xf.abs() @ (q.float() * SCALE))
     want = cim_ref.cim_matmul_packed(x, planes_, signs, scale, ids)
     assert bool(((got - want).abs() <= bound).all())
