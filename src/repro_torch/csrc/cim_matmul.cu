@@ -26,9 +26,8 @@
 // over 67 TFLOP/s for f32 x.  Between the two sits the unpack, which is
 // integer work on every weight and, in practice, what the time follows.
 //
-// Two kernels, each with B4 as a template flag.  bf16 x runs the
-// tensor-core kernel `cim_packed_tc_kernel`; f32 x runs the FMA kernel
-// `cim_packed_kernel` (the port runs no f32 matmul in TF32).
+// bf16 x runs the tensor-core kernel `cim_packed_tc_kernel`; f32 x runs
+// the FMA kernel `cim_packed_kernel` (the port runs no f32 matmul in TF32).
 //
 // Tensor-core kernel (B5's tensor-core kernel in csrc/cim_planes.cu with
 // another stage loader and dequantisation).  |w| < 2^16 for cols <= 16, so
@@ -53,12 +52,12 @@
 // byte as the f32 0x4B000000 | v minus 2^23, cvt.rn.bf16x2, and the sign
 // XORed in (one multiply spreads two sign bits to bits 15 and 31).  Each
 // thread writes one 16-byte chunk of the K-major, 128-byte-swizzled hi and
-// lo tiles per column, into one of two tile buffers; the wgmma warpgroups
-// run two SS wgmmas a 16-deep step (x @ hi, x @ lo) into f32 accumulators
-// and leave them running while the next stage is dequantised (the stage
-// loop waits for the wgmmas of the stage before, so the latency of their
-// dependent chain hides behind the dequantisation), combining
-// 2^b * acc_hi + acc_lo at the end.  Packed rows sit 144 bytes apart in
+// lo tiles per column, into one of two tile buffers (hi and lo adjacent);
+// the wgmma warpgroups run one SS wgmma of N = 256 a 16-deep step,
+// x @ [hi | lo], into f32 accumulators and leave it running while the next
+// stage is dequantised (the stage loop waits for the wgmmas of the stage
+// before, so the latency of their dependent chain hides behind the
+// dequantisation), combining 2^b * (x @ hi) + x @ lo at the end.  Packed rows sit 144 bytes apart in
 // shared memory, so the eight byte rows a warp reads, and the chunks it
 // writes, fall on distinct banks.  Decode (M < 16) runs the same kernel
 // with x zero-filled to 64 rows, as B5 does.  Split K (f32 workspace,
@@ -675,15 +674,8 @@ cim_packed_tc_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ pla
   }
 }
 
-struct TcArgs {
-  const void *x, *planes, *sign, *plane_ids, *tile_nz, *scale;
-  float* dst;
-  int m, k, n, cols, splits, k_per_split, apply_scale;
-  cudaStream_t stream;
-};
-
 template <int COLS, int NWG, bool kVec, bool kSkip, bool kIds>
-cudaError_t launch(const TcArgs& a) {
+cudaError_t launch(const Args& a) {
   using C = Cfg<COLS, NWG, kSkip>;
   auto kern = cim_packed_tc_kernel<COLS, NWG, kVec, kSkip, kIds>;
   static unsigned long long opted_in = 0;  // > 48 KB of shared memory, once per device
@@ -705,24 +697,24 @@ cudaError_t launch(const TcArgs& a) {
 }
 
 template <int COLS, int NWG, bool kVec, bool kSkip>
-cudaError_t launch_ids(const TcArgs& a) {
+cudaError_t launch_ids(const Args& a) {
   return a.plane_ids != nullptr ? launch<COLS, NWG, kVec, kSkip, true>(a)
                                 : launch<COLS, NWG, kVec, kSkip, false>(a);
 }
 
 template <int COLS, int NWG, bool kVec>
-cudaError_t launch_skip(const TcArgs& a) {
+cudaError_t launch_skip(const Args& a) {
   return a.tile_nz != nullptr ? launch_ids<COLS, NWG, kVec, true>(a)
                               : launch_ids<COLS, NWG, kVec, false>(a);
 }
 
 template <int COLS, int NWG>
-cudaError_t launch_vec(bool vec, const TcArgs& a) {
+cudaError_t launch_vec(bool vec, const Args& a) {
   return vec ? launch_skip<COLS, NWG, true>(a) : launch_skip<COLS, NWG, false>(a);
 }
 
 template <int COLS>
-cudaError_t launch_nwg(int nwg, bool vec, const TcArgs& a) {
+cudaError_t launch_nwg(int nwg, bool vec, const Args& a) {
   return nwg == 1 ? launch_vec<COLS, 1>(vec, a) : launch_vec<COLS, 2>(vec, a);
 }
 
@@ -764,9 +756,9 @@ extern "C" int cim_matmul_packed_tc_launch(const void* x, const void* planes, co
                                            int k, int n, int cols, int nwg, int vec,
                                            int splits, int k_per_split, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  tc::TcArgs a{x, planes, sign, plane_ids, tile_nz, scale,
-               splits > 1 ? (float*)ws : (float*)out,
-               m, k, n, cols, splits, k_per_split, splits > 1 ? 0 : 1, st};
+  Args a{x, planes, sign, plane_ids, tile_nz, scale,
+         splits > 1 ? (float*)ws : (float*)out,
+         m, k, n, cols, splits, k_per_split, splits > 1 ? 0 : 1, st};
   const cudaError_t err = cols <= 10 ? tc::launch_nwg<10>(nwg, vec != 0, a)
                                      : tc::launch_nwg<16>(nwg, vec != 0, a);
   if (err != cudaSuccess || splits <= 1) return (int)err;
