@@ -67,7 +67,9 @@
 //   plane_ids: stored plane p holds logical plane plane_ids[p]; the
 //     transpose reads stored plane inv[b] for logical plane b, so the ids
 //     must be a permutation of 0 .. cols - 1 (what the col_perm codec
-//     stores).
+//     stores).  Each block checks this once (every inv slot set, from a
+//     sentinel); where it fails, the block loads no plane and writes NaN
+//     to all its outputs, so such ids give an all-NaN result.
 //   B4: a stage is half of a 128-row flag tile; the block reads the flags
 //     of 256 stages at a time into shared memory.  A dead plane's bytes
 //     are not loaded and its words are zero in the transpose; a stage whose
@@ -559,9 +561,12 @@ cim_packed_tc_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ pla
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int wg = warp / 4, wl = warp % 4;
 
-  // logical plane b is stored plane plane_row[b] (the inverse of plane_ids)
+  // logical plane b is stored plane plane_row[b] (the inverse of plane_ids);
+  // a slot no id fills keeps the sentinel -1
   int plane_row[COLS];
   if (kIds) {
+    if (tid < COLS) inv_ids[tid] = -1;
+    __syncthreads();
     const int id = tid < cols ? __ldg(plane_ids + tid) : -1;
     if (id >= 0 && id < cols) inv_ids[id] = tid;
   }
@@ -589,6 +594,20 @@ cim_packed_tc_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ pla
         make_uint4(0u, 0u, 0u, 0u);
   }
   __syncthreads();
+  if (kIds) {
+    // cols ids fill all cols slots only if they are a permutation of
+    // 0 .. cols - 1 (a repeated or out-of-range id leaves a slot at -1).
+    // Otherwise the block reads no plane: every output it owns (its split's
+    // part of the workspace, which the reduce carries) becomes NaN.
+    bool perm = true;
+    for (int b = 0; b < cols; ++b) perm &= inv_ids[b] >= 0;
+    if (!perm) {
+      const int n_out = min(kBN, n_cols - n0);
+      for (int i = tid; i < x_rows * n_out; i += kThreadsTc)
+        dst[((size_t)split * m_rows + m0 + i / n_out) * n_cols + n0 + i % n_out] = __int_as_float(0x7fc00000);
+      return;
+    }
+  }
 #pragma unroll
   for (int b = 0; b < COLS; ++b) plane_row[b] = (kIds && b < cols) ? inv_ids[b] : b;
   auto live_of = [&](int t) { return kSkip ? live_s[t % kLiveRing] : (1u << cols) - 1u; };
@@ -746,8 +765,9 @@ extern "C" int cim_matmul_packed_launch(const void* x, const void* planes, const
 
 // The tensor-core kernel for bf16 x (the wrapper validates): cols <= 16;
 // nwg 1 (M <= 64) or 2; vec requires n % 16 == 0, k % 8 == 0 and 16-byte
-// aligned x, planes and sign; k_per_split a multiple of 64; plane_ids, if
-// not null, a permutation of 0 .. cols - 1; tile_nz non-null selects B4.
+// aligned x, planes and sign; k_per_split a multiple of 64; plane_ids may
+// be null (identity), and ids that are not a permutation of 0 .. cols - 1
+// give NaN in every output element; tile_nz non-null selects B4.
 // With splits > 1, ws holds f32[splits, m, n] and the fixed-order reduce
 // scales.  Returns the first CUDA error of the launches (0 on success).
 extern "C" int cim_matmul_packed_tc_launch(const void* x, const void* planes, const void* sign,

@@ -172,9 +172,11 @@ def cim_matmul_packed(
     by ``2**plane_ids[p]``.  Both kernels give the same bits.
 
     On CUDA, bf16 x runs the tensor-core kernel and f32 x the FMA kernel.
-    The tensor-core kernel reads ``plane_ids`` as a permutation of
-    ``range(cols)`` (what the col_perm codec stores: an argsort); the FMA
-    kernel and the plain version take any ids.
+    The tensor-core kernel needs ``plane_ids`` to be a permutation of
+    ``range(cols)`` (what the col_perm codec stores: an argsort): ids that
+    are not (a repeated or out-of-range id) give NaN in every element of
+    the result, checked on the card with no host sync.  The FMA kernel and
+    the plain version take any ids.
     """
     m, k = x.shape
     cols, kw, n = planes_packed.shape
