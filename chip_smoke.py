@@ -27,7 +27,10 @@ Phases (one line each, any failed check exits 1):
      kernel) within 2e-5 (abs + rel) and bf16 (tensor-core kernel) within
      one bf16 ulp more;
      B6 (bitslice) == its plain version bit for bit on [4, 4096, 11008]
-     weights with planted .5 ties;
+     weights with planted .5 ties, aligned and at a 4-byte offset, on
+     ragged N, and on stacks of more than 65535 rows and layers;
+     B2/B4 with plane_ids that are not a permutation give all-NaN on the
+     tensor-core kernel (after phase 4b, on planned operands);
   4. plan: build_deployment on the card, B1 launches > 0, and one stacked
      tensor planned again on the CPU with an identical report and w_hat;
      plan-pool: the same model through a CrossbarPool with the const_rle
@@ -50,11 +53,16 @@ Phases (one line each, any failed check exits 1):
      FMA kernels), B3 = layers per prefill;
   6. kernels: time, bound (the bf16 tensor-core rate for the tensor-core
      paths, the f32 rate for the FMA kernels), plain-version and library
-     times; B2, B3 and B5 on both paths.
+     times; B2, B3 and B5 on both paths; B6 at yi-6b's wi_gate and head.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
 ``python3 chip_smoke.py`` (needs one CUDA card; fails without one).
+
+``python3 chip_smoke.py --ab OTHER_ROOT`` instead compares two trees of the
+port on one card, in turns (OTHER, this, this, OTHER), one process each:
+B2 bf16 decode at gemma-2b's wi_gate, B6 on the B6_TIMED shapes and the
+wall of a yi-6b planes_int8 deployment (``--ab-time ROOT`` is one turn).
 """
 from __future__ import annotations
 
@@ -83,6 +91,11 @@ BF16_LOGIT_RTOL = 0.02  # bf16 prefill: dense rounds w_hat to bf16, packed keeps
 YI_LAYERS = 4
 B3_WINDOW = 256
 B3_LONG = 2048  # the long-prefill check and timing length
+B6_CASES = (  # (shape, element offset of w): the vector path, then the element path
+    ((4, 4096, 11008), 0), ((4, 4096, 11008), 1), ((7, 333), 0), ((5, 1), 0),
+    ((3, 64, 96), 1), ((2, 33000, 16), 0), ((65537, 1, 5), 0),
+)
+B6_TIMED = ((4, 4096, 11008), (4096, 64000))  # yi-6b's stacked wi_gate (4 layers), its head
 
 
 def fail(msg: str) -> None:
@@ -276,20 +289,25 @@ def same_report(a, b, what):
 def deploy_int8(params, plan):
     """``deploy_params(materialize="planes_int8")`` with the counts read
     around it: B6 must build every operand dict, once each, and nothing
-    else may launch or fall back."""
+    else may launch or fall back.  Prints the deployment's wall time."""
     import torch
 
     from repro_torch.core import planner
 
     reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     p_int8 = planner.deploy_params(params, plan, materialize="planes_int8")
     torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
     c = counts()
     n_ops = sum(1 for _ in _operand_dicts(p_int8))
     got = {k: v for k, v in c.items() if k != "plain" and v}
     if got != {"B6": n_ops} or c["plain"]:
         fail(f"planes_int8 deployment launched {c} (want B6 = {n_ops} operand dicts, nothing "
              f"else, no plain-version call)")
+    say(f"phase deploy-int8: deploy_params(materialize='planes_int8') wall {wall_ms:.2f} ms "
+        f"(synchronized), {c['B6']} B6 launches")
     return p_int8, c
 
 
@@ -351,24 +369,28 @@ def time_attention(dev) -> dict:
 
 
 def time_bitslice(dev) -> dict:
-    """B6 on yi-6b's stacked wi_gate shape [4, 4096, 11008], cols 10:
-    kernel, plain version and the byte bound ((4 + cols) bytes a weight)."""
+    """B6 at cols 10 on the B6_TIMED shapes: kernel, plain version and the
+    byte bound ((4 + cols) bytes a weight).  Returns the first shape's
+    record."""
     import torch
 
     from repro_torch.kernels.bitslice import ops as bs_ops
     from repro_torch.kernels.bitslice import ref as bs_ref
 
-    g = torch.Generator(device=dev).manual_seed(11)
-    w = torch.randn(4, 4096, 11008, device=dev, generator=g) * 0.05
-    inv = torch.tensor(4096.0, device=dev)
-    ms = cuda_ms(lambda: bs_ops.bitslice_planes(w, inv, 10), reps=10)
-    plain = cuda_ms(lambda: bs_ref.bitslice_planes(w, inv, 10), reps=3, warmup=1)
-    bnd, by = bound(w.numel() * (4 + 10), 0)
-    say(f"phase kernels: B6 [4, 4096, 11008] cols 10: {ms:.4f} ms (bound {bnd:.4f} by {by}, "
-        f"plain {plain:.4f}; no single torch call)")
-    del w
-    torch.cuda.empty_cache()
-    return dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bnd, bound_by=by)
+    records = []
+    for shape in B6_TIMED:
+        g = torch.Generator(device=dev).manual_seed(11)
+        w = torch.randn(shape, device=dev, generator=g) * 0.05
+        inv = torch.tensor(4096.0, device=dev)
+        ms = cuda_ms(lambda: bs_ops.bitslice_planes(w, inv, 10), reps=10)
+        plain = cuda_ms(lambda: bs_ref.bitslice_planes(w, inv, 10), reps=3, warmup=1)
+        bnd, by = bound(w.numel() * (4 + 10), 0)
+        say(f"phase kernels: B6 {list(shape)} cols 10: {ms:.4f} ms ({100 * bnd / ms:.1f}% of the "
+            f"bound {bnd:.4f} by {by}; plain {plain:.4f}; no single torch call)")
+        records.append(dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bnd, bound_by=by))
+        del w
+        torch.cuda.empty_cache()
+    return records[0]
 
 
 def attention_inputs(dev, layout, s, per_row, dtype, seed):
@@ -452,6 +474,66 @@ def check_b3(dev):
                 f"S={s}: max |d| " + "; ".join(errs))
     torch.cuda.empty_cache()
     return worst, n
+
+
+def check_b6(dev) -> None:
+    """B6 == its plain version bit for bit on every B6_CASES shape, in one
+    launch each."""
+    import torch
+
+    from repro_torch.kernels.bitslice import ops as bs_ops
+    from repro_torch.kernels.bitslice import ref as bs_ref
+
+    inv = torch.tensor(4096.0, device=dev)  # a power of two keeps the planted ties exact
+    n6 = 0
+    for shape, offset in B6_CASES:
+        numel = torch.Size(shape).numel()
+        # offset 1: a contiguous view 4 bytes past a 16-byte boundary
+        w6 = tied_weights(dev, (numel + offset,), 4096.0, seed=6 + n6)[offset:].view(shape)
+        bs_ops.reset_launches()
+        got6 = bs_ops.bitslice_planes(w6, inv, 10)
+        launched = bs_ops.LAUNCHES["B6"]
+        want6 = bs_ref.bitslice_planes(w6, inv, 10)
+        torch.cuda.synchronize()
+        if launched != 1 or got6.shape != want6.shape or not torch.equal(got6, want6):
+            fail(f"B6 differs from its plain version on {list(shape)} weights (offset "
+                 f"{offset}) with .5 ties (launches {launched})")
+        n6 += 1
+        del w6, got6, want6
+    torch.cuda.empty_cache()
+    shapes = ", ".join(f"{list(sh)}" + (" at a 4-byte offset" if o else "") for sh, o in B6_CASES)
+    say(f"phase B6: {n6} cases, f32 {shapes}, with 1/7 planted .5 ties, -0.0 and values past "
+        f"1023: bit-equal to its plain version, one launch each")
+
+
+def check_ids_nan(dev, p_rle) -> None:
+    """Plane ids that are not a permutation of range(10) give all-NaN from
+    B2 and B4 on the tensor-core kernel (bf16 x), split K included, on
+    layer 0's planned wi_gate and wo."""
+    import torch
+
+    from repro_torch.kernels.cim_matmul import ops as cim_ops
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    n_nan = 0
+    for bad in ([0, 1, 2, 5, 4, 5, 6, 7, 8, 9], [0, 1, 2, 10, 4, 5, 6, 7, 8, 9]):
+        ids = torch.tensor(bad, dtype=torch.int32, device=dev)
+        for path in ("mlp/wi_gate", "mlp/wo"):
+            a, b = path.split("/")
+            op = {k: v[0] for k, v in p_rle["segments"][0][a][b].items()}
+            args = (op["planes_packed"], op["sign_packed"], op["scale"])
+            for m in (1, 4, 128):
+                x = torch.randn(m, op["kdim"].shape[-2], device=dev, generator=g).to(torch.bfloat16)
+                y2 = cim_ops.cim_matmul_packed(x, *args, plane_ids=ids)
+                y4 = cim_ops.cim_matmul_packed(x, *args, tile_nz=op["plane_tile_nz"], plane_ids=ids)
+                torch.cuda.synchronize()
+                if not (bool(torch.isnan(y2).all()) and bool(torch.isnan(y4).all())):
+                    fail(f"B2/B4 bf16 with plane_ids {bad} on planned {path} at M={m} gave "
+                         f"numbers, not NaN")
+                n_nan += 1
+    say(f"phase B2/B4-ids: plane_ids with a repeated or an out-of-range id give all-NaN "
+        f"from B2 and B4 on the tensor-core kernel ({n_nan} cases: planned wi_gate and wo, "
+        f"M in {{1, 4, 128}})")
 
 
 def tied_weights(dev, shape, inv, seed):
@@ -550,6 +632,8 @@ def yi_phases(dev) -> dict:
     del timed_packed
 
     p_int8, c6 = deploy_int8(params, plan)
+    say(f"phase trace: yi-6b planes_int8 deployment: "
+        f"{trace(lambda: planner.deploy_params(params, plan, materialize='planes_int8'))}")
     n_eq = 0
     for name, w_hat in plan.deployed.items():
         op = _at(p_int8, name)
@@ -601,8 +685,6 @@ def main() -> None:
         from repro_torch.configs import get_arch
         from repro_torch.core import bitslice, planes, planner, pool, simulator
         from repro_torch.kernels import _util
-        from repro_torch.kernels.bitslice import ops as bs_ops
-        from repro_torch.kernels.bitslice import ref as bs_ref
         from repro_torch.kernels.cim_matmul import ops as cim_ops
         from repro_torch.kernels.cim_matmul import ref as cim_ref
         from repro_torch.kernels.flash_attention import ref as fa_ref
@@ -772,16 +854,7 @@ def main() -> None:
         f"the tensor-core kernel, f32 on the FMA kernel), max |d| "
         f"{b3_err:.3e}")
 
-    inv = torch.tensor(4096.0, device=dev)  # a power of two keeps the planted ties exact
-    w6 = tied_weights(dev, (4, 4096, 11008), 4096.0, seed=6)
-    got6, want6 = bs_ops.bitslice_planes(w6, inv, 10), bs_ref.bitslice_planes(w6, inv, 10)
-    torch.cuda.synchronize()
-    if got6.shape != (4, 10, 4096, 11008) or not torch.equal(got6, want6):
-        fail("B6 differs from its plain version on [4, 4096, 11008] weights with .5 ties")
-    say(f"phase B6: [4, 4096, 11008] f32 with {w6.numel() // 7} planted .5 ties, -0.0 and "
-        f"values past 1023: bit-equal to its plain version")
-    del w6, got6, want6
-    torch.cuda.empty_cache()
+    check_b6(dev)
 
     # --- 4. plan gemma-2b at full width --------------------------------------
     full = get_arch("gemma-2b")
@@ -915,6 +988,7 @@ def main() -> None:
         for m in (1, 4, 128):
             b4_err = max(b4_err, check_b4(op, m, op["kdim"].shape[-2], None, f"planned {path}"))
             n_planned += 1
+    check_ids_nan(dev, p_rle)
     live = sum(int(d["plane_tile_nz"].sum()) for d in _operand_dicts(p_rle))
     tiles = sum(d["plane_tile_nz"].numel() for d in _operand_dicts(p_rle))
     say(f"phase B4-planned: layer 0 wq/wk/wi_gate/wo of the {CODEC} deployment at M in "
@@ -1146,6 +1220,85 @@ def main() -> None:
                                            "count": torch.cuda.device_count()}}))
 
 
+def ab_time(root: Path) -> None:
+    """One turn of ``--ab``: time the port of the tree at ``root`` and
+    print one JSON line.  B2 bf16 decode (M = 4) at gemma-2b's wi_gate over
+    4 cycled operand copies, B6 at cols 10 on the B6_TIMED shapes, and three
+    walls of a yi-6b (4 layers) planes_int8 deployment of one plan."""
+    sys.path.insert(0, str(root / "src"))  # ahead of this tree's port
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    from repro_torch.configs import get_arch
+    from repro_torch.core import bitslice, planner
+    from repro_torch.kernels import _util
+    from repro_torch.kernels.bitslice import ops as bs_ops
+    from repro_torch.kernels.cim_matmul import ops as cim_ops
+    from repro_torch.models import api
+
+    dev = torch.device("cuda")
+    _util.full_f32_matmuls()
+    _util.build_kernels(("cim_matmul", "bitslice"))
+    rec = {"root": str(root)}
+    k, n = 2048, 16384
+    ops = []
+    for i in range(4):
+        gg = torch.Generator(device=dev).manual_seed(100 + i)
+        q = torch.randint(0, 1024, (k, n), dtype=torch.int32, device=dev, generator=gg)
+        s = torch.where(torch.rand(k, n, device=dev, generator=gg) < 0.5, -1, 1).to(torch.int8)
+        ops.append((bitslice.pack_linear_planes(q, 10), bitslice.pack_linear_sign(s),
+                    torch.tensor(0.02 / 1023, device=dev)))
+    x = torch.randn(BATCH, k, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    x = x.to(torch.bfloat16)
+    it = {"i": 0}
+
+    def b2():
+        it["i"] = (it["i"] + 1) % 4
+        return cim_ops.cim_matmul_packed(x, *ops[it["i"]])
+
+    rec["b2_decode_ms"] = [cuda_ms(b2, reps=50) for _ in range(3)]
+    del ops
+    for shape in B6_TIMED:
+        g = torch.Generator(device=dev).manual_seed(11)
+        w = torch.randn(shape, device=dev, generator=g) * 0.05
+        inv = torch.tensor(4096.0, device=dev)
+        rec[f"b6_ms {list(shape)}"] = cuda_ms(lambda: bs_ops.bitslice_planes(w, inv, 10), reps=10)
+        del w
+        torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_arch("yi-6b"), n_layers=YI_LAYERS)
+    params = api.init(cfg, seed=0, device=dev)
+    plan = planner.build_deployment(params, planner.CrossbarSpec(),
+                                    planner.PlannerConfig(p_stuck=P_STUCK), device=dev)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p_int8 = planner.deploy_params(params, plan, materialize="planes_int8")
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        del p_int8
+        torch.cuda.empty_cache()
+    rec["yi_deploy_int8_wall_ms"] = walls
+    print(json.dumps(rec), flush=True)
+
+
+def ab(other: Path) -> None:
+    """Turns OTHER, this, this, OTHER of ``ab_time``, one process each, on
+    this card; prints each turn's JSON line and the card."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=False).stdout.strip()
+    say(smi or "card not reported")
+    for root in (other, ROOT, ROOT, other):
+        r = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--ab-time",
+                            str(Path(root).resolve())], capture_output=True, text=True,
+                           check=False)
+        if r.returncode != 0:
+            say(r.stdout[-4000:] + r.stderr[-4000:])
+            fail(f"--ab-time {root} exited with {r.returncode}")
+        say(r.stdout.strip().splitlines()[-1])
+
+
 def _operand_dicts(tree):
     """Every crossbar operand dict of a params tree."""
     if isinstance(tree, dict):
@@ -1160,4 +1313,9 @@ def _operand_dicts(tree):
 
 
 if __name__ == "__main__":
-    main()
+    if "--ab-time" in sys.argv[:-1]:
+        ab_time(Path(sys.argv[sys.argv.index("--ab-time") + 1]).resolve())
+    elif "--ab" in sys.argv[:-1]:
+        ab(Path(sys.argv[sys.argv.index("--ab") + 1]))
+    else:
+        main()

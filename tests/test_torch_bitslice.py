@@ -6,9 +6,12 @@ kernel (interpret mode) exactly, .5 ties and -0.0 included, and
 its planes with ``bitslice_planes``, must give the reference's ``splanes``
 byte for byte.  Inputs are made with numpy from a seed.  The kernel itself
 is held against its plain version on the card
-(``tests/test_torch_kernels_cuda.py``).
+(``tests/test_torch_kernels_cuda.py``); here its launch plan, which mirrors
+the kernel's grid and index math, is checked to write every weight once.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -98,3 +101,80 @@ def test_bitslice_wrapper_rejects_bad_arguments():
         bs_ops.bitslice_planes(torch.zeros(8), torch.tensor(1.0), 4)
     with pytest.raises(ValueError):
         bs_ops.bitslice_planes(torch.zeros(4, 4), torch.tensor(1.0), 17)
+
+
+# ---------------------------------------------------------------------------
+# Kernel B6's launch plan (csrc/bitslice.cu's grid and index math, mirrored
+# in ops.py): every (layer, k, n) of the output is written exactly once
+# ---------------------------------------------------------------------------
+
+def _coverage(plan: bs_ops.LaunchPlan) -> tuple[np.ndarray, np.ndarray]:
+    """How often each layer is walked by some blockIdx.y, and each (k, n)
+    written by some chunk thread of a layer."""
+    layers = np.zeros(plan.layers, np.int64)
+    for y in range(plan.blocks_y):
+        layers[y::plan.blocks_y] += 1
+    cells = np.zeros((plan.k, plan.n), np.int64)
+    for u in range(plan.blocks_x * bs_ops.THREADS):
+        span = bs_ops.thread_span(plan, u)
+        if span is not None:
+            row, col, width = span
+            assert 1 <= width <= bs_ops.CHUNK and col + width <= plan.n
+            cells[row, col:col + width] += 1
+    return layers, cells
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 1, 1), (1, 3, 15), (2, 5, 17), (1, 7, 333), (3, 4, 16), (2, 9, 48),
+    (4, 16384, 16),  # L * K = 65536 rows (gemma's stacked wo_ff has as many)
+    (65537, 1, 5),  # layers past the card's gridDim.y limit: blockIdx.y loops
+])
+@pytest.mark.parametrize("vec", [True, False])
+def test_bitslice_launch_plan_covers_every_weight_once(shape, vec):
+    layers, k, n = shape
+    plan = bs_ops.launch_plan(layers, k, n, vec)
+    assert plan.vec == (vec and n % 16 == 0)
+    assert plan.chunks * 16 >= n > (plan.chunks - 1) * 16
+    assert 1 <= plan.blocks_y <= bs_ops.MAX_GRID_Y and plan.blocks_x <= 2**31 - 1
+    walked, cells = _coverage(plan)
+    assert (walked == 1).all() and (cells == 1).all()
+    # the kernel's 64-bit output offsets are those of a contiguous
+    # [layers, cols, k, n] tensor
+    cols = 10
+    strides = torch.empty((layers, cols, k, n), dtype=torch.int8, device="meta").stride()
+    for layer, b, row, col in ((0, 0, 0, 0), (layers - 1, cols - 1, k - 1, n - 1),
+                               (layers // 2, 3, k // 2, n // 2)):
+        want = layer * strides[0] + b * strides[1] + row * strides[2] + col * strides[3]
+        assert bs_ops.plane_offset(plan, cols, layer, b, row, col) == want
+
+
+@pytest.mark.parametrize("shape,cols", [
+    ((1, 4096, 64000), 10),  # yi-6b's head: 2.62 GB of planes
+    ((4, 4096, 11008), 10),  # yi-6b's stacked wi_gate
+    ((4, 16384, 2048), 10),  # gemma-2b's stacked wo_ff: L * K = 65536
+    ((64, 4096, 4096), 16),
+])
+@pytest.mark.parametrize("vec", [True, False])
+def test_bitslice_launch_plan_at_deployment_shapes(shape, cols, vec):
+    """Computed from shapes, nothing allocated: the grid fits the card's
+    limits, the first and last chunk threads reach the first and last
+    weight of a layer, the thread after them is masked, and the last
+    plane byte's 64-bit offset is the output's last element."""
+    layers, k, n = shape
+    plan = bs_ops.launch_plan(layers, k, n, vec)
+    assert plan.blocks_x <= 2**31 - 1 and plan.blocks_y == min(layers, bs_ops.MAX_GRID_Y)
+    last = k * plan.chunks - 1
+    assert plan.blocks_x * bs_ops.THREADS > last >= (plan.blocks_x - 1) * bs_ops.THREADS
+    assert bs_ops.thread_span(plan, 0) == (0, 0, 16)
+    assert bs_ops.thread_span(plan, last) == (k - 1, n - 16, 16)
+    assert bs_ops.thread_span(plan, last + 1) is None
+    # vector and element paths agree on which weights a thread holds (n % 16 == 0)
+    for u in (1, plan.chunks - 1, plan.chunks, last // 2, last):
+        assert bs_ops.thread_span(plan, u) == bs_ops.thread_span(
+            dataclasses.replace(plan, vec=not plan.vec), u)
+    numel = layers * cols * k * n
+    end = bs_ops.plane_offset(plan, cols, layers - 1, cols - 1, k - 1, n - 1)
+    assert end == numel - 1
+    if shape == (1, 4096, 64000):
+        assert end >= 2**31  # past a 32-bit offset
+

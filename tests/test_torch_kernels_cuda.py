@@ -192,6 +192,38 @@ def test_packed_kernels_match_plain(cuda_device, k, n, cols, dtype):
                 assert torch.equal(b2, b4), what
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(2048, 16384), (16384, 2048), (1001, 333)])
+@pytest.mark.parametrize("bad", ["repeated", "past_cols", "negative"])
+def test_packed_tensor_core_kernel_non_permutation_ids_give_nan(cuda_device, k, n, bad):
+    """On the tensor-core kernel (bf16 x), plane_ids that are not a
+    permutation of range(cols) make B2 and B4 return NaN in every element,
+    split K included; identity and permuted ids stay finite."""
+    op, _ = _packed_operands(cuda_device, k, n, 10, 0.5)
+    args = (op["planes_packed"], op["sign_packed"], op["scale"])
+    ids = list(range(10))
+    ids[3] = {"repeated": 5, "past_cols": 10, "negative": -1}[bad]
+    g = torch.Generator(device=cuda_device).manual_seed(k + n)
+    for m in (1, 4, 128):
+        x = torch.randn(m, k, device=cuda_device, generator=g).to(torch.bfloat16)
+        for plane_ids, finite in ((torch.tensor(ids, dtype=torch.int32), False),
+                                  (torch.arange(10, dtype=torch.int32), True),
+                                  (torch.arange(9, -1, -1, dtype=torch.int32), True)):
+            plane_ids = plane_ids.to(cuda_device)
+            cim_ops.reset_launches()
+            b2 = cim_ops.cim_matmul_packed(x, *args, plane_ids=plane_ids)
+            b4 = cim_ops.cim_matmul_packed(x, *args, tile_nz=op["plane_tile_nz"],
+                                           plane_ids=plane_ids)
+            assert {key: v for key, v in cim_ops.LAUNCHES.items() if v} == {
+                "B2": 1, "B4": 1, "B2_tc": 1, "B4_tc": 1}
+            torch.cuda.synchronize()
+            what = f"ids {plane_ids.tolist()} M {m}"
+            if finite:
+                assert bool(torch.isfinite(b2).all()) and torch.equal(b2, b4), what
+            else:
+                assert bool(torch.isnan(b2).all()) and bool(torch.isnan(b4).all()), what
+
+
 def _weights_with_ties(shape, inv_scale, device, seed):
     """Random weights with exact .5 ties of |w| * inv_scale and -0.0 planted."""
     g = torch.Generator(device=device).manual_seed(seed)
@@ -206,18 +238,53 @@ def _weights_with_ties(shape, inv_scale, device, seed):
     return w
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(1, 1), (37, 130), (256, 2048), (3, 64, 96)])
-@pytest.mark.parametrize("cols", [1, 8, 10])
-def test_bitslice_kernel_matches_plain(cuda_device, shape, cols):
-    inv = 512.0  # a power of two: |w| * inv is exact, so the planted ties stay .5
-    w = _weights_with_ties(shape, inv, cuda_device, seed=sum(shape) + cols)
-    inv_t = torch.tensor(inv, device=cuda_device)
+def _bitslice_matches_plain(w, inv, cols):
+    """B6 == its plain version bit for bit, in one launch and no plain call."""
+    inv_t = torch.tensor(inv, device=w.device)
+    bs_ops.reset_launches()
+    bs_ref.bitslice_planes.calls = 0
     got = bs_ops.bitslice_planes(w, inv_t, cols)
+    assert bs_ops.LAUNCHES["B6"] == 1 and bs_ref.bitslice_planes.calls == 0
     want = bs_ref.bitslice_planes(w, inv_t, cols)
     torch.cuda.synchronize()
+    shape = tuple(w.shape)
     assert got.dtype == torch.int8 and got.shape == want.shape == shape[:-2] + (cols,) + shape[-2:]
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (1, 1), (37, 130), (256, 2048), (3, 64, 96),
+    (5, 1), (7, 15), (9, 17), (4, 333),  # ragged N: the element path
+    (2, 33000, 16), (65537, 1, 5),  # L * K > 65535 rows; layers past gridDim.y
+])
+@pytest.mark.parametrize("cols", [1, 2, 7, 8, 10, 15, 16])
+def test_bitslice_kernel_matches_plain(cuda_device, shape, cols):
+    # a power of two keeps the planted ties .5; past cols 10 a larger one
+    # makes the high planes live
+    inv = 512.0 if cols <= 10 else 2.0 ** (cols + 3)
+    _bitslice_matches_plain(_weights_with_ties(shape, inv, cuda_device, seed=sum(shape) + cols),
+                            inv, cols)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(37, 128), (3, 64, 96), (4, 333)])
+@pytest.mark.parametrize("cols", [8, 10])
+def test_bitslice_kernel_unaligned_view(cuda_device, shape, cols):
+    """A contiguous w whose data lies 4 bytes past a 16-byte boundary (a
+    view of a flat buffer at offset 1) takes the kernel's element path."""
+    flat = _weights_with_ties((1 + torch.Size(shape).numel(),), 512.0, cuda_device, seed=cols)
+    w = flat[1:].view(shape)
+    assert w.is_contiguous() and w.data_ptr() % 16 == 4
+    _bitslice_matches_plain(w, 512.0, cols)
+
+
+@pytest.mark.cuda
+def test_bitslice_kernel_past_2_31_bytes(cuda_device):
+    """yi-6b's head shape at cols 10: 2.62 GB of planes, 64-bit offsets."""
+    _bitslice_matches_plain(_weights_with_ties((1, 4096, 64000), 512.0, cuda_device, seed=3),
+                            512.0, 10)
+    torch.cuda.empty_cache()
 
 
 @pytest.mark.cuda

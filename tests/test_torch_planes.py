@@ -128,6 +128,29 @@ def test_encode_operands_popcount_ties_keep_plane_order():
 
 
 # ---------------------------------------------------------------------------
+# The col_perm codecs store plane_ids that are a permutation of range(cols)
+# per layer: the contract of B2/B4's tensor-core kernel
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(300, 24), (3, 256, 40), (2, 130, 17)])
+@pytest.mark.parametrize("codec", ["col_perm", "col_perm_rle"])
+@pytest.mark.parametrize("spread", [0.05, 1e-4])  # 1e-4: most high planes empty (popcount ties)
+def test_col_perm_plane_ids_are_permutations(shape, codec, spread):
+    rng = np.random.default_rng(len(shape) + shape[-1])
+    w = (rng.standard_normal(shape) * spread).astype(np.float32)
+    w.reshape(-1)[: w.size // 3] *= 1e-3
+    scale = np.float32(0.05 * 3 / 1023)
+    jop = jsim.operands_from_dense(jnp.asarray(w), scale, 0.0, "sign_magnitude", 10)
+    top = simulator.operands_from_dense(_t(w), float(scale), 0.0, "sign_magnitude", 10)
+    jids = np.asarray(jplanes.encode_operands(jop, codec)["plane_ids"])
+    ids = planes.encode_operands(top, codec)["plane_ids"]
+    assert ids.dtype == torch.int32 and ids.shape == shape[:-2] + (10,)
+    np.testing.assert_array_equal(ids.numpy(), jids)
+    rows = ids.reshape(-1, 10).numpy()
+    assert (np.sort(rows, axis=-1) == np.arange(10)).all()
+
+
+# ---------------------------------------------------------------------------
 # Plans through a pool on the reduced gemma-2b
 # ---------------------------------------------------------------------------
 
