@@ -4,8 +4,10 @@
 Drives the port's main paths — plan gemma-2b onto 128x10 crossbars, alone
 and through a persistent ``CrossbarPool`` with plane codecs, then serve it
 from the packed bits and from int8 planes; plan yi-6b and serve it the same
-ways — at each model's full width with the depth cut to 4 layers, and holds
-each hand-written kernel against its plain PyTorch version on the card.
+ways — at each model's full width with the depth cut to 4 layers; then the
+paper's planner figures on its models' published shapes, held to the
+reference's integers — and holds each hand-written kernel against its plain
+PyTorch version on the card.
 Phases (one line each, any failed check exits 1):
 
   1. card + build: name and power limit, the kernels built from csrc/;
@@ -51,11 +53,18 @@ Phases (one line each, any failed check exits 1):
      cim-packed and cim-planes_int8 with (7 * layers + 1) * gen B2 / B5
      launches (the +1: the planned LM head, whose f32 activations take the
      FMA kernels), B3 = layers per prefill;
+  5c. figures: the paper's planner figures (fig5-fig8, fig9's and fig10's
+     transition sweeps) and planner_throughput's gemma-2b-scale plan on the
+     card at the size of benchmarks_torch/golden/reference.json, every
+     integer equal to the reference's and every speedup the same float; B1
+     launches > 0, nothing else, no plain-version call; the planner's CPU
+     plan identical to the card's; B1 timed at the figures' pair shape;
   6. kernels: time, bound (the bf16 tensor-core rate for the tensor-core
      paths, the f32 rate for the FMA kernels), plain-version and library
      times; B2, B3 and B5 on both paths; B6 at yi-6b's wi_gate and head.
 
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record (B1's launches are
+those of the gemma-2b plan and the figures phase); the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
 ``python3 chip_smoke.py`` (needs one CUDA card; fails without one).
 
@@ -193,10 +202,12 @@ def plain_fns():
     from repro_torch.kernels.bitslice import ref as bs_ref
     from repro_torch.kernels.cim_matmul import ref as cim_ref
     from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.hamming import ref as ham_ref
     from repro_torch.models import attention
 
     return (cim_ref.cim_matmul, cim_ref.cim_matmul_packed, cim_ref.unpack_weights,
-            fa_ref.flash_attention, bs_ref.bitslice_planes, attention.blockwise_attention)
+            fa_ref.flash_attention, bs_ref.bitslice_planes, attention.blockwise_attention,
+            ham_ref.hamming_pairs)
 
 
 def reset_counts() -> None:
@@ -323,9 +334,10 @@ def bound(nbytes, flops, rate=F32_FLOPS):
 def time_attention(dev) -> dict:
     """B3, causal, at yi-6b's and gemma-2b's serve prefill shapes and a
     2048-token prefill of each: the bf16 tensor-core kernel (the main
-    path) and the f32 FMA kernel, the plain version, SDPA (timed as a
-    yardstick only) and each path's bound (q, k, v, o bytes; 4 * D FLOPs per
-    visible pair at the bf16 tensor-core rate or the f32 rate).  Also the
+    path) and the f32 FMA kernel, the plain version, SDPA on the bf16 and
+    on the f32 inputs (timed as a yardstick only) and each path's bound (q,
+    k, v, o bytes; 4 * D FLOPs per visible pair at the bf16 tensor-core
+    rate or the f32 rate).  Also the
     host time of one bf16 call's TMA descriptor encoding.  Returns the
     record at yi-6b's serve shape."""
     import torch
@@ -349,6 +361,8 @@ def time_attention(dev) -> dict:
             plain = cuda_ms(lambda: fa_ref.flash_attention(q, k, v, kind="causal"), reps=5)
             library = cuda_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True))
+            library_f32 = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qf, kf, vf, is_causal=True, enable_gqa=True))
             flops = 4 * d * hq * live_pairs(b, s, s, "causal", s, 0, None)
             nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
             bnd, by = bound(nbytes, flops, BF16_TC_FLOPS)
@@ -360,8 +374,9 @@ def time_attention(dev) -> dict:
                                       bound_by=by)
             lines.append(f"{name} B={b} S={s}: bf16 tensor cores {ms:.4f} ms (device only "
                          f"{fmt_ms(dev_tc)}; bound {bnd:.4f} by {by}), f32 FMA {ms_f32:.4f} ms "
-                         f"(bound {bnd32:.4f} by {by32}), plain {plain:.4f}, SDPA {library:.4f} "
-                         f"(device only {fmt_ms(dev_lib)})")
+                         f"(bound {bnd32:.4f} by {by32}), plain {plain:.4f}, SDPA bf16 "
+                         f"{library:.4f} (device only {fmt_ms(dev_lib)}), SDPA f32 "
+                         f"{library_f32:.4f}")
             del q, k, v, qf, kf, vf
     say("phase kernels: B3 causal: " + "; ".join(lines))
     torch.cuda.empty_cache()
@@ -676,6 +691,164 @@ def yi_phases(dev) -> dict:
     return {"B3": b3_launches, "B3_tc": b3_tc, "B6": c6["B6"]}
 
 
+def first_difference(got, want, path="") -> str | None:
+    """The first path at which two JSON-like trees differ, or None."""
+    if isinstance(want, dict) and isinstance(got, dict):
+        if set(got) != set(want):
+            return f"{path or '/'}: keys {sorted(got)} vs {sorted(want)}"
+        for k in want:
+            d = first_difference(got[k], want[k], f"{path}/{k}")
+            if d:
+                return d
+        return None
+    if type(got) is not type(want) or got != want:
+        return f"{path}: {got!r} vs the reference's {want!r}"
+    return None
+
+
+def figures_phase(dev) -> dict:
+    """The paper's planner figures on the card, held to the reference.
+
+    Runs fig5-fig8, fig9's and fig10's transition sweeps and the planner
+    throughput's card plan at the golden file's size with the counts zeroed
+    just before and read just after (B1 must launch, nothing else, no plain
+    version); every integer must equal ``benchmarks_torch/golden/reference.json``
+    and every speedup be the same float.  Then the planner's CPU plan must
+    be identical to the card's.  Returns the counts and the phase's wall."""
+    import torch
+
+    from benchmarks_torch import (fig5_sws_single, fig6_strides, fig7_greedy, fig8_stucking,
+                                  fig9_p_sweep, fig10_columns, planner_throughput)
+    from repro_torch.kernels.hamming import ops as ham_ops
+    from repro_torch.kernels.hamming import ref as ham_ref
+
+    gold = json.loads((ROOT / "benchmarks_torch" / "golden" / "reference.json").read_text())
+    me, seed, pl = gold["max_elems"], gold["seed"], gold["planner"]
+    say(f"phase figures: reference {gold['backend']} jax {gold['jax_version']}, max_elems "
+        f"{me} ({gold['sweep_max_elems']} for fig9/fig10), seed {seed}; planner "
+        f"{pl['layers']} layers at {pl['max_elems']}, p {pl['p_stuck']}")
+    parts = {
+        "fig5": lambda: fig5_sws_single.run(max_elems=me, seed=seed, device=dev),
+        "fig6": lambda: fig6_strides.run(max_elems=me, seed=seed, device=dev),
+        "fig7": lambda: fig7_greedy.run(max_elems=me, seed=seed, device=dev),
+        "fig8": lambda: fig8_stucking.run(max_elems=me, seed=seed, device=dev),
+        "fig9": lambda: fig9_p_sweep.transitions_sweep(max_elems=me, seed=seed, device=dev),
+        "fig10": lambda: fig10_columns.transitions_sweep(max_elems=me, seed=seed, device=dev),
+    }
+    t_phase = time.perf_counter()
+    reset_counts()
+    res, walls = {}, {}
+    for name, fn in parts.items():
+        t0 = time.perf_counter()
+        res[name] = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        diff = first_difference(json.loads(json.dumps(res[name])), gold[name])
+        if diff:
+            fail(f"{name} on the card differs from the reference at {diff}")
+    params = planner_throughput.gemma_scale_params(max_elems=pl["max_elems"],
+                                                   layers=pl["layers"], device=dev)
+    plan, t_card = planner_throughput.plan(params, pl["p_stuck"], dev)
+    c = counts()
+    if c["B1"] <= 0 or any(c[k] for k in c if k not in ("B1", "plain")) or c["plain"]:
+        fail(f"figures launched {c} (want B1 only, no plain-version call)")
+    diff = first_difference(json.loads(json.dumps(planner_throughput.plan_record(plan))),
+                            {k: pl[k] for k in ("totals", "reports", "w_hat_sha256")})
+    if diff:
+        fail(f"planner_throughput's card plan differs from the reference at {diff}")
+    params_cpu = {n: {k: w.cpu() for k, w in l.items()} for n, l in params.items()}
+    plan_cpu, t_cpu = planner_throughput.plan(params_cpu, pl["p_stuck"], "cpu")
+    if not planner_throughput.same_plans(plan, plan_cpu):
+        fail("planner_throughput's CPU plan differs from its card plan")
+    del params, params_cpu, plan, plan_cpu
+    torch.cuda.empty_cache()
+
+    say("phase figures: " + "; ".join(f"{k} {v:.2f} s" for k, v in walls.items())
+        + f"; every integer and speedup equal to the reference's; B1 launches {c['B1']}, "
+        f"plain-version calls 0")
+    for m, r in res["fig5"].items():
+        say(f"  fig5 {m}: {r['n_sections']} sections, {r['transitions_unsorted']} -> "
+            f"{r['transitions_sws']} transitions, speedup {r['speedup']:.4f}x")
+    say("\n".join(fig5_sws_single.paper_check(res["fig5"])))
+    for m, r in res["fig6"].items():
+        ls = "  ".join(f"L={l}:{v['speedup']:.3f}x" for l, v in r["strideL"].items())
+        say(f"  fig6 {m}: strideL[{ls}]  stride1 {r['stride1']['speedup']:.3f}x "
+            f"(stride-1 over stride-L=4: "
+            f"{r['stride1']['speedup'] / r['strideL']['4']['speedup']:.3f}x)")
+    for m, r in res["fig7"].items():
+        say(f"  fig7 {m}: {r['n_jobs']} jobs, unsorted {r['speedup_unsorted']:.3f}x greedy "
+            f"{r['speedup_greedy']:.3f}x (ideal {r['ideal']:g}x)")
+    for m, r in res["fig8"].items():
+        say(f"  fig8 {m}: {r['transitions_p1']} -> {r['transitions_p']} transitions, saves "
+            f"{r['speedup_pct']:.2f}%")
+    say(fig8_stucking.PAPER_BAND)
+    for m, r in res["fig9"].items():
+        say(f"  fig9 {m}: " + "  ".join(f"p={p}:{v:.3f}x" for p, v in r["speedup_vs_p1"].items()))
+    for m, e in res["fig10"].items():
+        say(f"  fig10 {m}: " + "  ".join(f"{k}:{v['speedup_p1_over_p']:.3f}x"
+                                         for k, v in e.items()))
+    tot = pl["totals"]
+    say(f"phase figures-planner: gemma-2b x{pl['layers']} layers, {len(pl['reports'])} tensors: "
+        f"card plan {t_card:.2f} s, CPU plan {t_cpu:.2f} s ({t_cpu / t_card:.2f}x); totals, "
+        f"report integers and w_hat digests equal to the reference's, CPU plan identical; "
+        f"sws {tot['sws_speedup']:.4f}x total {tot['total_speedup']:.4f}x")
+
+    # B1 at the widest pair shape the figures send it (fig6/fig7, 128x10: 1536 weights a
+    # crossbar, 192 packed words x 10 columns a section)
+    t = 1 << 16
+    g = torch.Generator(device=dev).manual_seed(1)
+    a, b = (torch.randint(0, 256, (t, 192, 10), dtype=torch.uint8, device=dev, generator=g)
+            for _ in range(2))
+    ms = cuda_ms(lambda: ham_ops.price_pairs(a, b))
+    plain = cuda_ms(lambda: ham_ref.hamming_pairs(a, b), reps=5)
+    bnd = (2 * a.numel() + 4 * t) / HBM_BYTES_PER_S * 1e3
+    if not torch.equal(ham_ops.price_pairs(a, b), ham_ref.hamming_pairs(a, b)):
+        fail("B1 differs from its plain version at the figures' pair shape")
+    say(f"phase figures-B1: T={t} pairs of [192, 10] bytes: {ms:.4f} ms (bound {bnd:.4f} by "
+        f"bytes, {100 * bnd / ms:.1f}%), plain {plain:.4f} ms")
+    del a, b
+    wall = time.perf_counter() - t_phase
+    say(f"phase figures: wall {wall:.1f} s")
+    figures_breakdown(dev)
+    return {"B1": c["B1"], "wall_s": wall}
+
+
+def figures_breakdown(dev) -> None:
+    """Where fig7's time goes on its largest model (vit-base, 78M weights at
+    the 2M cap): drawing the weights, building the sorted planes, pricing
+    the jobs (B1) and the lockstep speedups, each synchronized; then one
+    traced run for the device's busy share and top kernels."""
+    import torch
+
+    from benchmarks_torch import common, fig7_greedy
+    from repro_torch.core import schedule
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    ws, t_draw = timed(lambda: [w for _, w in common.model_weights("vit-base", device=dev)])
+    n = sum(w.numel() for w in ws)
+    del ws
+    planes, t_planes = timed(lambda: common.model_planes("vit-base", cols=fig7_greedy.COLS,
+                                                         device=dev))
+    chains = schedule.stride_1_chains(planes.shape[0], fig7_greedy.THREADS)
+    jobs, t_price = timed(lambda: schedule.schedule_job_costs(planes, chains))
+    _, t_lock = timed(lambda: [schedule.lockstep_speedup(jobs, fig7_greedy.THREADS, sort_jobs=s)
+                               for s in (False, True)])
+    del planes, jobs
+    torch.cuda.empty_cache()
+    say(f"phase figures-time: fig7 vit-base ({n} weights): draw {t_draw:.3f} s "
+        f"({n / t_draw / 1e6:.1f} M normals/s), sorted planes {t_planes:.3f} s (the draw "
+        f"included), B1 pricing {1e3 * t_price:.2f} ms ({len(chains)} chains), lockstep "
+        f"{1e3 * t_lock:.2f} ms")
+    say(f"phase trace: fig7 vit-base: "
+        f"{trace(lambda: fig7_greedy.run(['vit-base'], device=dev))}")
+
+
 def main() -> None:
     import torch
 
@@ -879,6 +1052,7 @@ def main() -> None:
         f"{tot['sws_speedup']:.4f}x total {tot['total_speedup']:.4f}x; B1 launches {c['B1']}")
     if c["B1"] <= 0 or c["B2"] + c["B4"] + c["B5"] != 0:
         fail(f"plan launched {c}")
+    b1_plan = c["B1"]
 
     key = planner.tensor_keys(params, pcfg)[CHECK_TENSOR]
     w_cpu = dict(planner.iter_weights(params, pcfg))[CHECK_TENSOR].cpu()
@@ -1056,6 +1230,9 @@ def main() -> None:
     yi = yi_phases(dev)
     torch.cuda.empty_cache()
 
+    # --- 5c. the paper's planner figures, held to the reference ----------------
+    figs = figures_phase(dev)
+
     # --- 6. kernels: time, bound, plain, library -------------------------------
     t = 1 << 20
     pairs = [tuple(torch.randint(0, 256, (t, 16, 10), dtype=torch.uint8, device=dev, generator=g)
@@ -1188,7 +1365,7 @@ def main() -> None:
 
     kernels = [
         row("hamming_pairs", "src/repro_torch/csrc/hamming.cu",
-            "src/repro/kernels/hamming/kernel.py:32", c_pool["B1"], b1_err,
+            "src/repro/kernels/hamming/kernel.py:32", b1_plan + figs["B1"], b1_err,
             dict(ms=b1_ms, plain_ms=b1_plain, bound_ms=b1_bound, bound_by="bytes",
                  library_ms=None)),
         row("cim_matmul_packed", "src/repro_torch/csrc/cim_matmul.cu",

@@ -1,17 +1,20 @@
 """Reprogramming cost model (Eq. 1 of the paper) on packed planes.
 
-Port of the packed half of ``repro.core.cost``: the cost of reprogramming a
-crossbar holding bit matrix ``A`` to hold ``B`` is the number of memristors
-that change state, ``popcount(A ^ B)`` over the packed words
-``uint8[..., W, cols]`` (``bitslice.section_planes_packed``).  Row padding
-inside the words is zero on every state, so it never costs anything.  The
-planner's pricing goes through ``kernels.hamming.ops.price_pairs``; these
-chain-level functions serve parity checks and ad-hoc pricing.
+Port of ``repro.core.cost``: the cost of reprogramming a crossbar holding
+bit matrix ``A`` to hold ``B`` is the number of memristors that change
+state, ``popcount(A ^ B)`` over the packed words ``uint8[..., W, cols]``
+(``bitslice.section_planes_packed``).  Row padding inside the words is zero
+on every state, so it never costs anything.  The planner's pricing goes
+through ``kernels.hamming.ops.price_pairs``; these chain-level functions
+serve the paper's figures, parity checks and ad-hoc pricing.  The bool-plane
+entry points pack the rows once and price the packed words: there is one
+implementation.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import bitslice
 from repro_torch.kernels.hamming.ref import _byte_popcount
 
 
@@ -57,3 +60,25 @@ def consecutive_costs_packed(
         first = popcount_u8(seq[0]).sum(dtype=torch.int32).reshape(1)
         step = torch.cat([first, step])
     return step
+
+
+def chain_transitions(
+    planes: torch.Tensor,
+    order: torch.Tensor | None = None,
+    *,
+    include_initial: bool = True,
+    per_column: bool = False,
+) -> torch.Tensor:
+    """Total transitions programming bool planes[S, rows, cols] along
+    ``order`` on ONE crossbar from pristine -> int32[] (or int32[cols])."""
+    return chain_transitions_packed(bitslice.pack_rows(planes), order,
+                                    include_initial=include_initial, per_column=per_column)
+
+
+def consecutive_costs(
+    planes: torch.Tensor, order: torch.Tensor | None = None, *, include_initial: bool = True
+) -> torch.Tensor:
+    """Per-step costs along a chain of bool planes[S, rows, cols] -> int32[T]
+    (or [T-1]); step 0 programs over the pristine crossbar."""
+    return consecutive_costs_packed(bitslice.pack_rows(planes), order,
+                                    include_initial=include_initial)

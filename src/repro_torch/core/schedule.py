@@ -22,6 +22,7 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.core import bitslice
 from repro_torch.kernels.hamming import ops as hamming_ops
 
 
@@ -81,14 +82,21 @@ def chain_pairs(
     return np.concatenate(prevs), np.concatenate(curs)
 
 
+def _as_packed(planes: torch.Tensor) -> torch.Tensor:
+    """Accept bool[S, rows, cols] or packed uint8[S, W, cols] planes."""
+    return planes if planes.dtype == torch.uint8 else bitslice.pack_rows(planes)
+
+
 def schedule_job_costs(
-    packed: torch.Tensor, chains: list[np.ndarray], *, include_initial: bool = True
+    planes: torch.Tensor, chains: list[np.ndarray], *, include_initial: bool = True
 ) -> torch.Tensor:
     """Flat per-job costs (one job = one crossbar reprogram) -> int32[njobs].
 
-    packed: uint8[S, W, cols] canonical packed planes.  All chain steps are
-    priced in ONE batched ``price_pairs`` call.
+    planes: bool[S, rows, cols] (packed here) or canonical packed planes
+    uint8[S, W, cols].  All chain steps are priced in ONE batched
+    ``price_pairs`` call.
     """
+    packed = _as_packed(planes)
     prev, cur = chain_pairs(chains, include_initial=include_initial)
     if prev.shape[0] == 0:
         return torch.zeros((0,), dtype=torch.int32, device=packed.device)
@@ -97,6 +105,14 @@ def schedule_job_costs(
     prev_t = torch.from_numpy(prev.astype(np.int64) + 1).to(packed.device)
     cur_t = torch.from_numpy(cur.astype(np.int64) + 1).to(packed.device)
     return hamming_ops.price_pairs(states[prev_t], states[cur_t])
+
+
+def schedule_transitions(
+    planes: torch.Tensor, chains: list[np.ndarray], *, include_initial: bool = True
+) -> torch.Tensor:
+    """Total transitions across all crossbars -> int64[] (sum over chains)."""
+    return schedule_job_costs(planes, chains, include_initial=include_initial).sum(
+        dtype=torch.int64)
 
 
 # ---------------------------------------------------------------------------
@@ -113,6 +129,19 @@ def lockstep_time(job_costs: torch.Tensor, threads: int, *, sort_jobs: bool) -> 
     if costs.numel() == 0:
         return torch.zeros((), dtype=torch.int64, device=costs.device)
     return costs.reshape(-1, threads).max(dim=1).values.sum()
+
+
+def lockstep_speedup(job_costs: torch.Tensor, threads: int, *, sort_jobs: bool) -> torch.Tensor:
+    """Parallel speedup vs programming all jobs sequentially on one engine.
+
+    float32, as the reference computes it: the sum and the lockstep time
+    cast to float32, the time floored at 1, one float32 division (taken in
+    float64 and rounded once more, which is exact for a quotient).
+    """
+    seq = job_costs.sum(dtype=torch.int64).to(torch.float32)
+    t = lockstep_time(job_costs, threads, sort_jobs=sort_jobs).to(torch.float32)
+    quotient = seq.to(torch.float64) / torch.clamp(t, min=1.0).to(torch.float64)
+    return quotient.to(torch.float32)
 
 
 def lockstep_time_host(job_costs, threads: int, *, sort_jobs: bool) -> np.int64:

@@ -170,3 +170,44 @@ def stuck_schedule_packed(
     achieved = packed.clone()
     achieved[padded[valid]] = states[valid]
     return totals, achieved
+
+
+def stuck_schedule(
+    planes: torch.Tensor,
+    chains: list[np.ndarray],
+    p: float,
+    key: torch.Tensor,
+    *,
+    stuck_cols: int = 1,
+    include_initial: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`stuck_schedule_packed` on bool planes[S, rows, cols].
+
+    Returns (total int64[], achieved bool[S, rows, cols]): the reference's
+    bool-plane entry point, on the packed walk (same padding and key
+    schedule), with the total summed over the chains in int64.
+    """
+    rows = planes.shape[1]
+    totals, achieved = stuck_schedule_packed(
+        bitslice.pack_rows(planes), chains, p, key, rows=rows, stuck_cols=stuck_cols,
+        include_initial=include_initial,
+    )
+    return totals.sum(), bitslice.unpack_rows(achieved, rows)
+
+
+def expected_saving_fraction(
+    planes: torch.Tensor, order, p: float, *, stuck_cols: int = 1
+) -> torch.Tensor:
+    """Analytic expected fraction of chain transitions avoided by stucking.
+
+    ``(1 - p) * (transitions in the stuck columns) / (all transitions)`` along
+    ``order`` of bool planes[S, rows, cols], in float32 as the reference
+    computes it: ``float32(1 - p)`` times the stuck columns' count, over the
+    count of all columns floored at 1 (counts are exact below 2**24).
+    """
+    seq = bitslice.pack_rows(planes)[order]
+    col = popcount_u8(seq[1:] ^ seq[:-1]).sum(dim=(0, 1), dtype=torch.int64)
+    total = torch.clamp(col.sum().to(torch.float32), min=1.0)
+    saved = torch.tensor(1.0 - p, dtype=torch.float32, device=planes.device)
+    saved = saved * col[:stuck_cols].sum().to(torch.float32)
+    return (saved.to(torch.float64) / total.to(torch.float64)).to(torch.float32)

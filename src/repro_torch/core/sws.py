@@ -77,3 +77,15 @@ def tsp_greedy_order(packed_planes: torch.Tensor, *, start: int = 0) -> torch.Te
         visited[nxt] = True
         current = nxt
     return order
+
+
+def section_norm_order(sections: torch.Tensor, *, descending: bool = False) -> torch.Tensor:
+    """Order *pre-formed* sections[S, rows] by mean |w| (scheduling-only SWS).
+
+    For layouts that cannot be permuted element-wise: sections keep their
+    membership and only the programming order is sorted, stably (ties keep
+    section order, also under ``descending``).  Weaker than full SWS;
+    provided for ablation.
+    """
+    key = sections.abs().mean(dim=-1)
+    return stable_argsort(-key if descending else key)

@@ -12,7 +12,12 @@ the counterpart of the calls the planner makes, under jax's default
 * ``random_bits(key, shape)`` -> ``y0 ^ y1`` of ``threefry(key, (hi, lo))`` of
   each element's flat index;
 * ``uniform`` puts the top 23 bits in the mantissa of ``[1, 2)`` and
-  subtracts 1; ``bernoulli(key, p)`` is ``uniform < p`` in float32.
+  subtracts 1, then scales to ``[minval, maxval)``; ``bernoulli(key, p)`` is
+  ``uniform < p`` in float32;
+* ``normal`` is ``sqrt(2) * erf_inv(uniform(key, shape, nextafter(-1, 0),
+  1))`` with XLA:CPU's float32 ``log1p`` and ``erf_inv`` transcribed step
+  for step, fused multiply-adds included, so the paper figures' weights
+  (``benchmarks_torch.common``) are the reference's bit for bit.
 
 A key is an int64 tensor ``[..., 2]`` holding two uint32 words: torch has no
 full uint32 arithmetic, so every sum is taken in int64 and masked with
@@ -80,10 +85,154 @@ def random_bits(key: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
     return y0 ^ y1
 
 
-def uniform(key: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
-    """float32 uniform on [0, 1), same bits as ``jax.random.uniform``."""
+def _f32(bits: int, device) -> torch.Tensor:
+    """A float32 scalar from its IEEE bit pattern (exact, no decimal rounding)."""
+    signed = bits - (1 << 32) if bits >= 1 << 31 else bits
+    return torch.tensor(signed, dtype=torch.int32, device=device).view(torch.float32)
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as a fused multiply-add rounds it.
+
+    The product of two float32 values is exact in float64.  The float64 sum
+    is made round-to-odd (TwoSum gives its exact error; an inexact sum with
+    an even last bit steps one ulp toward the exact value), and a
+    round-to-odd float64 rounds to the correctly rounded float32.  Every
+    step is a separate IEEE operation, so the result is the same on every
+    device.
+    """
+    p = a.to(torch.float64) * b.to(torch.float64)
+    cd = c.to(torch.float64)
+    s = p + cd
+    bv = s - p
+    err = (p - (s - bv)) + (cd - bv)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, math.inf, -math.inf).to(torch.float64)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
+
+
+def _f64_exact(op, *args: torch.Tensor) -> torch.Tensor:
+    """float32 ``op`` (``torch.div`` or ``torch.sqrt``), correctly rounded.
+
+    torch's float32 ``sqrt`` on the CPU is not correctly rounded.  In
+    float64 the result rounds once more to float32, which for a quotient or
+    a square root gives the correctly rounded float32 (53 >= 2 * 24 + 2).
+    """
+    return op(*(a.to(torch.float64) for a in args)).to(torch.float32)
+
+
+def uniform(
+    key: torch.Tensor, shape: tuple[int, ...], minval: float = 0.0, maxval: float = 1.0
+) -> torch.Tensor:
+    """float32 uniform on [minval, maxval), same bits as ``jax.random.uniform``.
+
+    jax puts the top 23 bits in the mantissa of ``[1, 2)``, subtracts 1,
+    then takes ``max(minval, floats * (maxval - minval) + minval)`` with the
+    bounds and their difference rounded to float32; XLA:CPU fuses the
+    multiply-add.
+    """
+    dev = key.device
+    lo = torch.tensor(minval, dtype=torch.float32, device=dev)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=dev)
     bits = (random_bits(key, shape) >> 9) | 0x3F800000
-    return bits.to(torch.int32).view(torch.float32) - 1.0
+    floats = bits.to(torch.int32).view(torch.float32) - _f32(0x3F800000, dev)
+    if minval == 0.0 and maxval == 1.0:
+        return floats  # floats * 1 + 0 and max(0, .) change no bit
+    return torch.maximum(lo, _fma(floats, hi - lo, lo))
+
+
+# XLA:CPU's float32 ``log1p`` (Eigen's ``plog`` of 1 + x; a rational for
+# small |x|) and ``ErfInv32`` constants, as IEEE bit patterns.
+_LOG_P = (0x3D9021BB, 0xBDEBD1B8, 0x3DEF251A, 0xBDFE5D4F, 0x3E11E9BF, 0xBE2AAE50,
+          0x3E4CCEAC, 0xBE7FFFFC, 0x3EAAAAAA)
+_LOG_Q1, _LOG_Q2 = 0xB95E8083, 0x3F318000
+_LOG1P_NUM = (0x383DE04B, 0x3EFF40C5, 0x40D284FA, 0x41EF4B9C, 0x4273CC76, 0x426473AD,
+              0x41A05101)
+_LOG1P_DEN = (0x3F800000, 0x417101AD, 0x42A6185B, 0x435DC32D, 0x439A8CA3, 0x43586D8A,
+              0x42707982)
+_ERFINV_LT5 = (0x32F16588, 0x34B84B36, 0xB66C7357, 0xB6935AC1, 0x396532DB, 0xBAA45408,
+               0xBB88E4EF, 0x3E7C8F63, 0x3FC02E2F)
+_ERFINV_GE5 = (0xB951F09B, 0x38D3B56B, 0x3AB0DC72, 0xBB70BDE7, 0x3BBC127B, 0xBBF9C5D7,
+               0x3C1AA57E, 0x3F8036DB, 0x40354F7E)
+_INF, _HALF, _ONE = 0x7F800000, 0x3F000000, 0x3F800000
+
+
+def _log1p(x: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's float32 ``log1p``, operation for operation.
+
+    For ``|x| < sqrt(2) - 1`` a rational in ``x``; otherwise ``log(1 + x)``
+    by frexp (mantissa in [0.5, 1)) and the Cephes polynomial, with
+    ``log``'s special values at 0, +inf and below 0.  ``_fma`` stands where
+    XLA:CPU's machine code fuses a multiply into the add that uses it
+    (x86-64 with FMA); every other step is one rounded operation.
+    """
+    dev = x.device
+    c = lambda b: _f32(b, dev)  # noqa: E731
+    one, zero, inf = c(_ONE), c(0), c(_INF)
+    # log(a), a = 1 + x
+    a = x + one
+    tiny = c(0x00800000)
+    bits = torch.where(a > tiny, a, tiny).view(torch.int32)
+    m = ((bits & 0x007FFFFF) | 0x3F000000).view(torch.float32)
+    e = ((bits >> 23) - 127).to(torch.float32) + one
+    small_m = m < c(0x3F3504F3)
+    e = e - torch.where(small_m, one, zero)
+    t = (m - one) + torch.where(small_m, m, zero)
+    t2 = t * t
+    t3 = t2 * t
+    y0 = _fma(t, c(_LOG_P[0]), c(_LOG_P[1]))
+    y1 = _fma(t, c(_LOG_P[3]), c(_LOG_P[4]))
+    y2 = _fma(t, c(_LOG_P[6]), c(_LOG_P[7]))
+    y0 = _fma(t, y0, c(_LOG_P[2]))
+    y1 = _fma(t, y1, c(_LOG_P[5]))
+    y2 = _fma(t, y2, c(_LOG_P[8]))
+    y = _fma(t3, _fma(t3, _fma(t3, y0, y1), y2), e * c(_LOG_Q1))
+    log_a = _fma(e, c(_LOG_Q2), y + _fma(t2, -c(_HALF), t))
+    bad = torch.where(a != zero, torch.where(a != inf, 0, _INF), _INF | 1 << 31)
+    ok = torch.where(~(a > zero), -1, log_a.view(torch.int32))
+    ok = torch.where((a != zero) & (a != inf), ok, 0)
+    log_a = (bad.to(torch.int32) | ok).view(torch.float32)
+    # the rational for small |x|
+    x2 = x * x
+    z = x * zero
+    den = z + c(_LOG1P_DEN[0])
+    for b in _LOG1P_DEN[1:]:
+        den = _fma(x, den, c(b))
+    num = z + c(_LOG1P_NUM[0])
+    for b in _LOG1P_NUM[1:]:
+        num = _fma(x, num, c(b))
+    small = x + _fma(x2, -c(_HALF), (x * x2) * _f64_exact(torch.div, num, den))
+    return torch.where(x.abs() < c(0x3ED413CD), small, log_a)
+
+
+def _erf_inv(u: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``ErfInv32``: a 9-term Horner chain (fused) in
+    ``w - 2.5`` or ``sqrt(w) - 3``, ``w = -log1p(-u * u)``; ``+-inf`` at
+    ``|u| == 1``."""
+    dev = u.device
+    c = lambda b: _f32(b, dev)  # noqa: E731
+    lg = _log1p(u * -u)
+    lt5 = lg > c(0xC0A00000)  # w < 5
+    v = torch.where(lt5, c(0xC0200000) - lg, _f64_exact(torch.sqrt, -lg) + c(0xC0400000))
+    sel = lambda i: torch.where(lt5, c(_ERFINV_LT5[i]), c(_ERFINV_GE5[i]))  # noqa: E731
+    p = sel(0)
+    for i in range(1, 9):
+        p = _fma(v, p, sel(i))
+    p = torch.where(u.abs() == c(_ONE), c(_INF), p)
+    return u * p
+
+
+def normal(key: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
+    """float32 standard normal, same bits as ``jax.random.normal`` on XLA:CPU.
+
+    ``sqrt(2) * erf_inv(uniform(key, shape, nextafter(-1, 0), 1))`` with
+    jax's float32 constants and XLA:CPU's ``log1p`` and ``ErfInv32`` (see
+    :func:`_log1p`).
+    """
+    lo = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
+    u = uniform(key, shape, lo, 1.0)
+    return _erf_inv(u) * _f32(0x3FB504F3, key.device)
 
 
 def bernoulli(key: torch.Tensor, p: float, shape: tuple[int, ...]) -> torch.Tensor:

@@ -359,12 +359,17 @@ def test_serve_cli_codec_validation():
 # ---------------------------------------------------------------------------
 
 def _port_sources():
-    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+            + sorted((ROOT / "benchmarks_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"])
 
 
 def test_port_imports_no_jax_and_no_reference():
+    """No port source (``src/repro_torch``, ``benchmarks_torch``,
+    ``chip_smoke.py``) imports jax, the reference package or the reference's
+    benchmarks."""
     sources = _port_sources()
     assert len(sources) > 20
+    assert ROOT / "benchmarks_torch" / "common.py" in sources
     for path in sources:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
@@ -376,7 +381,8 @@ def test_port_imports_no_jax_and_no_reference():
                 continue
             for mod in mods:
                 top = mod.split(".")[0]
-                assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {mod}"
+                assert top not in ("jax", "jaxlib", "repro", "benchmarks"), (
+                    f"{path}: imports {mod}")
 
 
 def test_serve_entry_point_needs_a_card(monkeypatch):
