@@ -2,16 +2,15 @@
 
   PYTHONPATH=src python -m benchmarks_torch.run [--full] [--device cpu]
 
-Runs Fig. 5, Fig. 6, Fig. 7, Fig. 8, the transition halves of Fig. 9 and
-Fig. 10, and the planner throughput, prints each one's summary as
-``benchmarks/run.py`` does, and writes the JSON artifacts and a summary to
-experiments/bench_torch/.  --full removes the per-tensor element cap.
+Runs Fig. 5, Fig. 6, Fig. 7, Fig. 8, Fig. 9 and Fig. 10 (both halves: the
+accuracy halves deploy the reduced LM trained once per process by
+``trained_lm``), the end-to-end accuracy check and the planner throughput,
+prints each one's summary as ``benchmarks/run.py`` does, and writes the
+JSON artifacts and a summary to experiments/bench_torch/.  --full removes
+the per-tensor element cap.
 
 Left out, with the reason:
 
-* the accuracy halves of Fig. 9 and Fig. 10 and ``accuracy_e2e``: they
-  deploy a trained reduced LM, and the port has no trainer yet (ROADMAP
-  A.3(b));
 * plane codecs, pool wear, serving, engine, fault tolerance, integrity
   scrub, fleet, redeploy delta and the roofline: their benchmarks are not
   ported yet (ROADMAP A.1, A.11-A.15, A.18).
@@ -22,6 +21,7 @@ import argparse
 import time
 
 from benchmarks_torch import (
+    accuracy_e2e,
     fig5_sws_single,
     fig6_strides,
     fig7_greedy,
@@ -77,22 +77,35 @@ def main() -> None:
     save_json("fig8_stucking", r8)
     summary["fig8"] = {m: r["speedup_pct"] for m, r in r8.items()}
 
-    banner("Fig. 9 — p sweep (transitions)")
+    banner("Fig. 9 — p sweep (speedup + accuracy)")
     r9 = fig9_p_sweep.run(max_elems=max_elems, device=dev)
     for m, r in r9["transitions"].items():
         sp = "  ".join(f"p={p}:{v:.2f}x" for p, v in r["speedup_vs_p1"].items())
         print(f"  {m:10s} {sp}")
+    fig9_p_sweep.print_accuracy(r9["accuracy"])
     save_json("fig9_p_sweep", r9)
     summary["fig9"] = {m: r["speedup_vs_p1"] for m, r in r9["transitions"].items()}
+    summary["fig9_accuracy"] = {p: r["accuracy"] for p, r in r9["accuracy"]["per_p"].items()}
 
-    banner("Fig. 10 — column sweep (transitions)")
+    banner("Fig. 10 — column sweep (speedup + accuracy)")
     r10 = fig10_columns.run(max_elems=max_elems, device=dev)
     for m, entry in r10["transitions"].items():
         sp = "  ".join(f"{c}:{v['speedup_p1_over_p']:.2f}x" for c, v in entry.items())
         print(f"  {m:10s} {sp}")
+    fig10_columns.print_accuracy(r10["accuracy"])
     save_json("fig10_columns", r10)
     summary["fig10"] = {m: {c: v["speedup_p1_over_p"] for c, v in e.items()}
                         for m, e in r10["transitions"].items()}
+    summary["fig10_accuracy"] = {c: r["accuracy"] for c, r in r10["accuracy"]["per_cols"].items()}
+
+    banner("Accuracy preservation (train -> deploy -> eval)")
+    re2e = accuracy_e2e.run(device=dev)
+    print(f"  fp {re2e['accuracy_fp']:.4f}  CIM {re2e['accuracy_cim']:.4f} "
+          f"(drop {re2e['accuracy_drop_pct']:+.2f}%)  top1 agreement "
+          f"{re2e['top1_agreement']:.4f}  speedup {re2e['total_speedup']:.2f}x")
+    print(accuracy_e2e.paper_check(re2e)[1])
+    save_json("accuracy_e2e", re2e)
+    summary["accuracy_e2e"] = {k: re2e[k] for k in ("accuracy_drop_pct", "total_speedup")}
 
     banner("Planner throughput — packed planner, card vs CPU")
     rpt = planner_throughput.run(

@@ -6,8 +6,11 @@ and through a persistent ``CrossbarPool`` with plane codecs, then serve it
 from the packed bits and from int8 planes; plan yi-6b and serve it the same
 ways — at each model's full width with the depth cut to 4 layers; then the
 paper's planner figures on its models' published shapes, held to the
-reference's integers — and holds each hand-written kernel against its plain
-PyTorch version on the card.
+reference's integers; train internlm2-1.8b at full width (2 layers) with
+checkpoints, a resume and redeploy pricing; and the accuracy halves of
+Figs. 9/10 and accuracy_e2e on a trained LM, held to the reference's — and
+holds each hand-written kernel against its plain PyTorch version on the
+card.
 Phases (one line each, any failed check exits 1):
 
   1. card + build: name and power limit, the kernels built from csrc/;
@@ -27,7 +30,8 @@ Phases (one line each, any failed check exits 1):
      serve shapes and a 2048-token prefill of each, causal / bidir /
      swa(256), scalar and per-row offsets and valid lengths, f32 (FMA
      kernel) within 2e-5 (abs + rel) and bf16 (tensor-core kernel) within
-     one bf16 ulp more;
+     one bf16 ulp more; and at the reduced configs' head dims 16, 20 and 32
+     (f32, S = 64), where a bf16 call raises;
      B6 (bitslice) == its plain version bit for bit on [4, 4096, 11008]
      weights with planted .5 ties, aligned and at a 4-byte offset, on
      ragged N, and on stacks of more than 65535 rows and layers;
@@ -59,12 +63,29 @@ Phases (one line each, any failed check exits 1):
      integer equal to the reference's and every speedup the same float; B1
      launches > 0, nothing else, no plain-version call; the planner's CPU
      plan identical to the card's; B1 timed at the figures' pair shape;
+  5d. train: launch.train's loop at internlm2-1.8b's full width (2 layers,
+     bf16 on f32 masters, lm task, batch 8 x 128, 8 steps, checkpoints and
+     redeploy pricing every 4): losses finite and falling, the bf16 step-1
+     loss within 1e-2 of the f32 loss of the same params, the redeploy log
+     of the reference's structure for head/w and the MLP stack, B1 > 0, B3
+     0, blockwise_attention once a layer a step and no other plain version;
+     then again from the step-4 checkpoint, bit-identical to the straight
+     run under deterministic algorithms; one step traced;
+  5e. accuracy: the reference's trained-LM setting (reduced internlm2, 120
+     steps, copy task) trained on the card from the reference's key and
+     batches, its losses within 1e-3 of the reference's; fig9's p sweep,
+     fig10's column sweep and accuracy_e2e on the reference's weights
+     (golden npz: every prediction, total and speedup equal, the probes
+     within 1e-5) and on the card-trained weights (accuracies within
+     0.01 / 0.02, speedups within 1%); B3 = 272 on the FMA kernel at head
+     dim 16, B1 > 0, no plain-version call;
   6. kernels: time, bound (the bf16 tensor-core rate for the tensor-core
      paths, the f32 rate for the FMA kernels), plain-version and library
      times; B2, B3 and B5 on both paths; B6 at yi-6b's wi_gate and head.
 
 The line before the last is the kernels' JSON record (B1's launches are
-those of the gemma-2b plan and the figures phase); the last line is
+those of the gemma-2b plan and the figures, train and accuracy phases; B3's
+those of yi-6b's generate and the accuracy phase); the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
 ``python3 chip_smoke.py`` (needs one CUDA card; fails without one).
 
@@ -99,12 +120,27 @@ F32_LOGIT_RTOL = 1e-3  # f32 prefill, packed vs dense: sums of <= 16384 terms re
 BF16_LOGIT_RTOL = 0.02  # bf16 prefill: dense rounds w_hat to bf16, packed keeps it exact
 YI_LAYERS = 4
 B3_WINDOW = 256
+B3_SMALL = {  # (B, Hq, Hkv, D) of the reduced configs, f32; internlm2's is the accuracy phase's
+    "internlm2/yi reduced": (8, 4, 2, 16), "phi3 reduced": (8, 4, 2, 20),
+    "gemma reduced": (8, 4, 1, 32)}
 B3_LONG = 2048  # the long-prefill check and timing length
 B6_CASES = (  # (shape, element offset of w): the vector path, then the element path
     ((4, 4096, 11008), 0), ((4, 4096, 11008), 1), ((7, 333), 0), ((5, 1), 0),
     ((3, 64, 96), 1), ((2, 33000, 16), 0), ((65537, 1, 5), 0),
 )
 B6_TIMED = ((4, 4096, 11008), (4096, 64000))  # yi-6b's stacked wi_gate (4 layers), its head
+# the trainer at internlm2-1.8b's full width, depth cut 24 -> 2 (phase train)
+TRAIN = dict(layers=2, steps=8, batch=8, seq=128, lr=3e-4, remat="none", ckpt_every=4,
+             redeploy_every=4, log_every=1, task="lm", seed=0)
+TRAIN_F32_RTOL = 1e-2  # the bf16 step-1 loss against the f32 loss of the same params and batch
+TRAIN_DISK_BYTES = 24e9  # free space the phase needs: 3 checkpoints of ~6.1 GB at once
+REDEPLOY_KEYS = {"step", "tensor", "transitions_natural", "transitions_sws", "chain_stale_sws",
+                 "chain_fresh_sws", "chain_pool", "stale_sort_speedup", "sws_delta_speedup",
+                 "n_bits", "pool_max_cell_writes", "pool_total_writes"}
+# the accuracy phase on the card-trained weights, against the reference's
+ACC_LOSS_RTOL = 1e-3  # 120 training losses (measured on the CPU: 6e-6)
+ACC_FP_ABS, ACC_SWEEP_ABS, ACC_SPEEDUP_RTOL = 0.01, 0.02, 0.01
+ACC_PROBE_ABS = 1e-5  # top-1 agreement and logit KL on the reference's weights
 
 
 def fail(msg: str) -> None:
@@ -487,6 +523,40 @@ def check_b3(dev):
                         del q, k, v, got, want, err
             say(f"phase B3: {name} layout (B {lay[0]}, Hq {lay[1]}, Hkv {lay[2]}, D {lay[3]}) "
                 f"S={s}: max |d| " + "; ".join(errs))
+    # the reduced configs' head dims on the f32 FMA kernel, at the accuracy
+    # phase's evaluation shape (S = 64); the tensor-core kernel refuses them
+    for name, lay in B3_SMALL.items():
+        errs = []
+        for kind in ("causal", "bidir", "swa"):
+            window = 16 if kind == "swa" else None
+            for per_row in (False, True):
+                q, k, v, kvl, off = attention_inputs(dev, lay, 64, per_row, torch.float32, seed=n)
+                fa_ops.reset_launches()
+                got = fa_ops.flash_attention(q, k, v, kvl, kind=kind, window=window, q_offset=off)
+                path = dict(fa_ops.LAUNCHES)
+                want = fa_ref.flash_attention(q, k, v, kvl, kind=kind, window=window, q_offset=off)
+                torch.cuda.synchronize()
+                err = (got - want).abs()
+                tag = f"{kind} {'per-row' if per_row else 'scalar'} float32"
+                if path != {"B3": 1, "B3_tc": 0}:
+                    fail(f"B3 {name} {tag} took the wrong kernel: {path}")
+                if got.shape != want.shape or not bool((err <= fa_ref.attention_bound(want)).all()):
+                    fail(f"B3 outside its tolerance on {name} D={lay[3]} {tag}: max |d| "
+                         f"{err.max().item():.3e}")
+                errs.append(f"{tag} {err.max().item():.2e}")
+                worst = max(worst, err.max().item())
+                n += 1
+        q = torch.zeros(1, lay[1], 8, lay[3], device=dev, dtype=torch.bfloat16)
+        fa_ops.reset_launches()
+        try:
+            fa_ops.flash_attention(q, q[:, :lay[2]], q[:, :lay[2]])
+            fail(f"B3 took a bf16 call at head dim {lay[3]}")
+        except ValueError:
+            pass
+        if fa_ops.LAUNCHES["B3"]:
+            fail(f"B3 launched on a refused bf16 call at head dim {lay[3]}")
+        say(f"phase B3: {name} layout (B {lay[0]}, Hq {lay[1]}, Hkv {lay[2]}, D {lay[3]}) S=64 on "
+            f"the FMA kernel: max |d| " + "; ".join(errs) + "; a bf16 call at this D raises")
     torch.cuda.empty_cache()
     return worst, n
 
@@ -582,6 +652,7 @@ def yi_phases(dev) -> dict:
     counts."""
     import torch
 
+    from repro_torch import prng, tree
     from repro_torch.configs import get_arch
     from repro_torch.core import planner, simulator
     from repro_torch.launch import serve
@@ -593,7 +664,12 @@ def yi_phases(dev) -> dict:
         f"head_dim={cfg.resolved_head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab_size} act={cfg.act} "
         f"rope_theta={cfg.rope_theta:g} untied head; depth cut {full.n_layers} -> {YI_LAYERS} "
         f"layers (the only cut), p_stuck={P_STUCK}")
-    params = api.init(cfg, seed=0, device=dev)
+    t_init = time.perf_counter()
+    params = api.init(prng.PRNGKey(0), cfg, device=dev)
+    torch.cuda.synchronize()
+    n_init = sum(w.numel() for w in tree.leaves(params))
+    say(f"phase init: yi-6b x4 layers {n_init / 1e6:.1f}M params from the reference's key in "
+        f"{time.perf_counter() - t_init:.2f} s")
     spec, pcfg = planner.CrossbarSpec(), planner.PlannerConfig(p_stuck=P_STUCK)
     reset_counts()
     torch.cuda.synchronize()
@@ -849,12 +925,265 @@ def figures_breakdown(dev) -> None:
         f"{trace(lambda: fig7_greedy.run(['vit-base'], device=dev))}")
 
 
+def train_phase(dev) -> dict:
+    """The trainer at internlm2-1.8b's full width (depth 2): ``launch.train``'s
+    loop for 8 steps with checkpoints and redeploy pricing every 4, then
+    again from the step-4 checkpoint.  Deterministic algorithms are on for
+    the phase, and the resumed run's losses and final params must equal the
+    straight run's bit for bit.  Returns the B1 launches and the numbers
+    PERF.md records."""
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import prng, tree
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import api, attention
+
+    root = Path(tempfile.mkdtemp(prefix="repro_train_ckpt_"))
+    free = shutil.disk_usage(root).free
+    say(f"phase train: checkpoints under {root}, {free / 1e9:.1f} GB free")
+    if free < TRAIN_DISK_BYTES:
+        shutil.rmtree(root, ignore_errors=True)
+        fail(f"phase train needs {TRAIN_DISK_BYTES / 1e9:.0f} GB free for its checkpoints, "
+             f"{free / 1e9:.1f} GB there")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        t0 = time.perf_counter()
+        loop = train_cli.build_loop("internlm2-1.8b", ckpt_dir=str(root), device=dev, **TRAIN)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        cfg = loop.cfg
+        n_params = sum(p.numel() for p in tree.leaves(loop.params))
+        say(f"phase train: internlm2-1.8b d_model={cfg.d_model} heads={cfg.n_heads} "
+            f"kv={cfg.n_kv_heads} head_dim={cfg.resolved_head_dim} d_ff={cfg.d_ff} "
+            f"vocab={cfg.vocab_size} {cfg.dtype} compute on f32 masters; depth cut 24 -> "
+            f"{cfg.n_layers} (the only cut); {n_params / 1e6:.1f}M params; init {init_s:.2f} s; "
+            f"{TRAIN['task']} task, batch {TRAIN['batch']}, seq {TRAIN['seq']}, lr {TRAIN['lr']}, "
+            f"{TRAIN['steps']} steps, remat {TRAIN['remat']}")
+        # the redeploy pricing timed, its peak memory apart from training's
+        priced = []  # (step, seconds, peak bytes) of each pricing
+        peaks: list[int] = []  # training's peak before each pricing
+        price = loop._price_redeploy
+
+        def timed_price(step):
+            torch.cuda.synchronize()
+            peaks.append(torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            price(step)
+            torch.cuda.synchronize()
+            priced.append((step, time.perf_counter() - t1, torch.cuda.max_memory_allocated()))
+            torch.cuda.reset_peak_memory_stats()
+
+        loop._price_redeploy = timed_price
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = loop.run()
+        wall = time.perf_counter() - t0
+        c = counts()
+        peak_train = max(peaks + [torch.cuda.max_memory_allocated()])
+        peak = max([peak_train] + [p for _, _, p in priced])
+        log = res["metrics_log"]
+        for r in log:
+            say(f"  step {r['step']}: loss {r['loss']:.6f} grad_norm {r['grad_norm']:.4f} "
+                f"lr {r['lr']:.3e} wall_s {r['wall_s']:.4f}")
+        losses = [r["loss"] for r in log]
+        tokens = TRAIN["batch"] * TRAIN["seq"]
+        later = [r["wall_s"] for r in log[1:]]
+        tps = tokens * len(later) / sum(later)
+        ck = loop.ckpt.timings
+        say(f"phase train: {len(log)} steps in {wall:.2f} s (checkpoints and pricing included); "
+            f"{tps:.1f} tokens/s after step 1 (step wall {sum(later) / len(later):.4f} s), "
+            f"step 1 {log[0]['wall_s']:.3f} s; peak CUDA memory {peak / 1e9:.2f} GB (training "
+            f"{peak_train / 1e9:.2f} GB, redeploy pricing {priced[-1][2] / 1e9:.2f} GB); redeploy "
+            f"pricing " + ", ".join(f"step {st} {sec:.2f} s" for st, sec, _ in priced) + "; "
+            f"checkpoints: " + "; ".join(
+                f"step {t['step']} {t['bytes'] / 1e9:.2f} GB host copy {t['host_copy_s']:.2f} s "
+                f"write {t.get('write_s', float('nan')):.2f} s" for t in ck))
+        want_blockwise = cfg.n_layers * TRAIN["steps"]
+        if not all(map(math.isfinite, losses)) or len(losses) != TRAIN["steps"]:
+            fail(f"train losses {losses}")
+        if not losses[-1] < losses[0]:
+            fail(f"the step-{TRAIN['steps']} loss {losses[-1]} is not below step 1's {losses[0]}")
+        other_plain = c["plain"] - attention.blockwise_attention.calls
+        if (c["B1"] <= 0 or c["B3"] or other_plain
+                or attention.blockwise_attention.calls != want_blockwise
+                or any(c[k] for k in c if k not in ("B1", "plain"))):
+            fail(f"train launched {c}, blockwise_attention {attention.blockwise_attention.calls} "
+                 f"times (want B1 > 0, B3 0, blockwise_attention {want_blockwise}, no other "
+                 f"kernel or plain-version call)")
+        rlog = res["redeploy_log"]
+        if [(r["step"], r["tensor"]) for r in rlog] != [(8, "head/w"),
+                                                         (8, "segments/0/mlp/wi_gate")]:
+            fail(f"redeploy log {[(r['step'], r['tensor']) for r in rlog]}")
+        for r in rlog:
+            if set(r) != REDEPLOY_KEYS or not 0 < r["transitions_sws"] <= r["n_bits"]:
+                fail(f"redeploy record {r}")
+            say(f"  redeploy step {r['step']} {r['tensor']}: in place {r['transitions_natural']} "
+                f"(sws {r['transitions_sws']}) of {r['n_bits']} bits; chains stale "
+                f"{r['chain_stale_sws']} fresh {r['chain_fresh_sws']} pool {r['chain_pool']} "
+                f"(stale-sort streaming {r['stale_sort_speedup']:.4f}x); pool max cell "
+                f"{r['pool_max_cell_writes']} writes, total {r['pool_total_writes']}")
+        say(f"phase train: B1 launches {c['B1']}, B3 0, blockwise_attention (the training "
+            f"attention, not a fallback) {want_blockwise}, no other plain-version call")
+
+        # the bf16 step-1 loss against the f32 loss of the initial params
+        params0 = api.init(prng.PRNGKey(TRAIN["seed"]), cfg, device=dev)
+        batch0 = loop.dataset.batch_at(0)
+        with torch.no_grad():
+            l32 = float(steps_mod.loss_fn(params0, dataclasses.replace(cfg, dtype="float32"),
+                                          batch0)[0])
+        d32 = abs(losses[0] - l32) / l32
+        say(f"phase train: step-1 loss {losses[0]:.6f} (bf16) vs {l32:.6f} (f32, same params "
+            f"and batch): rel {d32:.2e} (bound {TRAIN_F32_RTOL:g})")
+        if d32 > TRAIN_F32_RTOL:
+            fail("the bf16 step-1 loss is outside its bound of the f32 loss")
+
+        # one traced step at full width (from the params after step 8)
+        batch8 = loop.dataset.batch_at(TRAIN["steps"])
+        say(f"phase trace: full-width train step: "
+            f"{trace(lambda: loop.train_step(loop.params, loop.opt_state, batch8), top=8)}")
+        del params0
+
+        # again from the step-4 checkpoint
+        shutil.rmtree(root / f"step_{TRAIN['steps']:08d}")
+        params8 = loop.params
+        del loop
+        torch.cuda.empty_cache()
+        loop2 = train_cli.build_loop("internlm2-1.8b", ckpt_dir=str(root), device=dev, **TRAIN)
+        if loop2.start_step != TRAIN["ckpt_every"]:
+            fail(f"the resumed run starts at step {loop2.start_step}, not {TRAIN['ckpt_every']}")
+        log2 = loop2.run()["metrics_log"]
+        got, want = [r["loss"] for r in log2], losses[TRAIN["ckpt_every"]:]
+        same = got == want and all(torch.equal(a, b) for a, b in
+                                   zip(tree.leaves(loop2.params), tree.leaves(params8)))
+        say(f"phase train-resume: from step {loop2.start_step}: steps "
+            f"{[r['step'] for r in log2]} losses {['%.6f' % x for x in got]}; losses and final "
+            f"params bit-identical to the straight run's (deterministic algorithms): {same}")
+        if [r["step"] for r in log2] != list(range(TRAIN["ckpt_every"] + 1, TRAIN["steps"] + 1)) \
+                or not same:
+            fail("the resumed run does not replay the straight run bit for bit")
+        del loop2, params8
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return {"B1": c["B1"], "tokens_per_s": tps, "peak_gb": peak / 1e9,
+            "step_s": sum(later) / len(later)}
+
+
+def accuracy_phase(dev) -> dict:
+    """The reference's trained-LM setting on the card: train reduced internlm2
+    (120 steps, copy task, remat full) from the reference's key and batches,
+    then fig9's p sweep, fig10's column sweep and accuracy_e2e, each on the
+    reference's weights (golden npz; held to the reference exactly) and on
+    the card-trained weights (within stated tolerances)."""
+    import torch
+
+    from benchmarks_torch import accuracy_e2e, fig9_p_sweep, fig10_columns, trained_lm
+    from repro_torch.models import attention
+
+    gold = json.loads((ROOT / "benchmarks_torch" / "golden" / "reference.json").read_text())
+    gold = gold["accuracy"]
+    reset_counts()
+    t0 = time.perf_counter()
+    losses = trained_lm.train_losses(device=dev)
+    train_s = time.perf_counter() - t0
+    c_train = counts()
+    blockwise_train = attention.blockwise_attention.calls
+    rel = max(abs(a - b) / b for a, b in zip(losses, gold["train_losses"]))
+    say(f"phase accuracy: reduced internlm2 trained on the card in {train_s:.2f} s "
+        f"({trained_lm.STEPS} steps): loss " + " ".join(
+            f"{i + 1}:{losses[i]:.4f}" for i in (0, 9, 29, 59, 89, 119))
+        + f"; max rel to the reference's {rel:.2e} (bound {ACC_LOSS_RTOL:g})")
+    if rel > ACC_LOSS_RTOL:
+        fail("the card's 120 training losses are outside their bound of the reference's")
+    # remat "full": each step's forward and its recompute run blockwise_attention per layer
+    want_bw = 2 * 2 * trained_lm.STEPS
+    if c_train["B3"] or blockwise_train != want_bw or c_train["plain"] != want_bw:
+        fail(f"training launched {c_train}, blockwise_attention {blockwise_train} (want B3 0, "
+             f"blockwise_attention {want_bw}, no other plain-version call)")
+
+    lms = {"reference weights": trained_lm.reference_lm(device=dev),
+           "card-trained": trained_lm.get_trained_lm(device=dev)}
+    reset_counts()
+    t0 = time.perf_counter()
+    out = {}
+    for label, lm in lms.items():
+        recs = {"fig9": {}, "fig10": {}, "e2e": {}}
+        res = {"fig9": fig9_p_sweep.accuracy_sweep(device=dev, lm=lm, record=recs["fig9"]),
+               "fig10": fig10_columns.accuracy_sweep(device=dev, lm=lm, record=recs["fig10"]),
+               "e2e": accuracy_e2e.run(device=dev, lm=lm, record=recs["e2e"])}
+        out[label] = res
+        e2e, ge = res["e2e"], gold["e2e"]
+        if label == "reference weights":
+            for fig in ("fig9", "fig10", "e2e"):
+                diffs = trained_lm.golden_differences(recs[fig], gold[f"{fig}_evals"])
+                if diffs:
+                    fail(f"{fig} on the reference's weights: " + "; ".join(diffs[:5]))
+            for fig in ("fig9", "fig10"):
+                d = first_difference(json.loads(json.dumps(res[fig])), gold[fig])
+                if d:
+                    fail(f"{fig} accuracy sweep on the reference's weights differs at {d}")
+            for k in ("top1_agreement", "logit_kl"):
+                if abs(e2e[k] - ge[k]) > ACC_PROBE_ABS:
+                    fail(f"e2e {k} {e2e[k]} vs the reference's {ge[k]}")
+            rest = {k: v for k, v in e2e.items() if k not in ("top1_agreement", "logit_kl")}
+            d = first_difference(json.loads(json.dumps(rest)),
+                                 {k: v for k, v in ge.items() if k in rest})
+            if d:
+                fail(f"accuracy_e2e on the reference's weights differs at {d}")
+        else:
+            r9, g9 = res["fig9"], gold["fig9"]
+            bad = abs(r9["fp_accuracy"] - g9["fp_accuracy"]) > ACC_FP_ABS
+            for p, r in r9["per_p"].items():
+                w = g9["per_p"][p]
+                bad |= abs(r["accuracy"] - w["accuracy"]) > ACC_SWEEP_ABS
+                bad |= abs(r["total_speedup"] / w["total_speedup"] - 1) > ACC_SPEEDUP_RTOL
+            for cols, r in res["fig10"]["per_cols"].items():
+                bad |= abs(r["accuracy"] - gold["fig10"]["per_cols"][cols]["accuracy"]) > \
+                    ACC_SWEEP_ABS
+            bad |= abs(e2e["accuracy_cim"] - ge["accuracy_cim"]) > ACC_SWEEP_ABS
+            bad |= abs(e2e["total_speedup"] / ge["total_speedup"] - 1) > ACC_SPEEDUP_RTOL
+            if bad:
+                fail(f"the card-trained sweeps are outside their bounds of the reference's: {res}")
+        say(f"phase accuracy ({label}): fp {res['fig9']['fp_accuracy']:.6f}; fig9 " + "  ".join(
+            f"p={p}: acc {r['accuracy']:.6f} speedup {r['total_speedup']:.6f}x"
+            for p, r in res["fig9"]["per_p"].items()))
+        say(f"phase accuracy ({label}): fig10 " + "  ".join(
+            f"cols={c}: {r['accuracy']:.6f}" for c, r in res["fig10"]["per_cols"].items()))
+        say(f"phase accuracy ({label}): e2e p=0.5 128x10: fp {e2e['accuracy_fp']:.6f} cim "
+            f"{e2e['accuracy_cim']:.6f} (drop {e2e['accuracy_drop_pct']:+.4f}%), top1 agreement "
+            f"{e2e['top1_agreement']:.6f}, logit KL {e2e['logit_kl']:.4e}, sws "
+            f"{e2e['sws_speedup']:.6f}x total {e2e['total_speedup']:.6f}x")
+        say(f"phase accuracy ({label}):" + accuracy_e2e.paper_check(e2e)[1])
+    sweep_s = time.perf_counter() - t0
+    c = counts()
+    # B3 per eval_accuracy: 4 batches x 2 layers; per weight set 6 (fig9) + 8 (fig10) + 2
+    # (e2e) evaluations, and e2e's probes 4 forwards of 2 layers
+    want_b3 = len(lms) * ((6 + 8 + 2) * 4 * 2 + 4 * 2)
+    if c["B3"] != want_b3 or c["B3_tc"] or c["B1"] <= 0 or c["plain"] or any(
+            c[k] for k in c if k not in ("B1", "B3", "B3_tc", "plain")):
+        fail(f"the accuracy sweeps launched {c} (want B3 {want_b3} on the FMA kernel, B1 > 0, "
+             f"nothing else, no plain-version call)")
+    say(f"phase accuracy: sweeps on both weight sets in {sweep_s:.2f} s; B3 launches {c['B3']} "
+        f"(predicted {want_b3}), B1 {c['B1']}, plain-version calls 0; the reference's weights "
+        f"give the reference's predictions, totals and speedups exactly")
+    return {"B1": c["B1"], "B3": c["B3"]}
+
+
 def main() -> None:
     import torch
 
     if not torch.cuda.is_available():
         fail("no CUDA device: the smoke run needs one card")
     try:
+        from repro_torch import prng, tree
         from repro_torch.configs import get_arch
         from repro_torch.core import bitslice, planes, planner, pool, simulator
         from repro_torch.kernels import _util
@@ -1035,7 +1364,12 @@ def main() -> None:
     say(f"phase plan: gemma-2b d_model={cfg.d_model} heads={cfg.n_heads} kv={cfg.n_kv_heads} "
         f"head_dim={cfg.head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab_size}; depth cut "
         f"{full.n_layers} -> {LAYERS} layers (the only cut), p_stuck={P_STUCK}")
-    params = api.init(cfg, seed=0, device=dev)
+    t_init = time.perf_counter()
+    params = api.init(prng.PRNGKey(0), cfg, device=dev)
+    torch.cuda.synchronize()
+    n_init = sum(w.numel() for w in tree.leaves(params))
+    say(f"phase init: gemma-2b x4 layers {n_init / 1e6:.1f}M params from the reference's key in "
+        f"{time.perf_counter() - t_init:.2f} s")
     spec, pcfg = planner.CrossbarSpec(), planner.PlannerConfig(p_stuck=P_STUCK)
     reset_counts()
     torch.cuda.synchronize()
@@ -1188,7 +1522,12 @@ def main() -> None:
 
     # col_perm_rle at full width, 1 layer (the host greedy bounds the depth)
     cfg1 = dataclasses.replace(full, n_layers=COLPERM_LAYERS)
-    params1 = api.init(cfg1, seed=0, device=dev)
+    t_init = time.perf_counter()
+    params1 = api.init(prng.PRNGKey(0), cfg1, device=dev)
+    torch.cuda.synchronize()
+    n_init = sum(w.numel() for w in tree.leaves(params1))
+    say(f"phase init: gemma-2b x1 layer {n_init / 1e6:.1f}M params from the reference's key in "
+        f"{time.perf_counter() - t_init:.2f} s")
     pcfg_cp = planner.PlannerConfig(p_stuck=P_STUCK, codec="col_perm_rle")
     w_ff = dict(planner.iter_weights(params1, pcfg_cp))["segments/0/mlp/wi_gate"]
     prep = planner._prep(w_ff, spec, pcfg_cp)
@@ -1232,6 +1571,12 @@ def main() -> None:
 
     # --- 5c. the paper's planner figures, held to the reference ----------------
     figs = figures_phase(dev)
+
+    # --- 5d. the trainer at internlm2-1.8b's full width ------------------------
+    trained = train_phase(dev)
+
+    # --- 5e. the accuracy halves of Figs. 9/10 and accuracy_e2e ----------------
+    acc = accuracy_phase(dev)
 
     # --- 6. kernels: time, bound, plain, library -------------------------------
     t = 1 << 20
@@ -1365,7 +1710,8 @@ def main() -> None:
 
     kernels = [
         row("hamming_pairs", "src/repro_torch/csrc/hamming.cu",
-            "src/repro/kernels/hamming/kernel.py:32", b1_plan + figs["B1"], b1_err,
+            "src/repro/kernels/hamming/kernel.py:32",
+            b1_plan + figs["B1"] + trained["B1"] + acc["B1"], b1_err,
             dict(ms=b1_ms, plain_ms=b1_plain, bound_ms=b1_bound, bound_by="bytes",
                  library_ms=None)),
         row("cim_matmul_packed", "src/repro_torch/csrc/cim_matmul.cu",
@@ -1378,7 +1724,7 @@ def main() -> None:
             "src/repro/kernels/cim_matmul/kernel.py:74", b5_launches, b5_err,
             records["B5 decode"], b5_tc),
         row("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-            "src/repro/kernels/flash_attention/kernel.py:109", yi["B3"], b3_err, rec_b3,
+            "src/repro/kernels/flash_attention/kernel.py:109", yi["B3"] + acc["B3"], b3_err, rec_b3,
             yi["B3_tc"]),
         row("bitslice", "src/repro_torch/csrc/bitslice.cu",
             "src/repro/kernels/bitslice/kernel.py:35", yi["B6"], 0.0, rec_b6),
@@ -1407,6 +1753,7 @@ def ab_time(root: Path) -> None:
 
     if not torch.cuda.is_available():
         fail("no CUDA device")
+    from repro_torch import prng
     from repro_torch.configs import get_arch
     from repro_torch.core import bitslice, planner
     from repro_torch.kernels import _util
@@ -1444,7 +1791,7 @@ def ab_time(root: Path) -> None:
         del w
         torch.cuda.empty_cache()
     cfg = dataclasses.replace(get_arch("yi-6b"), n_layers=YI_LAYERS)
-    params = api.init(cfg, seed=0, device=dev)
+    params = api.init(prng.PRNGKey(0), cfg, device=dev)
     plan = planner.build_deployment(params, planner.CrossbarSpec(),
                                     planner.PlannerConfig(p_stuck=P_STUCK), device=dev)
     walls = []

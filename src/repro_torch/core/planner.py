@@ -34,13 +34,13 @@ from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Any, Callable, Iterator
+from typing import Any, Callable
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch import prng
+from repro_torch import prng, tree
 from repro_torch.core import bitslice, planes, schedule, sws
 from repro_torch.core.pool import CrossbarPool
 from repro_torch.kernels._util import resolve_device
@@ -70,6 +70,9 @@ class PlannerConfig:
     exclude: tuple[str, ...] = ("embed", "embedding", "lm_head", "pos_emb")
     seed: int = 0
     impl: str = "packed"  # "bool" (the reference's eager oracle) is not ported
+    # chain -> crossbar leveling when streaming through a CrossbarPool:
+    # "none" | "rotate" | "lpt" | "fault"; None defers to the pool's own setting
+    pool_leveling: str | None = None
     # stored-plane codec (core/planes.py): "raw" | "const_rle" | "col_perm" |
     # "col_perm_rle"; non-raw codecs change the physical bits (and priced
     # transitions), while the deployed w_hat decodes back byte-identically
@@ -186,6 +189,25 @@ class _Prep:
     inv_perm: torch.Tensor
 
 
+def _perm_full_with_inverse(
+    flat_padded: torch.Tensor, spec: CrossbarSpec, config: PlannerConfig, q_padded: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Slot -> source permutation of the padded vector (SWS order by |w|,
+    padding sorting with the zeros; then the TSP section walk if asked),
+    and its inverse; the identity without SWS."""
+    rows, cols = spec.rows, spec.cols
+    if not config.sws:
+        ar = torch.arange(flat_padded.shape[0], device=flat_padded.device)
+        return ar, ar
+    perm, inv_perm = sws.stable_argsort(flat_padded.abs(), with_inverse=True)
+    if config.section_order == "tsp":
+        order = sws.tsp_greedy_order(bitslice.section_planes_packed(q_padded[perm], rows, cols))
+        slot = order[:, None] * rows + torch.arange(rows, device=order.device)
+        perm = perm[slot.reshape(-1)]
+        inv_perm = sws.inverse_permutation(perm)
+    return perm, inv_perm
+
+
 def _prep(w: torch.Tensor, spec: CrossbarSpec, config: PlannerConfig) -> _Prep:
     """Quantize, price the unsorted baseline, sort (SWS) and pack."""
     rows, cols = spec.rows, spec.cols
@@ -207,16 +229,7 @@ def _prep(w: torch.Tensor, spec: CrossbarSpec, config: PlannerConfig) -> _Prep:
         include_initial=config.include_initial,
     )
 
-    # SWS order (|w| of the padded vector: padding sorts with the zeros)
-    if config.sws:
-        perm, inv_perm = sws.stable_argsort(flat_padded.abs(), with_inverse=True)
-        if config.section_order == "tsp":
-            order = sws.tsp_greedy_order(bitslice.section_planes_packed(q_padded[perm], rows, cols))
-            slot = order[:, None] * rows + torch.arange(rows, device=order.device)
-            perm = perm[slot.reshape(-1)]
-            inv_perm = sws.inverse_permutation(perm)
-    else:
-        perm = inv_perm = torch.arange(n + pad, device=flat.device)
+    perm, inv_perm = _perm_full_with_inverse(flat_padded, spec, config, q_padded)
     return _Prep(
         flat=flat,
         chains=chains,
@@ -305,6 +318,7 @@ def analyze_tensor(
         p_stuck=config.p_stuck,
         key=key,
         stuck_cols=config.stuck_cols,
+        leveling=config.pool_leveling,
         impl=config.impl,
         name=name,
     )
@@ -322,34 +336,13 @@ def analyze_tensor(
     return report, w_hat
 
 
-def _walk_leaves(tree: Any, prefix: tuple = ()) -> Iterator[tuple[str, Any]]:
-    """(path name, leaf) in the reference's pytree order: dict keys sorted,
-    lists in order; names join the path with '/' (e.g. segments/0/mlp/wo)."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _walk_leaves(tree[k], prefix + (str(k),))
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from _walk_leaves(v, prefix + (str(i),))
-    elif tree is not None:
-        yield "/".join(prefix), tree
-
-
-def _map_leaves(tree: Any, fn: Callable[[str, Any], Any], prefix: tuple = ()) -> Any:
-    """Rebuild ``tree`` with ``fn(name, leaf)`` at every leaf."""
-    if isinstance(tree, dict):
-        return {k: _map_leaves(v, fn, prefix + (str(k),)) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_leaves(v, fn, prefix + (str(i),)) for i, v in enumerate(tree))
-    return fn("/".join(prefix), tree)
-
-
 def iter_weights(params: Any, config: PlannerConfig):
     """Yield (name, tensor) for every crossbar-eligible weight in a params tree."""
     pat = (
         re.compile("|".join(re.escape(p) for p in config.exclude)) if config.exclude else None
     )
-    for name, leaf in _walk_leaves(params):
+    for path, leaf in tree.leaves_with_path(params):
+        name = tree.path_name(path)
         if not isinstance(leaf, torch.Tensor):
             continue
         if leaf.ndim < config.min_ndim or leaf.numel() < config.min_size:
@@ -458,4 +451,4 @@ def deploy_params(
             materialize=materialize, codec=codec,
         )
 
-    return _map_leaves(params, swap)
+    return tree.map_with_path(lambda path, leaf: swap(tree.path_name(path), leaf), params)

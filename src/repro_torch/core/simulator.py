@@ -20,6 +20,10 @@ matching kernel on CUDA tensors (B5 for int8 planes, B4 for flagged packed
 planes, B2 otherwise) and its plain version on CPU tensors
 (``kernels.cim_matmul.ops``), then adds the rank-1 offset term.
 Numerically every route equals ``x @ w_hat``.
+
+The fidelity probes ``output_mse``, ``logit_kl`` and ``top1_agreement``
+compare a model's outputs under two parameter sets (fp and deployed), as
+the reference's do.
 """
 from __future__ import annotations
 
@@ -158,3 +162,27 @@ def cim_linear(x: torch.Tensor, operands: dict[str, torch.Tensor]) -> torch.Tens
             tile_nz=operands.get("plane_tile_nz"), plane_ids=operands.get("plane_ids"),
         )
     return y + torch.sum(x, dim=-1, keepdim=True, dtype=torch.float32) * operands["offset"]
+
+
+# ---------------------------------------------------------------------------
+# Fidelity probes
+# ---------------------------------------------------------------------------
+
+def output_mse(f, params_a, params_b, batch) -> torch.Tensor:
+    """Mean squared error between model outputs under two parameter sets."""
+    ya, yb = f(params_a, batch), f(params_b, batch)
+    return torch.mean((ya - yb) ** 2)
+
+
+def logit_kl(f, params_a, params_b, batch) -> torch.Tensor:
+    """KL(softmax(f_a) || softmax(f_b)) averaged over positions."""
+    la, lb = f(params_a, batch), f(params_b, batch)
+    pa = torch.log_softmax(la, dim=-1)
+    pb = torch.log_softmax(lb, dim=-1)
+    return torch.mean(torch.sum(torch.exp(pa) * (pa - pb), dim=-1))
+
+
+def top1_agreement(f, params_a, params_b, batch) -> torch.Tensor:
+    """Fraction of positions where argmax predictions agree (accuracy proxy)."""
+    la, lb = f(params_a, batch), f(params_b, batch)
+    return torch.mean((torch.argmax(la, -1) == torch.argmax(lb, -1)).to(torch.float32))

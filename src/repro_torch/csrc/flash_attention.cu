@@ -27,7 +27,8 @@
 // the kernel opts in to dynamic shared memory).  Each warp owns 8 q rows:
 // for the scores a lane owns BK/32 keys (K rows padded to D + 1 floats, so
 // the lanes' rows fall in distinct banks); for the output a lane owns D/32
-// columns, accumulated in registers with f32 FMA.  Bound on this card:
+// columns (ceil(D/32): at D = 16 or 20 one, with the lanes past D idle),
+// accumulated in registers with f32 FMA.  Bound on this card:
 // operations at every shape the model path runs (4 * D FLOPs per visible
 // (q, k) pair against 67 TFLOP/s f32 for the f32 kernel, 989 TFLOP/s bf16
 // for the tensor-core kernel).  The f32 kernel keeps f32 FMA (the port runs
@@ -96,7 +97,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        int sk, int sk_valid, int kind, int window, float scale) {
   constexpr int KS = D + 1;      // padded K row stride (bank-conflict free)
   constexpr int KPL = BK / 32;   // keys per lane
-  constexpr int DPL = D / 32;    // output columns per lane
+  constexpr int DPL = (D + 31) / 32;  // output columns per lane (the last partial)
   extern __shared__ float smem[];
   float* qs = smem;              // [kBQ][D], q * D^-0.5
   float* ks = qs + kBQ * D;      // [BK][KS]
@@ -196,7 +197,8 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < BK; ++c) {
       float vv[DPL];
 #pragma unroll
-      for (int j = 0; j < DPL; ++j) vv[j] = vs[c * D + lane + 32 * j];
+      for (int j = 0; j < DPL; ++j)  // columns past D (D % 32 != 0) are never stored
+        vv[j] = (D % 32 == 0 || lane + 32 * j < D) ? vs[c * D + lane + 32 * j] : 0.f;
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         const float p = ps[(warp * kRows + r) * BK + c];
@@ -211,7 +213,8 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float lr = fmaxf(l[r], 1e-30f);
     float* o = out + q_base + (size_t)(warp * kRows + r) * D;
 #pragma unroll
-    for (int j = 0; j < DPL; ++j) o[lane + 32 * j] = acc[r][j] / lr;
+    for (int j = 0; j < DPL; ++j)
+      if (D % 32 == 0 || lane + 32 * j < D) o[lane + 32 * j] = acc[r][j] / lr;
   }
 }
 
@@ -250,7 +253,11 @@ cudaError_t launch_d(int d, const void* q, const void* k, const void* v,
   case DD:                                                                             \
     return launch<DD>(q, k, v, q_offsets, kv_valid_len, q_offset0, kv_valid_len0,  \
                          out, b, hq, hkv, sq, sk, sk_valid, kind, window, scale, stream);
-  switch (d) {  // the dense decoders' head dims: yi/internlm2/phi3, gemma
+  switch (d) {  // the dense decoders' head dims: yi/internlm2/phi3, gemma; and the
+                // reduced configs' (internlm2 and yi 16, phi3 20, gemma 32)
+    FA_CASE(16)
+    FA_CASE(20)
+    FA_CASE(32)
     FA_CASE(128)
     FA_CASE(256)
     default:

@@ -10,6 +10,12 @@ masks the padded keys).  A Python int ``q_offset`` / ``kv_valid_len`` goes
 to the kernel as a scalar argument; a tensor (scalar or (B,)) as per-row
 int32 on the card.  ``LAUNCHES["B3"]`` counts every launch,
 ``LAUNCHES["B3_tc"]`` those of the tensor-core kernel.
+
+B3 is forward only (the reference's Pallas kernel has no VJP either): the
+wrapper raises, on either device, while autograd records and q, k or v
+requires grad, rather than return a result without a ``grad_fn``.  The f32 FMA kernel
+takes the head dims of ``HEAD_DIMS`` (the reduced configs' 16, 20 and 32
+among them); the tensor-core kernel only ``TC_HEAD_DIMS``.
 """
 from __future__ import annotations
 
@@ -31,7 +37,8 @@ from repro_torch.kernels._util import (
 from repro_torch.kernels.flash_attention import ref as fa_ref
 
 KINDS = {"causal": 0, "bidir": 1, "swa": 2}
-HEAD_DIMS = (128, 256)  # the head dims the kernel is built for
+HEAD_DIMS = (16, 20, 32, 128, 256)  # the head dims the f32 FMA kernel is built for
+TC_HEAD_DIMS = (128, 256)  # the head dims of the bf16 tensor-core kernel
 BQ = 32  # q rows per block of the f32 kernel (kBQ in the source)
 TMA_ALIGN = 16  # bytes: TMA's base-address alignment
 
@@ -109,13 +116,17 @@ def flash_attention(
                          f"do not match (v's head dim must equal q's)")
     if hkv == 0 or hq % hkv:
         raise ValueError(f"query heads {hq} not a multiple of kv heads {hkv}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("B3 has no backward: differentiate blockwise_attention "
+                           "(attention(..., train=True)) instead")
     if not use_kernel(q):
         return fa_ref.flash_attention(q, k, v, kv_valid_len, kind=kind, window=window,
                                       q_offset=q_offset)
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    dims = TC_HEAD_DIMS if q.dtype == torch.bfloat16 else HEAD_DIMS
+    if d not in dims:
+        raise ValueError(f"head dim {d} not in {dims} for {q.dtype}")
     launch, tile_k, _ = _lib()
     tensor_cores = q.dtype == torch.bfloat16
     if tensor_cores:

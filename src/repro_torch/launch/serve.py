@@ -31,6 +31,7 @@ import time
 
 import torch
 
+from repro_torch import prng
 from repro_torch.configs import get_arch
 from repro_torch.core.planes import CODECS
 from repro_torch.core.planner import (
@@ -152,7 +153,7 @@ def main(argv: list[str] | None = None) -> None:
     cfg = get_arch(args.arch, reduced=args.reduced)
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
-    params = api.init(cfg, seed=args.seed, device=dev)
+    params = api.init(prng.PRNGKey(args.seed), cfg, device=dev)
     batch = api.make_batch(cfg, args.batch, args.prompt_len, seed=args.seed, device=dev)
 
     tokens, tps = generate(cfg, params, batch, gen_len=args.gen)

@@ -1,4 +1,13 @@
-"""Serving step functions (port of the serving part of ``repro.launch.steps``).
+"""Step functions (port of ``repro.launch.steps``): the train step and serving.
+
+``loss_fn`` / ``make_train_step`` are the reference's: next-token cross
+entropy on f32 logits, gradients of every param leaf (``torch.autograd``
+in place of ``jax.value_and_grad``), then ``optim.adamw_update``.  The
+training forward passes ``train=True`` down to the attention, which then
+runs ``blockwise_attention`` (the function the reference differentiates)
+on every device, never kernel B3, and ``remat`` to the per-layer
+checkpointing of ``models.transformer``.  The step is functional: new params
+and optimizer state come back, the inputs are untouched.
 
 ``prepare_serving_params`` is the counterpart of the reference's backend
 policy (``steps._serving_params``): on CUDA, operand dicts stay as they are
@@ -14,10 +23,49 @@ a Python loop whose steps write the cache in place.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch import tree
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import simulator
 from repro_torch.models import api
+from repro_torch.models.transformer import REMATS
+from repro_torch.optim import AdamWConfig, adamw_update
+
+
+def loss_fn(params, cfg: ArchConfig, batch: dict, remat: str = "none",
+            train: bool = True) -> tuple[torch.Tensor, dict]:
+    """Mean next-token NLL (+ the model's aux loss, 0 for the dense decoders).
+
+    ``train=True`` selects the differentiable attention; an evaluation
+    without gradients may pass ``train=False`` to run B3 on the card.
+    """
+    logits, aux = api.forward(params, cfg, batch, remat=remat, train=train)
+    targets = batch["tokens"][:, 1:].long()
+    lp = F.log_softmax(logits[:, :-1].to(torch.float32), dim=-1)
+    nll = -torch.gather(lp, -1, targets[..., None])[..., 0]
+    loss = torch.mean(nll)
+    return loss + aux, {"nll": loss, "aux": aux}
+
+
+def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *, remat: str = "full"):
+    """Returns train_step(params, opt_state, batch) -> (params, opt_state, metrics);
+    metrics are 0-d tensors (loss, nll, aux, lr, grad_norm)."""
+    if remat not in REMATS:
+        raise ValueError(f"unknown remat policy {remat!r}")
+
+    def train_step(params, opt_state, batch):
+        p = tree.tree_map(lambda x: x.detach().requires_grad_(True), params)
+        with torch.enable_grad():
+            loss, parts = loss_fn(p, cfg, batch, remat=remat, train=True)
+            grads = torch.autograd.grad(loss, tree.leaves(p))
+        grads = tree.unflatten(p, list(grads))
+        new_params, new_state, opt_metrics = adamw_update(grads, opt_state, params, opt_cfg)
+        metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in parts.items()},
+                   **opt_metrics}
+        return new_params, new_state, metrics
+
+    return train_step
 
 
 def _params_device(params) -> torch.device:

@@ -5,7 +5,9 @@ reference's dispatcher: on CUDA tensors it runs kernel B3
 (``kernels/flash_attention``, the port of the Pallas flash-attention kernel
 that implements this contract for the TPU); on CPU tensors it runs
 ``blockwise_attention``, the reference's default attention, in plain
-PyTorch.  ``decode_attention`` stays plain PyTorch on every device, as the
+PyTorch.  The training forward asks for ``train=True``, which runs
+``blockwise_attention`` on every device: it is the function the reference
+differentiates, and B3 has no backward (it raises under autograd).  ``decode_attention`` stays plain PyTorch on every device, as the
 reference's decode does.
 
 Mask kinds: "causal", "bidir", "swa" (sliding window, causal); masked
@@ -34,10 +36,12 @@ def attention(
     window: Optional[int] = None,
     q_offset: Union[int, torch.Tensor] = 0,
     block_k: int = 1024,
+    train: bool = False,
 ) -> torch.Tensor:
     """Attention entry point used by the blocks: kernel B3 on CUDA tensors,
-    ``blockwise_attention`` on CPU tensors (same contract)."""
-    if use_kernel(q):
+    ``blockwise_attention`` on CPU tensors (same contract) and wherever
+    ``train`` asks for the differentiable path."""
+    if use_kernel(q) and not train:
         return fa_ops.flash_attention(q, k, v, kind=kind, window=window, q_offset=q_offset)
     return blockwise_attention(q, k, v, kind=kind, window=window, q_offset=q_offset,
                                block_k=block_k)

@@ -11,29 +11,35 @@ from typing import Any
 
 import torch
 
+from repro_torch import prng
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers
 from repro_torch.models.attention import attention, decode_attention
 from repro_torch.models.layers import Params
 
 
-def init_attention(gen, cfg: ArchConfig, device, lead: tuple[int, ...] = ()) -> Params:
+def init_attention(key: torch.Tensor, cfg: ArchConfig) -> Params:
     hd = cfg.resolved_head_dim
     d = cfg.d_model
+    k1, k2, k3, k4 = prng.split(key, 4).unbind(-2)
     return {
-        "wq": layers._dense_init(gen, lead + (d, cfg.n_heads * hd), device),
-        "wk": layers._dense_init(gen, lead + (d, cfg.n_kv_heads * hd), device),
-        "wv": layers._dense_init(gen, lead + (d, cfg.n_kv_heads * hd), device),
-        "wo": layers._dense_init(gen, lead + (cfg.n_heads * hd, d), device),
+        "wq": layers._dense_init(k1, d, cfg.n_heads * hd),
+        "wk": layers._dense_init(k2, d, cfg.n_kv_heads * hd),
+        "wv": layers._dense_init(k3, d, cfg.n_kv_heads * hd),
+        "wo": layers._dense_init(k4, cfg.n_heads * hd, d),
     }
 
 
-def init_attn_block(gen, cfg: ArchConfig, device, lead: tuple[int, ...] = ()) -> Params:
+def init_attn_block(key: torch.Tensor, cfg: ArchConfig) -> Params:
+    """One block's params from ``key``; keys ``[L, 2]`` give the segment's
+    ``[L, ...]`` stack, as the reference's vmap over per-layer keys does."""
+    k1, k2 = prng.split(key).unbind(-2)
+    lead = tuple(key.shape[:-1])
     return {
-        "ln1": layers.init_norm(cfg.d_model, device, lead),
-        "attn": init_attention(gen, cfg, device, lead),
-        "ln2": layers.init_norm(cfg.d_model, device, lead),
-        "mlp": layers.init_glu_mlp(gen, cfg.d_model, cfg.d_ff, device, lead),
+        "ln1": layers.init_norm(cfg.d_model, key.device, lead),
+        "attn": init_attention(k1, cfg),
+        "ln2": layers.init_norm(cfg.d_model, key.device, lead),
+        "mlp": layers.init_glu_mlp(k2, cfg.d_model, cfg.d_ff),
     }
 
 
@@ -55,12 +61,14 @@ def attention_fwd(
     x: torch.Tensor,
     *,
     return_cache: bool = False,
+    train: bool = False,
 ):
     """Causal self-attention over the whole of ``x`` (positions from 0):
-    kernel B3 on the card, ``blockwise_attention`` on the CPU."""
+    kernel B3 on the card, ``blockwise_attention`` on the CPU and, with
+    ``train=True``, on every device (the differentiable path)."""
     b, s, _ = x.shape
     q, k, v = _qkv(p, cfg, x, torch.arange(s, device=x.device))
-    out = attention(q, k, v, kind="causal")
+    out = attention(q, k, v, kind="causal", train=train)
     out = out.transpose(1, 2).reshape(b, s, -1)
     y = layers.linear(p["wo"], out, x.dtype)
     return y, ({"k": k, "v": v} if return_cache else None)
@@ -96,8 +104,10 @@ def attn_block_fwd(
     x: torch.Tensor,
     *,
     return_cache: bool = False,
+    train: bool = False,
 ):
-    a, cache = attention_fwd(p["attn"], cfg, layers.rmsnorm(p["ln1"], x), return_cache=return_cache)
+    a, cache = attention_fwd(p["attn"], cfg, layers.rmsnorm(p["ln1"], x),
+                             return_cache=return_cache, train=train)
     x = x + a
     x = x + layers.glu_mlp(p["mlp"], layers.rmsnorm(p["ln2"], x), cfg.act, x.dtype)
     return x, cache

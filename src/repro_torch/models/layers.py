@@ -7,20 +7,27 @@ address the same tensors in both packages.
 """
 from __future__ import annotations
 
-import math
 from typing import Any
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import prng
+
 Params = dict[str, Any]
 
 
-def _dense_init(gen: torch.Generator, shape: tuple[int, ...], device, scale: float = 1.0) -> torch.Tensor:
-    """Truncated-normal fan-in init ([-3, 3] sigma), fan-in = shape[-2]."""
-    w = torch.empty(shape, dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(w, mean=0.0, std=1.0, a=-3.0, b=3.0, generator=gen)
-    return w * (scale / math.sqrt(shape[-2]))
+def _f32(value: float, device) -> torch.Tensor:
+    return torch.tensor(value, dtype=torch.float32, device=device)
+
+
+def _dense_init(key: torch.Tensor, in_dim: int, out_dim: int, scale: float = 1.0) -> torch.Tensor:
+    """Truncated-normal fan-in init ([-3, 3] sigma) from ``key`` (keys
+    ``[..., 2]`` give a ``[..., in, out]`` stack), the reference's draw bit
+    for bit: the std is a Python float rounded to float32 once."""
+    std = scale / (in_dim**0.5)
+    w = prng.truncated_normal(key, -3.0, 3.0, (in_dim, out_dim))
+    return w * _f32(std, key.device)
 
 
 def _cim_apply(w: dict, x: torch.Tensor) -> torch.Tensor:
@@ -57,6 +64,7 @@ def linear(w, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def init_norm(dim: int, device, lead: tuple[int, ...] = ()) -> Params:
+    """Unit gains (``lead`` stacks them per layer)."""
     return {"g": torch.ones(lead + (dim,), dtype=torch.float32, device=device)}
 
 
@@ -91,11 +99,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 # Gated MLP
 # ---------------------------------------------------------------------------
 
-def init_glu_mlp(gen, d_model: int, d_ff: int, device, lead: tuple[int, ...] = ()) -> Params:
+def init_glu_mlp(key: torch.Tensor, d_model: int, d_ff: int) -> Params:
+    k1, k2, k3 = prng.split(key, 3).unbind(-2)
     return {
-        "wi_gate": _dense_init(gen, lead + (d_model, d_ff), device),
-        "wi_up": _dense_init(gen, lead + (d_model, d_ff), device),
-        "wo": _dense_init(gen, lead + (d_ff, d_model), device),
+        "wi_gate": _dense_init(k1, d_model, d_ff),
+        "wi_up": _dense_init(k2, d_model, d_ff),
+        "wo": _dense_init(k3, d_ff, d_model),
     }
 
 
@@ -115,9 +124,8 @@ def glu_mlp(p: Params, x: torch.Tensor, act: str, dtype: torch.dtype) -> torch.T
 # Embedding / unembedding
 # ---------------------------------------------------------------------------
 
-def init_embedding(gen, vocab: int, d_model: int, device) -> Params:
-    t = torch.randn((vocab, d_model), dtype=torch.float32, device=device, generator=gen)
-    return {"table": t * 0.02}
+def init_embedding(key: torch.Tensor, vocab: int, d_model: int) -> Params:
+    return {"table": prng.normal(key, (vocab, d_model)) * _f32(0.02, key.device)}
 
 
 def embed(p: Params, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

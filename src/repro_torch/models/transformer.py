@@ -7,18 +7,25 @@ its slice — dense tensors and packed operand dicts alike.  The port has
 the ``attn`` kind only (the dense decoders).
 
 Interface:
-  init(cfg, seed=, device=)                        -> params (device: cuda default)
-  forward(params, cfg, batch)                      -> (logits, aux)
+  init(key, cfg, device=)                          -> params (device: cuda default)
+  forward(params, cfg, batch, remat=, train=)      -> (logits, aux)
   prefill(params, cfg, batch)                      -> (logits, cache)
   decode_step(params, cfg, cache, token, pos)      -> (logits, cache)
   init_cache(cfg, batch, seq_len, dtype=, device=) -> cache
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
+from repro_torch import prng
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels._util import resolve_device
 from repro_torch.models import blocks, layers
@@ -53,18 +60,21 @@ def layer_slice(tree: Any, i: int) -> Any:
     return tree[i]
 
 
-def init(cfg: ArchConfig, *, seed: int = 0, device=None) -> Params:
-    """Random params from ``seed`` (f32 masters, the reference's layout), on
-    CUDA unless ``device="cpu"`` is asked for."""
-    device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    params: Params = {"embed": layers.init_embedding(gen, cfg.vocab_size, cfg.d_model, device)}
+def init(key: torch.Tensor, cfg: ArchConfig, *, device=None) -> Params:
+    """f32 master params from a ``prng`` key, the reference's ``init(key,
+    cfg)`` bit for bit (same key splits and draws), on CUDA unless
+    ``device="cpu"`` is asked for."""
+    key = key.to(resolve_device(device))
+    segs = segments_of(cfg)
+    keys = prng.split(key, len(segs) + 3)
+    params: Params = {"embed": layers.init_embedding(keys[0], cfg.vocab_size, cfg.d_model)}
     params["segments"] = [
-        blocks.init_attn_block(gen, cfg, device, lead=(count,)) for _, count in segments_of(cfg)
+        blocks.init_attn_block(prng.split(keys[i + 1], count), cfg)
+        for i, (_, count) in enumerate(segs)
     ]
-    params["final_norm"] = layers.init_norm(cfg.d_model, device)
+    params["final_norm"] = layers.init_norm(cfg.d_model, key.device)
     if not cfg.tie_embeddings:
-        params["head"] = {"w": layers._dense_init(gen, (cfg.d_model, cfg.vocab_size), device)}
+        params["head"] = {"w": layers._dense_init(keys[-1], cfg.d_model, cfg.vocab_size)}
     return params
 
 
@@ -83,22 +93,61 @@ def _logits(params: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     return layers.linear(params["head"]["w"], x.to(torch.float32), torch.float32)
 
 
-def _run_segments(params: Params, cfg: ArchConfig, x: torch.Tensor, *, return_cache: bool):
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Selective checkpointing of ``remat="dots"``: keep the matmuls with no
+    batch dims (the weight products, ``aten.mm``), recompute the rest — the
+    reference's ``dots_with_no_batch_dims_saveable``."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+REMATS = ("none", "full", "dots")
+
+
+def _remat_layer(fn, remat: str):
+    """Per-layer rematerialization (the reference's ``jax.checkpoint`` of the
+    scan body): "full" saves only the layer's inputs, "dots" also its weight
+    matmuls' outputs."""
+    if remat == "none":
+        return fn
+    kw = {"use_reentrant": False}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+    return lambda *args: checkpoint(fn, *args, **kw)
+
+
+def _run_segments(params: Params, cfg: ArchConfig, x: torch.Tensor, *, return_cache: bool,
+                  remat: str = "none", train: bool = False):
     caches = []
     for (_, count), p_stack in zip(segments_of(cfg), params["segments"]):
         layer_caches = []
+
+        def layer(p_layer, xc):
+            return blocks.attn_block_fwd(p_layer, cfg, xc, return_cache=return_cache, train=train)
+
+        layer = _remat_layer(layer, remat)
         for i in range(count):
-            x, cache = blocks.attn_block_fwd(layer_slice(p_stack, i), cfg, x, return_cache=return_cache)
+            x, cache = layer(layer_slice(p_stack, i), x)
             layer_caches.append(cache)
         if return_cache:
             caches.append({k: torch.stack([c[k] for c in layer_caches]) for k in ("k", "v")})
     return x, caches if return_cache else None
 
 
-def forward(params: Params, cfg: ArchConfig, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-    """batch: {"tokens": (B, S) int}.  Returns (logits (B, S, V) f32, aux 0)."""
+def forward(params: Params, cfg: ArchConfig, batch: dict, *, remat: str = "none",
+            train: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """batch: {"tokens": (B, S) int}.  Returns (logits (B, S, V) f32, aux 0).
+
+    ``train=True`` is the differentiable forward of ``launch.steps.loss_fn``:
+    its attention is ``blockwise_attention`` on every device (the function
+    the reference differentiates; B3 has no backward).  ``remat`` is the
+    per-layer rematerialization policy ("none" | "full" | "dots").
+    """
+    if remat not in REMATS:
+        raise ValueError(f"unknown remat policy {remat!r}")
     x = _embed_inputs(params, cfg, batch["tokens"])
-    x, _ = _run_segments(params, cfg, x, return_cache=False)
+    x, _ = _run_segments(params, cfg, x, return_cache=False, remat=remat, train=train)
     return _logits(params, cfg, x), torch.zeros((), device=x.device)
 
 

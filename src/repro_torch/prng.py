@@ -17,7 +17,19 @@ the counterpart of the calls the planner makes, under jax's default
 * ``normal`` is ``sqrt(2) * erf_inv(uniform(key, shape, nextafter(-1, 0),
   1))`` with XLA:CPU's float32 ``log1p`` and ``erf_inv`` transcribed step
   for step, fused multiply-adds included, so the paper figures' weights
-  (``benchmarks_torch.common``) are the reference's bit for bit.
+  (``benchmarks_torch.common``) are the reference's bit for bit;
+* ``truncated_normal(key, lo, hi)`` is ``sqrt(2) * erf_inv(uniform(key,
+  minval=erf(lo / sqrt2), maxval=erf(hi / sqrt2)))`` clipped to the open
+  interval, with XLA's float32 ``erf`` (a clamped rational, fused), so
+  ``models.transformer.init`` draws the reference's initial weights;
+* ``fold_in(key, data)`` is ``threefry(key, (0, data))``; ``randint`` draws
+  two 32-bit words per element (keys ``split(key)``) and reduces them with
+  the ``2**16 % span`` multiplier identity in uint32, as jax does; the data
+  pipeline (``data.pipeline``) keys its batches with both.
+
+Draws of more than ``CHUNK`` elements are hashed and transformed one chunk
+of flat indices at a time, so a 500M-weight embedding never needs more than
+a few chunk-sized int64 and float64 temporaries.
 
 A key is an int64 tensor ``[..., 2]`` holding two uint32 words: torch has no
 full uint32 arithmetic, so every sum is taken in int64 and masked with
@@ -61,16 +73,43 @@ def threefry2x32(
     return x0, x1
 
 
+CHUNK = 1 << 24  # flat elements hashed and transformed per pass (see _draw)
+
+
+def _hash_range(key: torch.Tensor, start: int, stop: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """threefry(key, flat index as (hi, lo)) for the flat indices [start,
+    stop); keys ``[..., 2]`` broadcast over them -> two ``[..., stop - start]``
+    word tensors."""
+    idx = torch.arange(start, stop, dtype=torch.int64, device=key.device)
+    lead = key.shape[:-1] + (1,)
+    return threefry2x32(key[..., 0].reshape(lead), key[..., 1].reshape(lead), idx >> 32, idx & _M)
+
+
 def _hash_iota(key: torch.Tensor, shape: tuple[int, ...]) -> tuple[torch.Tensor, torch.Tensor]:
-    """threefry(key, flat index as (hi, lo)) for every element of ``shape``;
-    keys ``[..., 2]`` broadcast over it -> two ``[..., *shape]`` word tensors."""
-    n = math.prod(shape)
-    idx = torch.arange(n, dtype=torch.int64, device=key.device).reshape(shape)
+    """threefry(key, flat index) for every element of ``shape`` -> two
+    ``[..., *shape]`` word tensors."""
+    y0, y1 = _hash_range(key, 0, math.prod(shape))
+    out = key.shape[:-1] + tuple(shape)
+    return y0.reshape(out), y1.reshape(out)
+
+
+def _draw(key: torch.Tensor, shape: tuple[int, ...], transform, dtype=torch.float32) -> torch.Tensor:
+    """``transform(bits)`` of the 32 random bits of every element of
+    ``shape`` (keys ``[..., 2]`` broadcast), one chunk of at most ``CHUNK``
+    elements (over all keys) at a time; ``transform`` is elementwise."""
+    shape = tuple(shape)
     lead = key.shape[:-1]
-    expand = lead + (1,) * len(shape)
-    k0 = key[..., 0].reshape(expand)
-    k1 = key[..., 1].reshape(expand)
-    return threefry2x32(k0, k1, idx >> 32, idx & _M)
+    n = math.prod(shape)
+    step = max(1, CHUNK // max(math.prod(lead), 1))
+    if n <= step:
+        y0, y1 = _hash_range(key, 0, n)
+        return transform(y0 ^ y1).reshape(lead + shape)
+    out = torch.empty(lead + (n,), dtype=dtype, device=key.device)
+    for lo in range(0, n, step):
+        hi = min(n, lo + step)
+        y0, y1 = _hash_range(key, lo, hi)
+        out[..., lo:hi] = transform(y0 ^ y1)
+    return out.reshape(lead + shape)
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
@@ -79,10 +118,37 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([y0, y1], dim=-1)
 
 
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """``jax.random.fold_in``: keys ``[..., 2]`` -> ``[..., 2]``, the hash
+    of the count pair ``(0, data)`` (``data`` taken as uint32)."""
+    zero = torch.zeros((), dtype=torch.int64, device=key.device)
+    y0, y1 = threefry2x32(key[..., 0], key[..., 1], zero, zero + (int(data) & _M))
+    return torch.stack([y0, y1], dim=-1)
+
+
 def random_bits(key: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
     """32 random bits per element (uint32 values in int64): ``[..., *shape]``."""
-    y0, y1 = _hash_iota(key, tuple(shape))
-    return y0 ^ y1
+    return _draw(key, shape, lambda bits: bits, dtype=torch.int64)
+
+
+def randint(key: torch.Tensor, shape: tuple[int, ...], minval: int, maxval: int) -> torch.Tensor:
+    """int32 integers in [minval, maxval), same values as
+    ``jax.random.randint(key, shape, minval, maxval, jnp.int32)``.
+
+    Two words per element (``split(key)``: the high from the first key, the
+    low from the second), reduced mod ``span`` with ``(hi % span) * (2**32
+    % span) + lo % span``, where ``2**32 % span`` is ``(2**16 % span)**2 %
+    span``; every product and sum wraps at 32 bits, as jax's uint32 does.
+    """
+    if not (-(1 << 31) <= minval and maxval <= (1 << 31) - 1):
+        raise ValueError(f"randint bounds [{minval}, {maxval}) outside int32")
+    k1, k2 = split(key).unbind(-2)
+    higher, lower = random_bits(k1, shape), random_bits(k2, shape)
+    span = (maxval - minval) & _M if maxval > minval else 1
+    mult = (1 << 16) % span
+    mult = ((mult * mult) & _M) % span
+    offset = ((((higher % span) * mult) & _M) + lower % span) & _M
+    return (minval + offset % span).to(torch.int32)
 
 
 def _f32(bits: int, device) -> torch.Tensor:
@@ -122,6 +188,16 @@ def _f64_exact(op, *args: torch.Tensor) -> torch.Tensor:
     return op(*(a.to(torch.float64) for a in args)).to(torch.float32)
 
 
+def _uniform_from_bits(bits: torch.Tensor, minval: float, maxval: float) -> torch.Tensor:
+    dev = bits.device
+    floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - _f32(0x3F800000, dev)
+    if minval == 0.0 and maxval == 1.0:
+        return floats  # floats * 1 + 0 and max(0, .) change no bit
+    lo = torch.tensor(minval, dtype=torch.float32, device=dev)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=dev)
+    return torch.maximum(lo, _fma(floats, hi - lo, lo))
+
+
 def uniform(
     key: torch.Tensor, shape: tuple[int, ...], minval: float = 0.0, maxval: float = 1.0
 ) -> torch.Tensor:
@@ -132,14 +208,7 @@ def uniform(
     bounds and their difference rounded to float32; XLA:CPU fuses the
     multiply-add.
     """
-    dev = key.device
-    lo = torch.tensor(minval, dtype=torch.float32, device=dev)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=dev)
-    bits = (random_bits(key, shape) >> 9) | 0x3F800000
-    floats = bits.to(torch.int32).view(torch.float32) - _f32(0x3F800000, dev)
-    if minval == 0.0 and maxval == 1.0:
-        return floats  # floats * 1 + 0 and max(0, .) change no bit
-    return torch.maximum(lo, _fma(floats, hi - lo, lo))
+    return _draw(key, shape, lambda bits: _uniform_from_bits(bits, minval, maxval))
 
 
 # XLA:CPU's float32 ``log1p`` (Eigen's ``plog`` of 1 + x; a rational for
@@ -223,6 +292,34 @@ def _erf_inv(u: torch.Tensor) -> torch.Tensor:
     return u * p
 
 
+# XLA's float32 ``erf`` (``EmitErfF32``): x clamped to +-3.7439211627767994,
+# then x * alpha(x^2) / beta(x^2), each polynomial a fused Horner chain
+_ERF_CLAMP = 3.7439211627767994
+_ERF_ALPHA = (0.00022905065861350646, 0.0034082910107109506, 0.050955695062380861,
+              0.18520832239976145, 1.128379143519084)
+_ERF_BETA = (-1.1791602954361697e-7, 0.000023547966471313185, 0.0010179625278914885,
+             0.014070470171167667, 0.11098505178285362, 0.49746925110067538, 1.0)
+
+
+def erf(x: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's float32 ``erf``, operation for operation (fused Horner
+    steps, a correctly rounded division)."""
+    c = lambda v: torch.tensor(v, dtype=torch.float32, device=x.device)  # noqa: E731
+    xc = torch.clamp(x, -c(_ERF_CLAMP), c(_ERF_CLAMP))
+    x2 = xc * xc
+
+    def poly(coeffs):
+        p = c(coeffs[0]).expand_as(x2)
+        for k in coeffs[1:]:
+            p = _fma(p, x2, c(k))
+        return p
+
+    return _f64_exact(torch.div, xc * poly(_ERF_ALPHA), poly(_ERF_BETA))
+
+
+_SQRT2 = 0x3FB504F3  # float32(sqrt(2))
+
+
 def normal(key: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
     """float32 standard normal, same bits as ``jax.random.normal`` on XLA:CPU.
 
@@ -231,10 +328,36 @@ def normal(key: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
     :func:`_log1p`).
     """
     lo = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
-    u = uniform(key, shape, lo, 1.0)
-    return _erf_inv(u) * _f32(0x3FB504F3, key.device)
+    sqrt2 = _f32(_SQRT2, key.device)
+    return _draw(key, shape, lambda bits: _erf_inv(_uniform_from_bits(bits, lo, 1.0)) * sqrt2)
+
+
+def truncated_normal(
+    key: torch.Tensor, lower: float, upper: float, shape: tuple[int, ...]
+) -> torch.Tensor:
+    """float32 normal truncated to (lower, upper), same bits as
+    ``jax.random.truncated_normal(key, lower, upper, shape)`` on XLA:CPU.
+
+    ``sqrt2 * erf_inv(uniform(key, minval=erf(lower / sqrt2), maxval=
+    erf(upper / sqrt2)))``, clipped to ``[nextafter(lower, +inf),
+    nextafter(upper, -inf)]``; every bound in float32.
+    """
+    dev = key.device
+    sqrt2 = _f32(_SQRT2, dev)
+    lo_hi = torch.tensor([lower, upper], dtype=torch.float32, device=dev)
+    a, b = (float(v) for v in erf(_f64_exact(torch.div, lo_hi, sqrt2)).cpu())
+    inf = torch.tensor([math.inf, -math.inf], dtype=torch.float32, device=dev)
+    clip_lo, clip_hi = torch.nextafter(lo_hi, inf).unbind()
+
+    def transform(bits):
+        out = _erf_inv(_uniform_from_bits(bits, a, b)) * sqrt2
+        return torch.clamp(out, clip_lo, clip_hi)
+
+    return _draw(key, shape, transform)
 
 
 def bernoulli(key: torch.Tensor, p: float, shape: tuple[int, ...]) -> torch.Tensor:
     """bool ``[..., *shape]``: ``uniform < p`` with ``p`` cast to float32."""
-    return uniform(key, shape) < torch.tensor(p, dtype=torch.float32, device=key.device)
+    pf = torch.tensor(p, dtype=torch.float32, device=key.device)
+    return _draw(key, shape, lambda bits: _uniform_from_bits(bits, 0.0, 1.0) < pf,
+                 dtype=torch.bool)

@@ -283,10 +283,25 @@ def test_figure_matches_reference(name):
     assert json.dumps(port_fn(), sort_keys=True) == json.dumps(ref_fn(), sort_keys=True)
 
 
-def test_fig9_fig10_run_returns_transitions_only():
+def test_fig9_fig10_run_returns_transitions_only(monkeypatch):
+    """``run`` returns both halves, as the reference's: the transitions of
+    the two models and the accuracy sweep of the trained LM (here the
+    reference's trained weights, which give the reference's accuracies)."""
+    import json
+    from pathlib import Path
+
+    from benchmarks_torch import trained_lm
+
+    gold = json.loads((Path(__file__).resolve().parents[1] / "benchmarks_torch" / "golden"
+                       / "reference.json").read_text())["accuracy"]
+    for mod in (fig9, fig10):
+        monkeypatch.setattr(mod, "get_trained_lm",
+                            lambda seed=0, device=None: trained_lm.reference_lm(seed, device))
     res = fig9.run(max_elems=64, device="cpu")
-    assert set(res) == {"transitions"} and set(res["transitions"]) == {"vit-base", "resnet50"}
-    assert "accuracy_sweep" not in vars(fig9) and "accuracy_sweep" not in vars(fig10)
+    assert set(res) == {"transitions", "accuracy"}
+    assert set(res["transitions"]) == {"vit-base", "resnet50"}
+    assert res["accuracy"] == gold["fig9"]
+    assert fig10.accuracy_sweep(device="cpu") == gold["fig10"]
 
 
 def test_planner_throughput_matches_reference_packed_plan():

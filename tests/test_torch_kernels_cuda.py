@@ -1,5 +1,6 @@
 """Kernels B2/B4 (bit-packed matmul), B3 (flash attention), B5 (int8-plane
-matmul) and B6 (bitslice) against their plain versions on the card.
+matmul) and B6 (bitslice) against their plain versions on the card
+(B3's f32 kernel also at the reduced configs' head dims 16, 20 and 32).
 
 Every test here is marked ``cuda`` and skips without a CUDA device (the
 kernels have no CPU mode).  The file imports neither JAX nor the reference
@@ -77,6 +78,48 @@ def test_flash_attention_kernel_matches_plain(cuda_device, b, hq, hkv, sq, sk, d
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == want.shape
     assert bool(((got.float() - want.float()).abs() <= attention_bound(want)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d", [
+    (8, 4, 2, 64, 64, 16),  # the trained LM's evaluation forward (reduced internlm2)
+    (2, 4, 1, 37, 50, 16), (2, 4, 2, 40, 100, 20), (2, 8, 1, 33, 70, 32), (1, 4, 4, 16, 200, 20),
+])
+@pytest.mark.parametrize("kind", ["causal", "bidir", "swa"])
+@pytest.mark.parametrize("per_row", [False, True])
+def test_flash_attention_kernel_small_head_dims(cuda_device, b, hq, hkv, sq, sk, d, kind,
+                                                per_row):
+    """The f32 FMA kernel at the reduced configs' head dims (one output
+    column a lane, the lanes past D idle)."""
+    g = torch.Generator(device=cuda_device).manual_seed(b + hq + sq + sk + d)
+    q = torch.randn(b, hq, sq, d, device=cuda_device, generator=g)
+    k = torch.randn(b, hkv, sk, d, device=cuda_device, generator=g)
+    v = torch.randn(b, hkv, sk, d, device=cuda_device, generator=g)
+    if per_row:
+        kvl = torch.randint(max(sq, 1), sk + 1, (b,), device=cuda_device, generator=g)
+        off = torch.clamp(kvl - sq, min=0)
+    else:
+        kvl, off = None, max(0, sk - sq)
+    window = 16 if kind == "swa" else None
+    fa_ops.reset_launches()
+    got = fa_ops.flash_attention(q, k, v, kvl, kind=kind, window=window, q_offset=off)
+    assert fa_ops.LAUNCHES == {"B3": 1, "B3_tc": 0}
+    want = fa_ref.flash_attention(q, k, v, kvl, kind=kind, window=window, q_offset=off)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert bool(((got - want).abs() <= attention_bound(want)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 20, 32, 64])
+def test_flash_attention_bf16_small_head_dim_raises(cuda_device, d):
+    """The tensor-core kernel takes only D = 128 and 256; a bf16 call at
+    another D raises and launches nothing."""
+    q = torch.randn(1, 2, 8, d, device=cuda_device).to(torch.bfloat16)
+    fa_ops.reset_launches()
+    with pytest.raises(ValueError, match="head dim"):
+        fa_ops.flash_attention(q, q[:, :1], q[:, :1])
+    assert fa_ops.LAUNCHES["B3"] == 0
 
 
 @pytest.mark.cuda

@@ -31,6 +31,7 @@ from repro.kernels.cim_matmul import ref as jcim
 from repro.launch import serve as jserve
 from repro.models import api as japi
 from repro.models import layers as jlayers
+from repro_torch import prng
 from repro_torch.configs import get_arch
 from repro_torch.convert import from_numpy_tree
 from repro_torch.core import bitslice, planes, planner, pool, simulator
@@ -397,7 +398,7 @@ def test_model_entry_points_need_a_card(monkeypatch, entry):
     and converted params ask for the card, and raise when there is none."""
     cfg = get_arch("gemma-2b", reduced=True)
     calls = {
-        "init": lambda **kw: api.init(cfg, **kw),
+        "init": lambda **kw: api.init(prng.PRNGKey(0), cfg, **kw),
         "make_batch": lambda **kw: api.make_batch(cfg, 2, 8, **kw),
         "init_cache": lambda **kw: api.init_cache(cfg, 2, 8, **kw),
         "from_numpy_tree": lambda **kw: from_numpy_tree({"w": np.zeros((2, 3), np.float32)}, **kw),

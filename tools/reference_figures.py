@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Write the JAX reference's planner-figure integers for the port to match.
+"""Write the JAX reference's figure and accuracy results for the port to match.
 
 Runs the reference's own ``run`` functions (``benchmarks/fig5_sws_single.py``
 through ``fig8_stucking.py``, the ``transitions_sweep`` halves of
@@ -10,13 +10,24 @@ version to ``benchmarks_torch/golden/reference.json``.  The planner entry
 also holds every tensor's report integers and a sha256 of each deployed
 ``w_hat``'s float32 bytes.
 
+The ``accuracy`` entry is the reference's trained reduced LM
+(``benchmarks/trained_lm.py``): its 120 training losses, the
+``accuracy_sweep`` halves of fig9 and fig10 and ``accuracy_e2e.run()``,
+and for every evaluation the predictions at each held-out position (hex,
+one byte each), the positions whose top-2 logit gap is below
+``NEAR_TIE`` and every plan's totals; the trained weights go to
+``benchmarks_torch/golden/trained_lm_seed<seed>.npz`` ('/'-joined leaf
+names).  ``--parts accuracy`` recomputes that entry alone and keeps the
+rest of the file.
+
 This tool imports ``jax``, ``repro`` and ``benchmarks`` on purpose: it is
 not part of the port.  The port and ``chip_smoke.py`` only read the file.
 It takes the record's layout (the planner's report fields, the sweep cap)
 from ``benchmarks_torch``, which reads it.
 
   PYTHONPATH=src JAX_PLATFORMS=cpu python tools/reference_figures.py \\
-      [--max-elems 2000000] [--planner-max-elems 750000] [--planner-layers 6]
+      [--max-elems 2000000] [--planner-max-elems 750000] [--planner-layers 6] \\
+      [--parts all|accuracy]
 
 The weights come from ``jax.random.normal`` on XLA:CPU; the port's
 ``prng.normal`` reproduces those draws bit for bit on an x86-64 host with
@@ -36,6 +47,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
 OUT = ROOT / "benchmarks_torch" / "golden" / "reference.json"
+NEAR_TIE = 1e-4  # top-2 logit gap below which the port's argmax may differ
 
 
 def planner_plan(max_elems: int, layers: int, p_stuck: float = 0.5) -> dict:
@@ -61,6 +73,105 @@ def planner_plan(max_elems: int, layers: int, p_stuck: float = 0.5) -> dict:
     }
 
 
+def _eval_record(cfg, params, batch_fn, n_batches: int = 4) -> dict:
+    """The reference's held-out predictions, correct count and near ties."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    from repro.models import api
+
+    preds, gaps, correct, total = [], [], 0, 0
+    for i in range(n_batches):
+        batch = batch_fn(i)
+        logits = np.asarray(api.forward(params, cfg, batch)[0][:, :-1])
+        pred = logits.argmax(-1)
+        top2 = np.sort(logits, axis=-1)[..., -2:]
+        tgt = np.asarray(batch["tokens"][:, 1:])
+        correct += int((pred == tgt).sum())
+        total += tgt.size
+        preds.append(pred)
+        gaps.append(top2[..., 1] - top2[..., 0])
+    preds, gaps = np.stack(preds), np.stack(gaps).reshape(-1)
+    assert preds.max() < 256
+    return {"correct": correct, "total": total, "shape": list(preds.shape),
+            "preds": preds.astype(np.uint8).tobytes().hex(),
+            "near_ties": [int(i) for i in np.flatnonzero(gaps < NEAR_TIE)],
+            "min_gap": float(gaps.min())}
+
+
+def accuracy_record(seed: int = 0) -> dict:
+    """The reference's trained LM, its sweeps and e2e check (see module doc)."""
+    import jax
+    import numpy as np
+
+    from benchmarks import accuracy_e2e, fig9_p_sweep, fig10_columns, trained_lm
+    from repro.core.planner import CrossbarSpec, PlannerConfig, build_deployment, deploy_params
+    from repro.data import DataConfig, make_dataset
+    from repro.launch.steps import make_train_step
+    from repro.models import api
+    from repro.optim import AdamWConfig, adamw_init
+
+    # the losses of trained_lm's own loop, which it does not return
+    t0 = time.perf_counter()
+    cfg = trained_lm.get_arch(trained_lm.ARCH, reduced=True)
+    ds = make_dataset(DataConfig(cfg.vocab_size, trained_lm.SEQ, trained_lm.BATCH, task="copy",
+                                 seed=seed))
+    step = jax.jit(make_train_step(cfg, AdamWConfig(lr=3e-3, warmup_steps=10,
+                                                    total_steps=trained_lm.STEPS)))
+    params = api.init(jax.random.PRNGKey(seed), cfg)
+    opt = adamw_init(params)
+    losses = []
+    for s in range(trained_lm.STEPS):
+        params, opt, m = step(params, opt, ds.batch_at(s))
+        losses.append(float(m["loss"]))
+    train_s = time.perf_counter() - t0
+    cfg_, trained, batch_fn = trained_lm.get_trained_lm(seed=seed)
+    flat = {jax.tree_util.keystr(p, simple=True, separator="/"): np.asarray(v)
+            for p, v in jax.tree_util.tree_flatten_with_path(trained)[0]}
+    mine = {jax.tree_util.keystr(p, simple=True, separator="/"): np.asarray(v)
+            for p, v in jax.tree_util.tree_flatten_with_path(params)[0]}
+    assert all(flat[k].tobytes() == mine[k].tobytes() for k in flat), "training not replayed"
+    npz = OUT.parent / f"trained_lm_seed{seed}.npz"
+    np.savez(npz, **flat)
+
+    def sweep_evals(configs):
+        ev = {"fp": _eval_record(cfg_, trained, batch_fn)}
+        for label, spec, pcfg in configs:
+            plan = build_deployment(trained, spec, pcfg)
+            ev[label] = _eval_record(cfg_, deploy_params(trained, plan), batch_fn)
+            ev[label]["totals"] = plan.totals()
+        return ev
+
+    spec10 = CrossbarSpec(rows=128, cols=10)
+    out = {
+        "arch": trained_lm.ARCH, "steps": trained_lm.STEPS, "seq": trained_lm.SEQ,
+        "batch": trained_lm.BATCH, "seed": seed, "near_tie": NEAR_TIE,
+        "train_losses": losses, "train_seconds_cpu": train_s,
+        "npz": npz.name, "npz_values": int(sum(v.size for v in flat.values())),
+        "npz_bytes": npz.stat().st_size,
+        "npz_sha256": hashlib.sha256(npz.read_bytes()).hexdigest(),
+        "fig9": fig9_p_sweep.accuracy_sweep(seed=seed),
+        "fig10": fig10_columns.accuracy_sweep(seed=seed),
+        "e2e": accuracy_e2e.run(seed=seed),
+    }
+    out["fig9_evals"] = sweep_evals([
+        (f"p={p}", spec10, PlannerConfig(p_stuck=p, min_size=1024, seed=seed))
+        for p in fig9_p_sweep.PS])
+    out["fig10_evals"] = sweep_evals([
+        (f"cols={c}", CrossbarSpec(rows=128, cols=c),
+         PlannerConfig(p_stuck=fig10_columns.P, min_size=1024, seed=seed))
+        for c in fig10_columns.COLS_SWEEP])
+    out["e2e_evals"] = sweep_evals([
+        ("cim", spec10, PlannerConfig(p_stuck=0.5, min_size=1024, seed=seed))])
+    # the sweeps' own accuracies are the recorded predictions'
+    for fig, key in (("fig9", "per_p"), ("fig10", "per_cols")):
+        for k, r in out[fig][key].items():
+            lab = f"p={k}" if fig == "fig9" else f"cols={k}"
+            ev = out[f"{fig}_evals"][lab]
+            assert ev["correct"] / ev["total"] == r["accuracy"], (fig, k)
+    return out
+
+
 def collect(max_elems: int, planner_max_elems: int, planner_layers: int, seed: int = 0) -> dict:
     import jax
 
@@ -84,6 +195,7 @@ def collect(max_elems: int, planner_max_elems: int, planner_layers: int, seed: i
         "fig9": lambda: fig9_p_sweep.transitions_sweep(max_elems=max_elems, seed=seed),
         "fig10": lambda: fig10_columns.transitions_sweep(max_elems=max_elems, seed=seed),
         "planner": lambda: planner_plan(planner_max_elems, planner_layers),
+        "accuracy": lambda: accuracy_record(seed),
     }
     for name, fn in parts.items():
         t0 = time.perf_counter()
@@ -100,8 +212,16 @@ def main() -> None:
     ap.add_argument("--planner-layers", type=int, default=6)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", type=Path, default=OUT)
+    ap.add_argument("--parts", default="all", choices=["all", "accuracy"],
+                    help="'accuracy' recomputes the accuracy entry and keeps the rest")
     args = ap.parse_args()
-    res = collect(args.max_elems, args.planner_max_elems, args.planner_layers, args.seed)
+    if args.parts == "accuracy":
+        res = json.loads(args.out.read_text())
+        t0 = time.perf_counter()
+        res["accuracy"] = accuracy_record(args.seed)
+        res["seconds"]["accuracy"] = time.perf_counter() - t0
+    else:
+        res = collect(args.max_elems, args.planner_max_elems, args.planner_layers, args.seed)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(res, indent=1) + "\n")
     print(f"wrote {args.out}")
