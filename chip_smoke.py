@@ -65,8 +65,10 @@ Phases (one line each, any failed check exits 1):
      plan identical to the card's; B1 timed at the figures' pair shape;
   5d. train: launch.train's loop at internlm2-1.8b's full width (2 layers,
      bf16 on f32 masters, lm task, batch 8 x 128, 8 steps, checkpoints and
-     redeploy pricing every 4): losses finite and falling, the bf16 step-1
-     loss within 1e-2 of the f32 loss of the same params, the redeploy log
+     redeploy pricing every 4): losses finite and falling, each within
+     2e-3 of the reference's (golden "trainer", the same cell on XLA:CPU),
+     the bf16 step-1 loss between 1e-6 and 4e-4 of the f32 loss of the same
+     params (so the step computes in bf16, close to f32), the redeploy log
      of the reference's structure for head/w and the MLP stack, B1 > 0, B3
      0, blockwise_attention once a layer a step and no other plain version;
      then again from the step-4 checkpoint, bit-identical to the straight
@@ -76,7 +78,7 @@ Phases (one line each, any failed check exits 1):
      batches, its losses within 1e-3 of the reference's; fig9's p sweep,
      fig10's column sweep and accuracy_e2e on the reference's weights
      (golden npz: every prediction, total and speedup equal, the probes
-     within 1e-5) and on the card-trained weights (accuracies within
+     within 1e-5, logit KL also within 5% of the reference's) and on the card-trained weights (accuracies within
      0.01 / 0.02, speedups within 1%); B3 = 272 on the FMA kernel at head
      dim 16, B1 > 0, no plain-version call;
   6. kernels: time, bound (the bf16 tensor-core rate for the tensor-core
@@ -132,7 +134,12 @@ B6_TIMED = ((4, 4096, 11008), (4096, 64000))  # yi-6b's stacked wi_gate (4 layer
 # the trainer at internlm2-1.8b's full width, depth cut 24 -> 2 (phase train)
 TRAIN = dict(layers=2, steps=8, batch=8, seq=128, lr=3e-4, remat="none", ckpt_every=4,
              redeploy_every=4, log_every=1, task="lm", seed=0)
-TRAIN_F32_RTOL = 1e-2  # the bf16 step-1 loss against the f32 loss of the same params and batch
+# each step's loss against the reference's (golden "trainer": the same cell on XLA:CPU); bf16
+# rounding placed differently (XLA keeps fused elementwise chains in f32), measured up to 5.8e-4
+TRAIN_GOLDEN_RTOL = 2e-3
+# the bf16 step-1 loss against the f32 loss of the same params and batch (measured 7.9e-5): at
+# most TRAIN_F32_RTOL, and at least TRAIN_BF16_MIN_REL, which a path left in f32 would not reach
+TRAIN_F32_RTOL, TRAIN_BF16_MIN_REL = 4e-4, 1e-6
 TRAIN_DISK_BYTES = 24e9  # free space the phase needs: 3 checkpoints of ~6.1 GB at once
 REDEPLOY_KEYS = {"step", "tensor", "transitions_natural", "transitions_sws", "chain_stale_sws",
                  "chain_fresh_sws", "chain_pool", "stale_sort_speedup", "sws_delta_speedup",
@@ -141,6 +148,7 @@ REDEPLOY_KEYS = {"step", "tensor", "transitions_natural", "transitions_sws", "ch
 ACC_LOSS_RTOL = 1e-3  # 120 training losses (measured on the CPU: 6e-6)
 ACC_FP_ABS, ACC_SWEEP_ABS, ACC_SPEEDUP_RTOL = 0.01, 0.02, 0.01
 ACC_PROBE_ABS = 1e-5  # top-1 agreement and logit KL on the reference's weights
+ACC_KL_RTOL = 0.05  # logit KL there also relative to the golden's (measured 1.3%): 0 cannot pass
 
 
 def fail(msg: str) -> None:
@@ -927,8 +935,8 @@ def figures_breakdown(dev) -> None:
 
 def train_phase(dev) -> dict:
     """The trainer at internlm2-1.8b's full width (depth 2): ``launch.train``'s
-    loop for 8 steps with checkpoints and redeploy pricing every 4, then
-    again from the step-4 checkpoint.  Deterministic algorithms are on for
+    loop for 8 steps with checkpoints and redeploy pricing every 4, each
+    loss held to the reference's, then again from the step-4 checkpoint.  Deterministic algorithms are on for
     the phase, and the resumed run's losses and final params must equal the
     straight run's bit for bit.  Returns the B1 launches and the numbers
     PERF.md records."""
@@ -1010,6 +1018,19 @@ def train_phase(dev) -> dict:
             fail(f"train losses {losses}")
         if not losses[-1] < losses[0]:
             fail(f"the step-{TRAIN['steps']} loss {losses[-1]} is not below step 1's {losses[0]}")
+        gold = json.loads((ROOT / "benchmarks_torch" / "golden" / "reference.json").read_text())
+        gold = gold["trainer"]
+        if any(gold[k] != TRAIN[k] for k in ("layers", "batch", "seq", "lr", "remat", "task",
+                                             "seed")) or gold["total_steps"] != TRAIN["steps"]:
+            fail(f"the golden trainer entry is another cell: {gold}")
+        rels = [abs(a - b) / b for a, b in zip(losses, gold["losses"])]
+        say(f"phase train: losses against the reference's (XLA:CPU, {len(gold['losses'])} steps, "
+            f"{gold['compile_seconds_cpu']:.1f} s compile + "
+            f"{sum(gold['step_seconds_cpu']):.1f} s of CPU steps): rel " + " ".join(
+                f"{i + 1}:{r:.2e}" for i, r in enumerate(rels))
+            + f" (bound {TRAIN_GOLDEN_RTOL:g})")
+        if not rels or max(rels) > TRAIN_GOLDEN_RTOL:
+            fail("the card's losses are outside their bf16 bound of the reference's")
         other_plain = c["plain"] - attention.blockwise_attention.calls
         if (c["B1"] <= 0 or c["B3"] or other_plain
                 or attention.blockwise_attention.calls != want_blockwise
@@ -1040,9 +1061,10 @@ def train_phase(dev) -> dict:
                                           batch0)[0])
         d32 = abs(losses[0] - l32) / l32
         say(f"phase train: step-1 loss {losses[0]:.6f} (bf16) vs {l32:.6f} (f32, same params "
-            f"and batch): rel {d32:.2e} (bound {TRAIN_F32_RTOL:g})")
-        if d32 > TRAIN_F32_RTOL:
-            fail("the bf16 step-1 loss is outside its bound of the f32 loss")
+            f"and batch): rel {d32:.2e} (bounds {TRAIN_BF16_MIN_REL:g} to {TRAIN_F32_RTOL:g})")
+        if not TRAIN_BF16_MIN_REL <= d32 <= TRAIN_F32_RTOL:
+            fail("the bf16 step-1 loss is outside its bounds of the f32 loss: too far, or so "
+                 "close that the step did not compute in bf16")
 
         # one traced step at full width (from the params after step 8)
         batch8 = loop.dataset.batch_at(TRAIN["steps"])
@@ -1133,6 +1155,11 @@ def accuracy_phase(dev) -> dict:
             for k in ("top1_agreement", "logit_kl"):
                 if abs(e2e[k] - ge[k]) > ACC_PROBE_ABS:
                     fail(f"e2e {k} {e2e[k]} vs the reference's {ge[k]}")
+            kl_rel = abs(e2e["logit_kl"] - ge["logit_kl"]) / ge["logit_kl"]
+            say(f"phase accuracy ({label}): logit KL {e2e['logit_kl']:.6e} vs the reference's "
+                f"{ge['logit_kl']:.6e}: rel {kl_rel:.2e} (bound {ACC_KL_RTOL:g})")
+            if not kl_rel <= ACC_KL_RTOL:
+                fail("e2e logit KL is outside its relative bound of the reference's")
             rest = {k: v for k, v in e2e.items() if k not in ("top1_agreement", "logit_kl")}
             d = first_difference(json.loads(json.dumps(rest)),
                                  {k: v for k, v in ge.items() if k in rest})

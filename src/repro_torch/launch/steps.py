@@ -33,14 +33,10 @@ from repro_torch.models.transformer import REMATS
 from repro_torch.optim import AdamWConfig, adamw_update
 
 
-def loss_fn(params, cfg: ArchConfig, batch: dict, remat: str = "none",
-            train: bool = True) -> tuple[torch.Tensor, dict]:
-    """Mean next-token NLL (+ the model's aux loss, 0 for the dense decoders).
-
-    ``train=True`` selects the differentiable attention; an evaluation
-    without gradients may pass ``train=False`` to run B3 on the card.
-    """
-    logits, aux = api.forward(params, cfg, batch, remat=remat, train=train)
+def loss_fn(params, cfg: ArchConfig, batch: dict, remat: str = "none") -> tuple[torch.Tensor, dict]:
+    """Mean next-token NLL (+ the model's aux loss, 0 for the dense decoders),
+    through the training forward (``train=True``: the differentiable attention)."""
+    logits, aux = api.forward(params, cfg, batch, remat=remat, train=True)
     targets = batch["tokens"][:, 1:].long()
     lp = F.log_softmax(logits[:, :-1].to(torch.float32), dim=-1)
     nll = -torch.gather(lp, -1, targets[..., None])[..., 0]
@@ -57,7 +53,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *, remat: str = "full
     def train_step(params, opt_state, batch):
         p = tree.tree_map(lambda x: x.detach().requires_grad_(True), params)
         with torch.enable_grad():
-            loss, parts = loss_fn(p, cfg, batch, remat=remat, train=True)
+            loss, parts = loss_fn(p, cfg, batch, remat=remat)
             grads = torch.autograd.grad(loss, tree.leaves(p))
         grads = tree.unflatten(p, list(grads))
         new_params, new_state, opt_metrics = adamw_update(grads, opt_state, params, opt_cfg)

@@ -286,7 +286,9 @@ def test_figure_matches_reference(name):
 def test_fig9_fig10_run_returns_transitions_only(monkeypatch):
     """``run`` returns both halves, as the reference's: the transitions of
     the two models and the accuracy sweep of the trained LM (here the
-    reference's trained weights, which give the reference's accuracies)."""
+    reference's trained weights, which give the reference's accuracies).
+    The name dates from when the port's ``run`` had the transitions half
+    alone; it is kept so that the test stays one test across that change."""
     import json
     from pathlib import Path
 

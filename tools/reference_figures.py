@@ -17,8 +17,18 @@ and for every evaluation the predictions at each held-out position (hex,
 one byte each), the positions whose top-2 logit gap is below
 ``NEAR_TIE`` and every plan's totals; the trained weights go to
 ``benchmarks_torch/golden/trained_lm_seed<seed>.npz`` ('/'-joined leaf
-names).  ``--parts accuracy`` recomputes that entry alone and keeps the
-rest of the file.
+names).
+
+The ``trainer`` entry is the full-width trainer cell of ``chip_smoke.py``:
+internlm2-1.8b at its published widths with the depth cut to 2 layers
+(bf16 compute on f32 masters), ``lm`` task, batch 8, seq 128, lr 3e-4,
+8 scheduled steps, remat ``none``, run through the reference's
+``make_train_step`` from ``init(PRNGKey(seed))`` for its first
+``--trainer-steps`` steps: their losses, grad norms and lrs, and the CPU
+seconds of the compile and of each step.
+
+``--parts accuracy,trainer`` (any of the entry names) recomputes those
+entries alone and keeps the rest of the file.
 
 This tool imports ``jax``, ``repro`` and ``benchmarks`` on purpose: it is
 not part of the port.  The port and ``chip_smoke.py`` only read the file.
@@ -27,7 +37,7 @@ from ``benchmarks_torch``, which reads it.
 
   PYTHONPATH=src JAX_PLATFORMS=cpu python tools/reference_figures.py \\
       [--max-elems 2000000] [--planner-max-elems 750000] [--planner-layers 6] \\
-      [--parts all|accuracy]
+      [--trainer-steps 2] [--parts all|fig5,...,accuracy,trainer]
 
 The weights come from ``jax.random.normal`` on XLA:CPU; the port's
 ``prng.normal`` reproduces those draws bit for bit on an x86-64 host with
@@ -172,7 +182,51 @@ def accuracy_record(seed: int = 0) -> dict:
     return out
 
 
-def collect(max_elems: int, planner_max_elems: int, planner_layers: int, seed: int = 0) -> dict:
+TRAINER = dict(arch="internlm2-1.8b", layers=2, task="lm", batch=8, seq=128, lr=3e-4,
+               total_steps=8, remat="none")
+
+
+def trainer_record(n_steps: int, seed: int = 0) -> dict:
+    """The reference's first ``n_steps`` steps of the full-width trainer cell."""
+    import dataclasses
+
+    import jax
+
+    from repro.configs import get_arch
+    from repro.data import DataConfig, make_dataset
+    from repro.launch.steps import make_train_step
+    from repro.models import api
+    from repro.optim import AdamWConfig, adamw_init
+
+    t = TRAINER
+    cfg = dataclasses.replace(get_arch(t["arch"]), n_layers=t["layers"])
+    opt_cfg = AdamWConfig(lr=t["lr"], total_steps=t["total_steps"],
+                          warmup_steps=min(20, t["total_steps"] // 5))
+    # donated: the old params and moments are not kept beside the new ones
+    step = jax.jit(make_train_step(cfg, opt_cfg, remat=t["remat"]), donate_argnums=(0, 1))
+    ds = make_dataset(DataConfig(cfg.vocab_size, t["seq"], t["batch"], task=t["task"],
+                                 seed=seed))
+    params = api.init(jax.random.PRNGKey(seed), cfg)
+    opt = adamw_init(params)
+    t0 = time.perf_counter()
+    compiled = step.lower(params, opt, ds.batch_at(0)).compile()
+    out = {**t, "seed": seed, "dtype": cfg.dtype, "d_model": cfg.d_model,
+           "vocab_size": cfg.vocab_size, "compile_seconds_cpu": time.perf_counter() - t0,
+           "losses": [], "grad_norms": [], "lrs": [], "step_seconds_cpu": []}
+    for s in range(n_steps):
+        t0 = time.perf_counter()
+        params, opt, m = compiled(params, opt, ds.batch_at(s))
+        out["losses"].append(float(m["loss"]))
+        out["step_seconds_cpu"].append(time.perf_counter() - t0)
+        out["grad_norms"].append(float(m["grad_norm"]))
+        out["lrs"].append(float(m["lr"]))
+        print(f"trainer step {s + 1}: loss {out['losses'][-1]!r} "
+              f"({out['step_seconds_cpu'][-1]:.1f} s)", flush=True)
+    return out
+
+
+def collect(max_elems: int, planner_max_elems: int, planner_layers: int, seed: int = 0,
+            trainer_steps: int = 2, only: set | None = None) -> dict:
     import jax
 
     from benchmarks import (fig5_sws_single, fig6_strides, fig7_greedy, fig8_stucking,
@@ -196,7 +250,12 @@ def collect(max_elems: int, planner_max_elems: int, planner_layers: int, seed: i
         "fig10": lambda: fig10_columns.transitions_sweep(max_elems=max_elems, seed=seed),
         "planner": lambda: planner_plan(planner_max_elems, planner_layers),
         "accuracy": lambda: accuracy_record(seed),
+        "trainer": lambda: trainer_record(trainer_steps, seed),
     }
+    if only is not None:
+        if only - parts.keys():
+            raise SystemExit(f"unknown parts {sorted(only - parts.keys())}")
+        parts = {k: v for k, v in parts.items() if k in only}
     for name, fn in parts.items():
         t0 = time.perf_counter()
         out[name] = fn()
@@ -212,16 +271,18 @@ def main() -> None:
     ap.add_argument("--planner-layers", type=int, default=6)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", type=Path, default=OUT)
-    ap.add_argument("--parts", default="all", choices=["all", "accuracy"],
-                    help="'accuracy' recomputes the accuracy entry and keeps the rest")
+    ap.add_argument("--trainer-steps", type=int, default=8)
+    ap.add_argument("--parts", default="all",
+                    help="'all', or comma-separated entries to recompute keeping the rest")
     args = ap.parse_args()
-    if args.parts == "accuracy":
-        res = json.loads(args.out.read_text())
-        t0 = time.perf_counter()
-        res["accuracy"] = accuracy_record(args.seed)
-        res["seconds"]["accuracy"] = time.perf_counter() - t0
-    else:
-        res = collect(args.max_elems, args.planner_max_elems, args.planner_layers, args.seed)
+    only = None if args.parts == "all" else set(args.parts.split(","))
+    res = collect(args.max_elems, args.planner_max_elems, args.planner_layers, args.seed,
+                  args.trainer_steps, only)
+    if only is not None:
+        old = json.loads(args.out.read_text())
+        old["seconds"].update(res.pop("seconds"))
+        old.update({k: v for k, v in res.items() if k in only})
+        res = old
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(res, indent=1) + "\n")
     print(f"wrote {args.out}")
