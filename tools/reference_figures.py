@@ -22,10 +22,9 @@ names).
 The ``trainer`` entry is the full-width trainer cell of ``chip_smoke.py``:
 internlm2-1.8b at its published widths with the depth cut to 2 layers
 (bf16 compute on f32 masters), ``lm`` task, batch 8, seq 128, lr 3e-4,
-8 scheduled steps, remat ``none``, run through the reference's
-``make_train_step`` from ``init(PRNGKey(seed))`` for its first
-``--trainer-steps`` steps: their losses, grad norms and lrs, and the CPU
-seconds of the compile and of each step.
+8 steps, remat ``none``, run through the reference's ``make_train_step``
+from ``init(PRNGKey(seed))``: the losses, grad norms and lrs, and the CPU
+seconds of the compile and of each step (~75 s and ~12 GB on 8 cores).
 
 ``--parts accuracy,trainer`` (any of the entry names) recomputes those
 entries alone and keeps the rest of the file.
@@ -37,7 +36,7 @@ from ``benchmarks_torch``, which reads it.
 
   PYTHONPATH=src JAX_PLATFORMS=cpu python tools/reference_figures.py \\
       [--max-elems 2000000] [--planner-max-elems 750000] [--planner-layers 6] \\
-      [--trainer-steps 2] [--parts all|fig5,...,accuracy,trainer]
+      [--parts all|fig5,...,accuracy,trainer]
 
 The weights come from ``jax.random.normal`` on XLA:CPU; the port's
 ``prng.normal`` reproduces those draws bit for bit on an x86-64 host with
@@ -186,8 +185,8 @@ TRAINER = dict(arch="internlm2-1.8b", layers=2, task="lm", batch=8, seq=128, lr=
                total_steps=8, remat="none")
 
 
-def trainer_record(n_steps: int, seed: int = 0) -> dict:
-    """The reference's first ``n_steps`` steps of the full-width trainer cell."""
+def trainer_record(seed: int = 0) -> dict:
+    """The reference's steps of the full-width trainer cell."""
     import dataclasses
 
     import jax
@@ -213,7 +212,7 @@ def trainer_record(n_steps: int, seed: int = 0) -> dict:
     out = {**t, "seed": seed, "dtype": cfg.dtype, "d_model": cfg.d_model,
            "vocab_size": cfg.vocab_size, "compile_seconds_cpu": time.perf_counter() - t0,
            "losses": [], "grad_norms": [], "lrs": [], "step_seconds_cpu": []}
-    for s in range(n_steps):
+    for s in range(t["total_steps"]):
         t0 = time.perf_counter()
         params, opt, m = compiled(params, opt, ds.batch_at(s))
         out["losses"].append(float(m["loss"]))
@@ -226,7 +225,7 @@ def trainer_record(n_steps: int, seed: int = 0) -> dict:
 
 
 def collect(max_elems: int, planner_max_elems: int, planner_layers: int, seed: int = 0,
-            trainer_steps: int = 2, only: set | None = None) -> dict:
+            only: set | None = None) -> dict:
     import jax
 
     from benchmarks import (fig5_sws_single, fig6_strides, fig7_greedy, fig8_stucking,
@@ -250,7 +249,7 @@ def collect(max_elems: int, planner_max_elems: int, planner_layers: int, seed: i
         "fig10": lambda: fig10_columns.transitions_sweep(max_elems=max_elems, seed=seed),
         "planner": lambda: planner_plan(planner_max_elems, planner_layers),
         "accuracy": lambda: accuracy_record(seed),
-        "trainer": lambda: trainer_record(trainer_steps, seed),
+        "trainer": lambda: trainer_record(seed),
     }
     if only is not None:
         if only - parts.keys():
@@ -271,13 +270,11 @@ def main() -> None:
     ap.add_argument("--planner-layers", type=int, default=6)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", type=Path, default=OUT)
-    ap.add_argument("--trainer-steps", type=int, default=8)
     ap.add_argument("--parts", default="all",
                     help="'all', or comma-separated entries to recompute keeping the rest")
     args = ap.parse_args()
     only = None if args.parts == "all" else set(args.parts.split(","))
-    res = collect(args.max_elems, args.planner_max_elems, args.planner_layers, args.seed,
-                  args.trainer_steps, only)
+    res = collect(args.max_elems, args.planner_max_elems, args.planner_layers, args.seed, only)
     if only is not None:
         old = json.loads(args.out.read_text())
         old["seconds"].update(res.pop("seconds"))
