@@ -4,16 +4,16 @@
 
 Runs Fig. 5, Fig. 6, Fig. 7, Fig. 8, Fig. 9 and Fig. 10 (both halves: the
 accuracy halves deploy the reduced LM trained once per process by
-``trained_lm``), the end-to-end accuracy check and the planner throughput,
-prints each one's summary as ``benchmarks/run.py`` does, and writes the
-JSON artifacts and a summary to experiments/bench_torch/.  --full removes
-the per-tensor element cap.
+``trained_lm``), the end-to-end accuracy check, the planner throughput and
+the serving throughput (both decode loops), prints each one's summary as
+``benchmarks/run.py`` does, and writes the JSON artifacts and a summary to
+experiments/bench_torch/.  --full removes the per-tensor element cap.
 
 Left out, with the reason:
 
-* plane codecs, pool wear, serving, engine, fault tolerance, integrity
-  scrub, fleet, redeploy delta and the roofline: their benchmarks are not
-  ported yet (ROADMAP A.1, A.11-A.15, A.18).
+* plane codecs, pool wear, engine, fault tolerance, integrity scrub,
+  fleet, redeploy delta and the roofline: their benchmarks are not ported
+  yet (ROADMAP A.11-A.15, A.18).
 """
 from __future__ import annotations
 
@@ -29,6 +29,7 @@ from benchmarks_torch import (
     fig9_p_sweep,
     fig10_columns,
     planner_throughput,
+    serving_throughput,
 )
 from benchmarks_torch.common import banner, save_json
 
@@ -120,6 +121,14 @@ def main() -> None:
     )
     save_json("BENCH_planner", rpt)
     summary["planner_throughput"] = {"speedup": rpt["speedup"], "bit_exact": rpt["bit_exact"]}
+
+    banner("Serving throughput — fp vs cim-dense vs int8-planes vs packed, by decode loop")
+    rst = serving_throughput.run(device=dev)
+    for name, by_loop in rst["tok_s"].items():
+        print(f"  {name:16s} " + "  ".join(f"{loop} {tps:10.1f} tok/s"
+                                          for loop, tps in by_loop.items()))
+    save_json("BENCH_serve", rst)
+    summary["serving_throughput"] = rst["tok_s"]
 
     banner(f"benchmarks_torch.run complete in {time.time() - t0:.0f}s")
     save_json("summary", summary)

@@ -3,7 +3,9 @@
 
 Drives the port's main paths — plan gemma-2b onto 128x10 crossbars, alone
 and through a persistent ``CrossbarPool`` with plane codecs, then serve it
-from the packed bits and from int8 planes; plan yi-6b and serve it the same
+from the packed bits and from int8 planes, each generation's decode one
+CUDA graph (held to the eager per-token loop, greedy and sampled), and
+run the serving-throughput benchmark; plan yi-6b and serve it the same
 ways — at each model's full width with the depth cut to 4 layers; then the
 paper's planner figures on its models' published shapes, held to the
 reference's integers; train internlm2-1.8b at full width (2 layers) with
@@ -43,20 +45,33 @@ Phases (one line each, any failed check exits 1):
      codec, its wear and endurance horizon; the pool's state and wear after
      segments/0/attn/wk equal a CPU pool's;
   5. serve: generate with fp, cim-dense and cim-packed weights; B2 launches
-     over one timed packed pass == 7 * layers * gen; then cim-packed
+     over one packed generate == 7 * layers * gen; then cim-packed
      const_rle (B4, tokens == raw-packed of the same plan) and cim-planes_int8
      (planes built by B6, one launch per operand dict; B5), each launching
      7 * layers * gen times with no plain-version call;
      col_perm_rle at 1 layer (B4 with plane_ids, 7 * gen launches);
      every generate runs B3 once per layer in its prefill, on the
      tensor-core kernel (B3_tc), and every bf16 matmul on the tensor-core
-     kernel of B2, B4 or B5 (B2_tc, B4_tc, B5_tc);
+     kernel of B2, B4 or B5 (B2_tc, B4_tc, B5_tc).  Every variant is
+     served through the decode loop's CUDA graph (``loop="scan"``) and the
+     eager per-token loop (``loop="python"``): the same tokens bit for bit,
+     and the same launches, counted for the graph from the kernels the
+     profiler saw the card execute and from the wrappers' counts during
+     the capture times the replays, for the eager loop by the wrappers;
+     sampled: gemma cim-packed, seed 0, the same tokens through both
+     loops, and the first step's Gumbel noise on the card equal to the
+     CPU's bit for bit;
+  5a. serve-throughput: ``benchmarks_torch.serving_throughput.run`` at
+     gemma-2b's full width (4 layers, batch 4, prompt 32, gen 16, greedy):
+     fp / cim-dense / cim-planes_int8 / cim-packed through both loops,
+     passes interleaved, best of 5; the device-busy share of one traced
+     generate per loop for cim-packed and cim-planes_int8;
   5b. yi-6b: plan at full width (4 layers), CPU re-plan of
      segments/0/attn/wk; B6 planes of every planned tensor == the route
      before B6 (q = round(|w_hat| / scale)); serve fp, cim-dense,
      cim-packed and cim-planes_int8 with (7 * layers + 1) * gen B2 / B5
      launches (the +1: the planned LM head, whose f32 activations take the
-     FMA kernels), B3 = layers per prefill;
+     FMA kernels), B3 = layers per prefill, graph and eager loop alike;
   5c. figures: the paper's planner figures (fig5-fig8, fig9's and fig10's
      transition sweeps) and planner_throughput's gemma-2b-scale plan on the
      card at the size of benchmarks_torch/golden/reference.json, every
@@ -278,19 +293,108 @@ def counts() -> dict:
             **bs_ops.LAUNCHES, "plain": sum(fn.calls for fn in plain_fns())}
 
 
+# the port's kernels by the demangled symbol the profiler records, and the
+# counters each launch adds to; B2 and B4 are one template, told apart by its
+# fourth argument (kSkip)
+KERNEL_SYMBOLS = (
+    ("cim_packed_tc_kernel", {"false": ("B2", "B2_tc"), "true": ("B4", "B4_tc")}),
+    ("cim_packed_kernel", {"false": ("B2",), "true": ("B4",)}),
+    ("cim_planes_tc_kernel", ("B5", "B5_tc")),
+    ("cim_planes_kernel", ("B5",)),
+    ("fa_tc_kernel", ("B3", "B3_tc")),
+    ("flash_attention_kernel", ("B3",)),
+    ("bitslice_kernel", ("B6",)),
+    ("hamming_pairs_kernel", ("B1",)),
+)
+
+
+def _template_args(name: str) -> list[str]:
+    """A kernel symbol's template arguments, demangled ("<10, 1, true, false,
+    false>") or mangled ("ILi10ELi1ELb1ELb0ELb0EE")."""
+    import re
+
+    m = re.search(r"<([^<>]*)>", name)
+    if m:
+        return [a.strip() for a in m.group(1).split(",")]
+    m = re.search(r"I((?:L[a-z]+\d+E)+)E", name)
+    if not m:
+        return []
+    return [("true" if v == "1" else "false") if t == "b" else v
+            for t, v in re.findall(r"L([a-z]+)(\d+)E", m.group(1))]
+
+
+def kernel_counters(name: str) -> tuple[str, ...]:
+    """The counters a kernel record of ``name`` adds to (none for a kernel
+    that is not the port's, such as cuBLAS's or the split-K reduce)."""
+    import re
+
+    for symbol, keys in KERNEL_SYMBOLS:
+        if re.search(rf"(^|[^A-Za-z0-9_]|\d){symbol}(<|I|\(|$)", name):
+            if isinstance(keys, dict):
+                args = _template_args(name)
+                return keys[args[3]] if len(args) > 3 and args[3] in keys else ()
+            return keys
+    return ()
+
+
+def executed_counts(run) -> dict | None:
+    """The port's kernels the card executed in one ``run()``, by counter,
+    from torch.profiler's kernel records: graph-replayed kernels are
+    recorded one by one, though no wrapper runs for them.  None when the
+    profiler recorded no kernel at all."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    got, seen = {}, False
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        seen = True
+        for k in kernel_counters(e.key):
+            got[k] = got.get(k, 0) + e.count
+    return got if seen else None
+
+
+COUNT_NOTES: list[str] = []  # how each serve gate counted the graph's launches
+
+
 def served(label, cfg, params, batch, gen, kernel, want, want_tc=0):
-    """Warm up, then one timed generate with the counts zeroed just before
-    and read just after; tok/s is the best of 3 timed passes.  Fails unless
-    ``kernel`` launched ``want`` times (None: no CIM kernel), ``want_tc`` of
-    them on its tensor-core kernel, B3 once per layer (on the tensor-core
-    kernel in bf16 compute), nothing else, and no plain version was
-    called."""
+    """Serve through the CUDA graph (``loop="scan"``) and through the eager
+    per-token loop (``loop="python"``); tok/s of each is the best of 3
+    timed passes.  Fails unless both give the same tokens and each
+    generate launched ``kernel`` ``want`` times (None: no CIM kernel),
+    ``want_tc`` of them on its tensor-core kernel, B3 once per layer (on
+    the tensor-core kernel in bf16 compute), nothing else, and no plain
+    version was called.
+
+    Counted three ways: the eager loop by the wrappers' counters; the graph
+    by the kernels the profiler saw the card execute in one generate, and
+    by the wrappers' counts during the capture times the replays (the
+    generator's set-up runs the decode twice, warm-up and capture, plus one
+    prefill; a timed run counts its prefill only).  Returns the graph's
+    tokens, tok/s, timed run and executed counts."""
+    import torch
+
     from repro_torch.launch import serve
 
-    timed = serve.make_generator(cfg, params, batch, gen_len=gen)
     reset_counts()
+    timed = serve.make_generator(cfg, params, batch, gen_len=gen)
+    c_setup = counts()
+    reset_counts()
+    replays = timed.decode.replays
     toks, dt = timed()
-    c = counts()
+    c_eager = counts()
+    replays = timed.decode.replays - replays
+    twice = {k: c_setup[k] - c_eager[k] for k in c_setup}
+    if any(v % 2 for v in twice.values()) or c_setup["plain"] or c_eager["plain"]:
+        fail(f"{label} graph set-up launched {c_setup}, a timed run {c_eager}: not one prefill "
+             f"plus two decodes")
+    from_capture = {k: c_eager[k] + twice[k] // 2 * replays for k in c_setup if k != "plain"}
+    executed = executed_counts(timed)
     b = batch["tokens"].shape[0]
     tps = b * gen / dt
     for _ in range(2):
@@ -301,11 +405,106 @@ def served(label, cfg, params, batch, gen, kernel, want, want_tc=0):
               **({f"{kernel}_tc": want_tc} if want_tc else {})}
     if cfg.dtype == "bfloat16":
         expect["B3_tc"] = cfg.n_layers
-    got = {k: v for k, v in c.items() if k != "plain" and v}
-    if got != expect or c["plain"]:
-        fail(f"{label} generate launched {c} (want {expect}, nothing else, no plain-version "
-             f"call)")
-    return toks, tps, timed, c
+    nonzero = lambda c: {k: v for k, v in c.items() if k != "plain" and v}  # noqa: E731
+    if nonzero(from_capture) != expect:
+        fail(f"{label} graph launched {from_capture} by its capture x {replays} replay(s) "
+             f"(want {expect}, nothing else)")
+    if executed is None:
+        COUNT_NOTES.append(f"{label}: the profiler recorded no kernel; counted by capture")
+        executed = from_capture
+    elif nonzero(executed) != expect:
+        fail(f"{label} card executed {executed} in one graph generate (want {expect}, nothing "
+             f"else)")
+
+    eager = serve.make_generator(cfg, params, batch, gen_len=gen, loop="python")
+    reset_counts()
+    toks_py, dt_py = eager()
+    c_py = counts()
+    if nonzero(c_py) != expect or c_py["plain"]:
+        fail(f"{label} eager generate launched {c_py} (want {expect}, nothing else, no "
+             f"plain-version call)")
+    if not torch.equal(toks, toks_py):
+        fail(f"{label} graph tokens differ from the eager loop's")
+    tps_py = max(b * gen / dt_py, b * gen / eager()[1])
+    say(f"phase serve-loops: {label}: graph {tps:.1f} tok/s, eager loop {tps_py:.1f} tok/s; "
+        f"tokens identical; launches equal by the profiler, by the capture x {replays} "
+        f"replay(s) and by the eager wrappers")
+    return toks, tps, timed, {**{k: 0 for k in from_capture}, **executed, "plain": 0}
+
+
+def sampled_phase(dev, cfg, params, batch, tok_greedy) -> None:
+    """Sampled decode (seed 0) of ``params`` through the graph and the eager
+    loop: the same tokens (one graph generate traced); the same on the
+    reduced gemma-2b (f32), whose flat logits let the noise move tokens;
+    and the first sampled step's Gumbel noise on the card equal to the
+    CPU's bit for bit."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+
+    def both_loops(cfg_, params_, batch_, label):
+        runs = {loop: serve.make_generator(cfg_, params_, batch_, gen_len=GEN, greedy=False,
+                                           seed=0, loop=loop) for loop in serve.LOOPS}
+        toks_ = {loop: run()[0] for loop, run in runs.items()}
+        if not torch.equal(toks_["scan"], toks_["python"]):
+            fail(f"sampled tokens of the graph differ from the eager loop's ({label})")
+        return toks_, runs["scan"]
+
+    toks, graph = both_loops(cfg, params, batch, "gemma cim-packed")
+    say(f"phase trace: sampled cim-packed generate: {trace(graph)}")
+    del graph
+    small = get_arch("gemma-2b", reduced=True)
+    p_small = api.init(prng.PRNGKey(0), small, device=dev)
+    b_small = api.make_batch(small, BATCH, PROMPT, seed=0, device=dev)
+    toks_small, _ = both_loops(small, p_small, b_small, "reduced gemma")
+    greedy_small = serve.generate(small, p_small, b_small, gen_len=GEN)[0]
+    # the first pick (after the prefill) splits PRNGKey(0) once and draws
+    # the noise from the second half
+    _, sub = prng.split(prng.PRNGKey(0)).unbind(-2)
+    shape = (batch["tokens"].shape[0], cfg.vocab_size)
+    g_card = prng.gumbel(sub.to(dev), shape).cpu()
+    g_cpu = prng.gumbel(sub, shape)
+    if not torch.equal(g_card.view(torch.int32), g_cpu.view(torch.int32)):
+        n = int((g_card.view(torch.int32) != g_cpu.view(torch.int32)).sum())
+        fail(f"the card's Gumbel noise differs from the CPU's in {n} of {g_cpu.numel()} values")
+    say(f"phase sampled: seed 0, graph and eager loop give the same tokens: gemma cim-packed "
+        f"{tuple(toks['scan'].shape)} (agreement with greedy "
+        f"{(toks['scan'] == tok_greedy).float().mean().item():.3f}), reduced gemma (agreement "
+        f"with greedy {(toks_small['scan'] == greedy_small).float().mean().item():.3f}); the "
+        f"first step's Gumbel noise {shape} on the card == the CPU's, bit for bit")
+
+
+def throughput_phase(dev) -> None:
+    """``benchmarks_torch.serving_throughput.run`` at gemma-2b's full width
+    (LAYERS layers, batch BATCH, prompt PROMPT, gen GEN, greedy): every
+    variant through both loops, interleaved, best of 5; the device-busy
+    share of one traced generate per loop for cim-packed and
+    cim-planes_int8.  Fails unless both loops give the same tokens."""
+    from benchmarks_torch import serving_throughput
+
+    t0 = time.perf_counter()
+    res = serving_throughput.run("gemma-2b", reduced=False, layers=LAYERS, batch=BATCH,
+                                 prompt_len=PROMPT, gen=GEN, p_stuck=P_STUCK, repeats=5,
+                                 device=dev)
+    if not all(res["tokens_equal_across_loops"].values()):
+        fail(f"serving_throughput: loops give other tokens: {res['tokens_equal_across_loops']}")
+    for name, by_loop in res["tok_s"].items():
+        say(f"phase serve-throughput: gemma-2b x{LAYERS} {name}: "
+            + ", ".join(f"{loop} {tps:.1f} tok/s" for loop, tps in by_loop.items())
+            + f" (graph / eager {res['graph_over_python_tok_s'][name]:.2f}x)")
+    for name, by_loop in res["device_busy"].items():
+        say(f"phase serve-throughput: {name} one traced generate: " + "; ".join(
+            f"{loop} wall {b['wall_ms']:.2f} ms, device {b['device_ms']:.2f} ms "
+            f"({100 * b['busy']:.1f}% busy)" for loop, b in by_loop.items()))
+    t = res["weight_bytes_per_decode_step"]
+    say(f"phase serve-throughput: weight bytes a decode step: dense f32 {t['dense_f32']:,}, "
+        f"int8 planes {t['planes_int8']:,}, packed {t['packed']:,} (int8 / packed "
+        f"{t['int8_over_packed']:.2f}x); token agreement with dense "
+        f"{res['token_agreement_vs_dense']}; {res['timing']}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def logit_check(cfg, p_dense, p_x, batch, label):
@@ -1493,7 +1692,9 @@ def main() -> None:
     say(f"phase trace: cim-packed generate: {trace(timed_packed)}")
     say(f"phase trace: cim-dense generate: {trace(timed_dense)}")
     logit_check(cfg, p_dense, p_packed, batch, "packed")
-    del p_packed, timed_packed, timed_dense
+    del timed_packed, timed_dense
+    sampled_phase(dev, cfg, p_packed, batch, tok_packed)
+    del p_packed
     torch.cuda.empty_cache()
 
     # int8 planes of the same plan, built by B6, served by B5
@@ -1590,6 +1791,10 @@ def main() -> None:
         f"identical to raw-packed; B4 launches {c['B4']} (want {want1}), on tensor cores "
         f"{c['B4_tc']} (want {want1}); plain-version calls 0")
     del params1, plan1, p1_raw, p1_cp, w_ff
+    torch.cuda.empty_cache()
+
+    # --- 5a. the serving benchmark at gemma-2b's full width -----------------------
+    throughput_phase(dev)
     torch.cuda.empty_cache()
 
     # --- 5b. yi-6b at full width ------------------------------------------------
@@ -1763,6 +1968,8 @@ def main() -> None:
         f"ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f}"
         + (f" library_ms={r['library_ms']:.4f}" if r["library_ms"] is not None else "")
         for r in kernels))
+    say("launch counting: " + ("; ".join(COUNT_NOTES) or "every serve gate held the graph's "
+                               "launches from the profiler's kernel records"))
     say(f"phase done: {time.perf_counter() - t_start:.1f} s after the build started")
     say(card)
     say(json.dumps({"kernels": kernels}))

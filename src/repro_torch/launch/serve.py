@@ -1,4 +1,4 @@
-"""Batched serving entry point: prefill + greedy decode, optionally on crossbar bits.
+"""Batched serving entry point: prefill + decode, optionally on crossbar bits.
 
 Port of ``repro.launch.serve``: with ``--cim`` every eligible weight is
 planned onto crossbars through one persistent ``CrossbarPool`` (cross-tensor
@@ -16,11 +16,17 @@ injection and scrubbing are not ported yet (ROADMAP A.13).  Archs: the
 dense decoders gemma-2b, yi-6b, internlm2-1.8b, phi3-medium-14b; prefill
 attention runs kernel B3 on the card.
 
+Decode loop (``--loop``): ``scan`` (default) runs the whole generation as
+one dispatch, a CUDA graph of every decode step replayed once a generation
+on the card; ``python`` dispatches one step a token.  Both give the same
+tokens.  ``generate(..., greedy=False, seed=)`` samples with the
+reference's key schedule (``prng.categorical``), bit for bit.
+
 Usage (on the card):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b --layers 4 \
       --cim --materialize packed [--codec const_rle --pool-leveling lpt --p-stuck 0.5]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --layers 4 \
-      --cim --materialize planes_int8
+      --cim --materialize planes_int8 [--loop python]
 Add ``--reduced --device cpu`` for the small config on the CPU.
 """
 from __future__ import annotations
@@ -44,33 +50,72 @@ from repro_torch.core.planner import (
 from repro_torch.core.pool import DEFAULT_ENDURANCE, LEVELINGS, CrossbarPool
 from repro_torch.kernels._util import full_f32_matmuls, resolve_device
 from repro_torch.launch.steps import (
-    greedy_pick,
+    CudaGraphCall,
     make_decode_loop,
     make_prefill_step,
+    make_serve_step,
+    pick,
     prepare_serving_params,
 )
 from repro_torch.models import api
+from repro_torch.models.transformer import compute_dtype
 
 
-def make_generator(cfg, params, batch, *, gen_len: int, greedy: bool = True):
+LOOPS = ("scan", "python")
+
+
+def make_generator(
+    cfg, params, batch, *, gen_len: int, greedy: bool = True, seed: int = 0,
+    loop: str = "scan",
+):
     """Set up prefill + decode for one batch; returns ``timed_run()`` ->
-    (tokens (B, gen_len), seconds).  One untimed run is made here first
-    (warm-up: allocator, kernel loading)."""
+    (tokens (B, gen_len), seconds).
+
+    ``loop="scan"`` decodes the whole generation in one dispatch: on the
+    card a CUDA graph of all its steps (``steps.CudaGraphCall``), captured
+    here over the generator's cache and static token, key and position
+    buffers, replayed once a run; on the CPU the same step function runs
+    eagerly.  ``loop="python"`` dispatches token by token
+    (``steps.make_serve_step``).  Both pick through ``steps.pick`` from
+    ``prng.PRNGKey(seed)``, so they give the same tokens.  One untimed run
+    is made here first (warm-up); every run re-serves the batch from the
+    same key.  The prefill is one eager call.  ``timed_run.decode`` is the
+    graph (``CudaGraphCall``, with its replay count) where there is one.
+    """
+    if loop not in LOOPS:
+        raise ValueError(f"unknown decode loop {loop!r}; choose from {LOOPS}")
     tokens_in = batch["tokens"]
     dev = tokens_in.device
     b, prompt_len = tokens_in.shape
-    params = prepare_serving_params(params)
+    params = prepare_serving_params(params, compute_dtype(cfg))
     prefill = make_prefill_step(cfg)
-    decode = make_decode_loop(cfg, gen_len - 1, greedy=greedy)
     cache = api.init_cache(cfg, b, prompt_len + gen_len, device=dev)
+    key = prng.PRNGKey(seed, device=dev)
+    pos0 = torch.full((), prompt_len, dtype=torch.int64, device=dev)
+    if loop == "scan":
+        decode = make_decode_loop(cfg, gen_len - 1, greedy=greedy)
+        if dev.type == "cuda":
+            with torch.inference_mode():
+                decode = CudaGraphCall(decode, params, cache, torch.zeros_like(tokens_in[:, :1]),
+                                       torch.zeros_like(key), torch.zeros_like(pos0))
+    else:
+        serve_step = make_serve_step(cfg)
 
     @torch.inference_mode()
     def run():
         logits, pf_cache = prefill(params, batch)
         run_cache = api.merge_prefill_cache(cfg, cache, pf_cache)
-        tok = greedy_pick(logits)
-        toks, _ = decode(params, run_cache, tok, prompt_len)
-        tokens = torch.cat([tok, toks], dim=1)
+        tok, k = pick(logits, key, greedy)
+        if loop == "scan":
+            toks, _ = decode(params, run_cache, tok, k, pos0)
+            tokens = torch.cat([tok, toks], dim=1)
+        else:
+            out = [tok]
+            for i in range(gen_len - 1):
+                logits, run_cache = serve_step(params, run_cache, tok, pos0 + i)
+                tok, k = pick(logits, k, greedy)
+                out.append(tok)
+            tokens = torch.cat(out, dim=1)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         return tokens
@@ -82,17 +127,23 @@ def make_generator(cfg, params, batch, *, gen_len: int, greedy: bool = True):
         tokens = run()
         return tokens, time.perf_counter() - t0
 
+    timed_run.decode = decode if loop == "scan" else None
     return timed_run
 
 
-def generate(cfg, params, batch, *, gen_len: int, greedy: bool = True, repeats: int = 1):
+def generate(
+    cfg, params, batch, *, gen_len: int, greedy: bool = True, seed: int = 0,
+    loop: str = "scan", repeats: int = 1,
+):
     """Prefill then decode ``gen_len`` tokens; returns (tokens, tok/s).
 
     The first prefill+decode is run untimed; ``repeats`` timed passes follow
-    and the best one gives tok/s (tokens come from the last).
+    and the best one gives tok/s (tokens come from the last).  ``greedy``,
+    ``seed`` and ``loop`` as in :func:`make_generator`.
     """
     b = batch["tokens"].shape[0]
-    timed_run = make_generator(cfg, params, batch, gen_len=gen_len, greedy=greedy)
+    timed_run = make_generator(cfg, params, batch, gen_len=gen_len, greedy=greedy, seed=seed,
+                               loop=loop)
     best = float("inf")
     for _ in range(max(1, repeats)):
         tokens, dt = timed_run()
@@ -136,6 +187,10 @@ def main(argv: list[str] | None = None) -> None:
         "--endurance", type=float, default=DEFAULT_ENDURANCE,
         help="per-cell write endurance budget for the exhaustion horizon",
     )
+    ap.add_argument(
+        "--loop", choices=LOOPS, default="scan",
+        help="decode loop: one dispatch a generation (a CUDA graph on the card) or one a token",
+    )
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -156,7 +211,7 @@ def main(argv: list[str] | None = None) -> None:
     params = api.init(prng.PRNGKey(args.seed), cfg, device=dev)
     batch = api.make_batch(cfg, args.batch, args.prompt_len, seed=args.seed, device=dev)
 
-    tokens, tps = generate(cfg, params, batch, gen_len=args.gen)
+    tokens, tps = generate(cfg, params, batch, gen_len=args.gen, seed=args.seed, loop=args.loop)
     print(f"fp weights:   {tps:8.1f} tok/s   first request: {tokens[0, :12].tolist()}")
     if not args.cim:
         return
@@ -170,7 +225,8 @@ def main(argv: list[str] | None = None) -> None:
     # codec already shaped the pool's physical programming above
     codec = args.codec if args.materialize == "packed" else "raw"
     params_hat = deploy_params(params, plan, materialize=args.materialize, codec=codec)
-    tokens_hat, tps_hat = generate(cfg, params_hat, batch, gen_len=args.gen)
+    tokens_hat, tps_hat = generate(cfg, params_hat, batch, gen_len=args.gen, seed=args.seed,
+                                   loop=args.loop)
     agree = (tokens == tokens_hat).float().mean().item()
     t = plan.totals()
     stats = pool.stats()

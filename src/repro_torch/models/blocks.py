@@ -74,19 +74,31 @@ def attention_fwd(
     return y, ({"k": k, "v": v} if return_cache else None)
 
 
+def _position_index(pos: int | torch.Tensor, device) -> torch.Tensor:
+    """A decode position as a (1,) int64 tensor on ``device``: a 0-d device
+    tensor is reshaped (no host sync, no copy: what a CUDA graph captures);
+    a Python int is copied over."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(device=device, dtype=torch.int64).reshape(1)
+    return torch.tensor([pos], device=device)
+
+
 def attention_step(
     p: Params,
     cfg: ArchConfig,
     x: torch.Tensor,
     cache: dict[str, torch.Tensor],
-    pos: int,
+    pos: int | torch.Tensor,
 ) -> torch.Tensor:
-    """x: (B, 1, d); cache k/v: (B, Hkv, S, hd), written in place at ``pos``."""
+    """x: (B, 1, d); cache k/v: (B, Hkv, S, hd), written in place at ``pos``
+    (a Python int or a 0-d int tensor) by a device-indexed copy, the
+    counterpart of the reference's ``dynamic_update_slice``."""
     b = x.shape[0]
-    q, k, v = _qkv(p, cfg, x, torch.tensor([pos], device=x.device))
-    cache["k"][:, :, pos:pos + 1] = k
-    cache["v"][:, :, pos:pos + 1] = v
-    out = decode_attention(q, cache["k"], cache["v"], pos + 1)
+    idx = _position_index(pos, x.device)
+    q, k, v = _qkv(p, cfg, x, idx)
+    cache["k"].index_copy_(2, idx, k.to(cache["k"].dtype))
+    cache["v"].index_copy_(2, idx, v.to(cache["v"].dtype))
+    out = decode_attention(q, cache["k"], cache["v"], idx + 1)
     return layers.linear(p["wo"], out.transpose(1, 2).reshape(b, 1, -1), x.dtype)
 
 
@@ -113,6 +125,6 @@ def attn_block_fwd(
     return x, cache
 
 
-def attn_block_step(p: Params, cfg: ArchConfig, x, cache, pos: int):
+def attn_block_step(p: Params, cfg: ArchConfig, x, cache, pos: int | torch.Tensor):
     x = x + attention_step(p["attn"], cfg, layers.rmsnorm(p["ln1"], x), cache, pos)
     return x + layers.glu_mlp(p["mlp"], layers.rmsnorm(p["ln2"], x), cfg.act, x.dtype)

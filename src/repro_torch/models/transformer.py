@@ -10,7 +10,7 @@ Interface:
   init(key, cfg, device=)                          -> params (device: cuda default)
   forward(params, cfg, batch, remat=, train=)      -> (logits, aux)
   prefill(params, cfg, batch)                      -> (logits, cache)
-  decode_step(params, cfg, cache, token, pos)      -> (logits, cache)
+  decode_step(params, cfg, cache, token, pos)      -> (logits, cache); pos int or 0-d tensor
   init_cache(cfg, batch, seq_len, dtype=, device=) -> cache
 """
 from __future__ import annotations
@@ -78,11 +78,19 @@ def init(key: torch.Tensor, cfg: ArchConfig, *, device=None) -> Params:
     return params
 
 
+@functools.cache
+def _embed_scale(d_model: int, dtype: torch.dtype) -> float:
+    """sqrt(d_model) rounded to the compute dtype, as the reference rounds
+    it before the multiply (the rounded value, exact as a Python float)."""
+    return float(torch.tensor(d_model**0.5, dtype=dtype))
+
+
 def _embed_inputs(params: Params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
     dtype = compute_dtype(cfg)
     x = layers.embed(params["embed"], tokens, dtype)
     if cfg.embed_scale:
-        x = x * torch.tensor(cfg.d_model**0.5, dtype=dtype, device=x.device)
+        # filled on the device: no host-to-device copy in a captured step
+        x = x * torch.full((), _embed_scale(cfg.d_model, dtype), dtype=dtype, device=x.device)
     return x
 
 
@@ -171,10 +179,11 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, dtype=None, *, device=
 
 
 def decode_step(
-    params: Params, cfg: ArchConfig, caches: list, token: torch.Tensor, pos: int
+    params: Params, cfg: ArchConfig, caches: list, token: torch.Tensor, pos: int | torch.Tensor
 ) -> tuple[torch.Tensor, list]:
-    """token: (B, 1) int; pos: absolute position.  Writes the caches in
-    place and returns (logits (B, 1, V), caches)."""
+    """token: (B, 1) int; pos: absolute position, a Python int or a 0-d int
+    tensor on the device (no host sync: a CUDA graph can capture the step).
+    Writes the caches in place and returns (logits (B, 1, V), caches)."""
     x = _embed_inputs(params, cfg, token)
     for (_, count), p_stack, c_stack in zip(segments_of(cfg), params["segments"], caches):
         for i in range(count):

@@ -22,6 +22,10 @@ the counterpart of the calls the planner makes, under jax's default
   minval=erf(lo / sqrt2), maxval=erf(hi / sqrt2)))`` clipped to the open
   interval, with XLA's float32 ``erf`` (a clamped rational, fused), so
   ``models.transformer.init`` draws the reference's initial weights;
+* ``gumbel`` is ``-log(-log(uniform(key, minval=tiny, maxval=1)))`` with
+  XLA:CPU's float32 ``log`` (the ``log`` inside ``log1p``), and
+  ``categorical(key, logits)`` the argmax of ``gumbel + logits``, so
+  sampled decode (``launch.steps``) picks the reference's tokens;
 * ``fold_in(key, data)`` is ``threefry(key, (0, data))``; ``randint`` draws
   two 32-bit words per element (keys ``split(key)``) and reduces them with
   the ``2**16 % span`` multiplier identity in uint32, as jax does; the data
@@ -152,9 +156,10 @@ def randint(key: torch.Tensor, shape: tuple[int, ...], minval: int, maxval: int)
 
 
 def _f32(bits: int, device) -> torch.Tensor:
-    """A float32 scalar from its IEEE bit pattern (exact, no decimal rounding)."""
+    """A float32 scalar from its IEEE bit pattern (exact, no decimal rounding),
+    filled on ``device`` (no host-to-device copy: a CUDA graph can capture it)."""
     signed = bits - (1 << 32) if bits >= 1 << 31 else bits
-    return torch.tensor(signed, dtype=torch.int32, device=device).view(torch.float32)
+    return torch.full((), signed, dtype=torch.int32, device=device).view(torch.float32)
 
 
 def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -193,8 +198,8 @@ def _uniform_from_bits(bits: torch.Tensor, minval: float, maxval: float) -> torc
     floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - _f32(0x3F800000, dev)
     if minval == 0.0 and maxval == 1.0:
         return floats  # floats * 1 + 0 and max(0, .) change no bit
-    lo = torch.tensor(minval, dtype=torch.float32, device=dev)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=dev)
+    lo = torch.full((), minval, dtype=torch.float32, device=dev)
+    hi = torch.full((), maxval, dtype=torch.float32, device=dev)
     return torch.maximum(lo, _fma(floats, hi - lo, lo))
 
 
@@ -224,24 +229,23 @@ _ERFINV_LT5 = (0x32F16588, 0x34B84B36, 0xB66C7357, 0xB6935AC1, 0x396532DB, 0xBAA
                0xBB88E4EF, 0x3E7C8F63, 0x3FC02E2F)
 _ERFINV_GE5 = (0xB951F09B, 0x38D3B56B, 0x3AB0DC72, 0xBB70BDE7, 0x3BBC127B, 0xBBF9C5D7,
                0x3C1AA57E, 0x3F8036DB, 0x40354F7E)
-_INF, _HALF, _ONE = 0x7F800000, 0x3F000000, 0x3F800000
+_INF, _HALF, _ONE, _TINY = 0x7F800000, 0x3F000000, 0x3F800000, 0x00800000
 
 
-def _log1p(x: torch.Tensor) -> torch.Tensor:
-    """XLA:CPU's float32 ``log1p``, operation for operation.
+def _log(a: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's float32 ``log``, operation for operation.
 
-    For ``|x| < sqrt(2) - 1`` a rational in ``x``; otherwise ``log(1 + x)``
-    by frexp (mantissa in [0.5, 1)) and the Cephes polynomial, with
-    ``log``'s special values at 0, +inf and below 0.  ``_fma`` stands where
+    frexp (mantissa in [0.5, 1)) and the Cephes polynomial, with the
+    special values at 0, +inf and below 0; subnormal inputs count as zero,
+    as XLA:CPU's flush-to-zero mode reads them.  ``_fma`` stands where
     XLA:CPU's machine code fuses a multiply into the add that uses it
     (x86-64 with FMA); every other step is one rounded operation.
     """
-    dev = x.device
+    dev = a.device
     c = lambda b: _f32(b, dev)  # noqa: E731
     one, zero, inf = c(_ONE), c(0), c(_INF)
-    # log(a), a = 1 + x
-    a = x + one
-    tiny = c(0x00800000)
+    tiny = c(_TINY)
+    a = torch.where(a.abs() < tiny, zero, a)
     bits = torch.where(a > tiny, a, tiny).view(torch.int32)
     m = ((bits & 0x007FFFFF) | 0x3F000000).view(torch.float32)
     e = ((bits >> 23) - 127).to(torch.float32) + one
@@ -261,7 +265,17 @@ def _log1p(x: torch.Tensor) -> torch.Tensor:
     bad = torch.where(a != zero, torch.where(a != inf, 0, _INF), _INF | 1 << 31)
     ok = torch.where(~(a > zero), -1, log_a.view(torch.int32))
     ok = torch.where((a != zero) & (a != inf), ok, 0)
-    log_a = (bad.to(torch.int32) | ok).view(torch.float32)
+    return (bad.to(torch.int32) | ok).view(torch.float32)
+
+
+def _log1p(x: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's float32 ``log1p``, operation for operation: for ``|x| <
+    sqrt(2) - 1`` a rational in ``x`` (its Horner steps fused), otherwise
+    :func:`_log` of ``1 + x``."""
+    dev = x.device
+    c = lambda b: _f32(b, dev)  # noqa: E731
+    zero = c(0)
+    log_a = _log(x + c(_ONE))
     # the rational for small |x|
     x2 = x * x
     z = x * zero
@@ -361,3 +375,28 @@ def bernoulli(key: torch.Tensor, p: float, shape: tuple[int, ...]) -> torch.Tens
     pf = torch.tensor(p, dtype=torch.float32, device=key.device)
     return _draw(key, shape, lambda bits: _uniform_from_bits(bits, 0.0, 1.0) < pf,
                  dtype=torch.bool)
+
+
+_TINY_F = 1.1754943508222875e-38  # float32 tiny, the smallest normal
+
+
+def gumbel(key: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
+    """float32 Gumbel noise, same bits as ``jax.random.gumbel(key, shape)``
+    on XLA:CPU (its default ``mode="low"``).
+
+    ``-log(-log(uniform(key, shape, minval=tiny, maxval=1)))`` with
+    XLA:CPU's float32 ``log`` (:func:`_log`): ``torch.log`` rounds other
+    bits.  Every step is an IEEE operation, so the card draws the CPU's
+    bits.
+    """
+    return _draw(key, shape, lambda bits: -_log(-_log(_uniform_from_bits(bits, _TINY_F, 1.0))))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits)`` over the last axis, with
+    replacement: ``argmax(gumbel(key, logits.shape) + logits)``, the first
+    maximum on ties.  float32 logits only (jax draws the noise in the
+    logits' dtype); returns int64 indices of shape ``logits.shape[:-1]``."""
+    if logits.dtype != torch.float32:
+        raise TypeError(f"categorical takes float32 logits, got {logits.dtype}")
+    return torch.argmax(gumbel(key, tuple(logits.shape)) + logits, dim=-1)
