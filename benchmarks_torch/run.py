@@ -4,16 +4,18 @@
 
 Runs Fig. 5, Fig. 6, Fig. 7, Fig. 8, Fig. 9 and Fig. 10 (both halves: the
 accuracy halves deploy the reduced LM trained once per process by
-``trained_lm``), the end-to-end accuracy check, the planner throughput and
-the serving throughput (both decode loops), prints each one's summary as
-``benchmarks/run.py`` does, and writes the JSON artifacts and a summary to
+``trained_lm``), the end-to-end accuracy check, the planner throughput, the
+plane codecs, the pool wear, the serving throughput (both decode loops)
+and the redeploy delta, prints each one's summary as ``benchmarks/run.py``
+does, and writes the JSON artifacts and a summary to
 experiments/bench_torch/.  --full removes the per-tensor element cap.
 
 Left out, with the reason:
 
-* plane codecs, pool wear, engine, fault tolerance, integrity scrub,
-  fleet, redeploy delta and the roofline: their benchmarks are not ported
-  yet (ROADMAP A.11-A.15, A.18).
+* engine, fault tolerance, integrity scrub and fleet: their benchmarks
+  wait for the engine, the fault and integrity layer and the fleet
+  (ROADMAP A.13-A.15);
+* the roofline: it reads the dry run's artifacts (ROADMAP A.18).
 """
 from __future__ import annotations
 
@@ -28,7 +30,10 @@ from benchmarks_torch import (
     fig8_stucking,
     fig9_p_sweep,
     fig10_columns,
+    plane_compression,
     planner_throughput,
+    pool_wear,
+    redeploy_delta,
     serving_throughput,
 )
 from benchmarks_torch.common import banner, save_json
@@ -122,6 +127,35 @@ def main() -> None:
     save_json("BENCH_planner", rpt)
     summary["planner_throughput"] = {"speedup": rpt["speedup"], "bit_exact": rpt["bit_exact"]}
 
+    banner("Plane codecs — reprogramming transitions + weight traffic")
+    rpc = plane_compression.run(max_elems=max_elems, gen=4 if not args.full else 8, device=dev)
+    for m, r in rpc["models"].items():
+        for codec, c in r["codecs"].items():
+            print(f"  {m:10s} {codec:12s} {c['transition_reduction_vs_raw']:.2f}x "
+                  f"transitions, {c['compression_vs_raw']:.2f}x bytes vs raw")
+    parity = all(r["tokens_match_dense"] for r in rpc["serving"]["codecs"].values())
+    print(f"  best transition reduction {rpc['best_transition_reduction']:.2f}x, "
+          f"serve token parity: {parity}")
+    save_json("BENCH_compress", rpc)
+    summary["plane_compression"] = {
+        "best_transition_reduction": rpc["best_transition_reduction"],
+        "serve_token_parity": parity,
+    }
+
+    banner("Pool wear — persistent crossbar pool + wear leveling")
+    rpool = pool_wear.run(deployments=3 if not args.full else 6, device=dev)
+    for lev, s in rpool["levelings"].items():
+        print(f"  {lev:7s} max_cell={s['max_cell_writes']:8d}  "
+              f"imbalance={s['crossbar_imbalance']:.3f}  "
+              f"horizon={s['exhaustion_horizon_deployments']:.3g} deployments")
+    print(f"  LPT leveling reduces max-cell wear "
+          f"{rpool['max_wear_reduction_lpt_vs_none']:.2f}x")
+    save_json("BENCH_pool", rpool)
+    summary["pool_wear"] = {
+        "max_wear_reduction_lpt_vs_none": rpool["max_wear_reduction_lpt_vs_none"],
+        "max_cell_writes_lpt": rpool["levelings"]["lpt"]["max_cell_writes"],
+    }
+
     banner("Serving throughput — fp vs cim-dense vs int8-planes vs packed, by decode loop")
     rst = serving_throughput.run(device=dev)
     for name, by_loop in rst["tok_s"].items():
@@ -129,6 +163,14 @@ def main() -> None:
                                           for loop, tps in by_loop.items()))
     save_json("BENCH_serve", rst)
     summary["serving_throughput"] = rst["tok_s"]
+
+    banner("Redeploy delta (training-time integration, beyond-paper)")
+    rd = redeploy_delta.run(device=dev)
+    for k, v in rd["tensors"].items():
+        print(f"  {k}: stale-sort streaming {v['stale_sort_speedup']:.2f}x "
+              f"(fresh re-sort {v['fresh_sort_speedup']:.2f}x)")
+    save_json("redeploy_delta", rd)
+    summary["redeploy"] = {k: v["stale_sort_speedup"] for k, v in rd["tensors"].items()}
 
     banner(f"benchmarks_torch.run complete in {time.time() - t0:.0f}s")
     save_json("summary", summary)

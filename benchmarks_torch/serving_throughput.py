@@ -146,7 +146,7 @@ def run(
     if layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=layers)
     params = api.init(prng.PRNGKey(seed), cfg, device=dev)
-    bt = api.make_batch(cfg, batch, prompt_len, seed=seed, device=dev)
+    bt = api.make_batch(cfg, prng.PRNGKey(seed), batch, prompt_len, device=dev)
 
     spec = CrossbarSpec(rows=128, cols=10)
     pcfg = PlannerConfig(p_stuck=p_stuck, min_size=min_size)

@@ -9,8 +9,11 @@ run the serving-throughput benchmark; plan yi-6b and serve it the same
 ways — at each model's full width with the depth cut to 4 layers; then the
 paper's planner figures on its models' published shapes, held to the
 reference's integers; train internlm2-1.8b at full width (2 layers) with
-checkpoints, a resume and redeploy pricing; and the accuracy halves of
-Figs. 9/10 and accuracy_e2e on a trained LM, held to the reference's — and
+checkpoints, a resume and redeploy pricing; the accuracy halves of
+Figs. 9/10 and accuracy_e2e on a trained LM, held to the reference's;
+gemma-2b planned and served under the offset_binary encoding; and the
+pool-wear, plane-codec and redeploy-delta benchmarks, held to the
+reference's numbers — and
 holds each hand-written kernel against its plain PyTorch version on the
 card.
 Phases (one line each, any failed check exits 1):
@@ -55,9 +58,10 @@ Phases (one line each, any failed check exits 1):
      kernel of B2, B4 or B5 (B2_tc, B4_tc, B5_tc).  Every variant is
      served through the decode loop's CUDA graph (``loop="scan"``) and the
      eager per-token loop (``loop="python"``): the same tokens bit for bit,
-     and the same launches, counted for the graph from the kernels the
-     profiler saw the card execute and from the wrappers' counts during
-     the capture times the replays, for the eager loop by the wrappers;
+     and the same launches, counted for the graph from the kernel nodes
+     of the captured graph and from the wrappers' counts during the
+     capture, each times the replays (the profiler's kernel records no
+     more than these), for the eager loop by the wrappers;
      sampled: gemma cim-packed, seed 0, the same tokens through both
      loops, and the first step's Gumbel noise on the card equal to the
      CPU's bit for bit;
@@ -96,13 +100,35 @@ Phases (one line each, any failed check exits 1):
      within 1e-5, logit KL also within 5% of the reference's) and on the card-trained weights (accuracies within
      0.01 / 0.02, speedups within 1%); B3 = 272 on the FMA kernel at head
      dim 16, B1 > 0, no plain-version call;
+  5f. offset-binary: gemma-2b at full width (4 layers) planned with
+     ``CrossbarSpec(encoding="offset_binary")`` (p_stuck 0.5, min_size
+     4096), its totals beside the sign_magnitude plan's; served dense,
+     packed (B2), packed const_rle (B4) and planes_int8 (B6 builds on
+     w_hat - offset, B5 serves) through the graph and the eager loop with
+     the serve gates above (launches 7 * layers * gen, tokens equal across
+     loops, const_rle == raw-packed, prefill logits within dense's bound,
+     no plain-version call); no packed sign bit set; B6's integers ==
+     round((w_hat - offset) / scale) on every planned tensor;
+  5g. bench-extra: benchmarks_torch.pool_wear (3 deployments, the
+     reference's drift stds), plane_compression (the golden's caps, gen 4)
+     and redeploy_delta, each on the card: every pool_wear integer and
+     float, every plane_compression transition and byte count and every
+     redeploy_delta integer on the reference's weights equal to the
+     golden file's; tokens_match_dense for every codec (served through
+     B2/B4; whether the tokens equal the reference's is printed, not
+     gated); the card's own redeploy chain's speedups within 1% of the
+     reference's; B1/B2/B4 counted, no plain-version call;
   6. kernels: time, bound (the bf16 tensor-core rate for the tensor-core
      paths, the f32 rate for the FMA kernels), plain-version and library
      times; B2, B3 and B5 on both paths; B6 at yi-6b's wi_gate and head.
 
 The line before the last is the kernels' JSON record (B1's launches are
-those of the gemma-2b plan and the figures, train and accuracy phases; B3's
-those of yi-6b's generate and the accuracy phase); the last line is
+those of the gemma-2b plan and the figures, train, accuracy, offset-binary
+and bench-extra phases; B2's, B4's and B5's those of gemma's packed,
+const_rle and planes_int8 generates plus the offset-binary and bench-extra
+phases'; B3's those of yi-6b's generate and the accuracy, offset-binary
+and bench-extra phases; B6's yi-6b's and the offset-binary deployment's);
+the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
 ``python3 chip_smoke.py`` (needs one CUDA card; fails without one).
 
@@ -164,10 +190,14 @@ ACC_LOSS_RTOL = 1e-3  # 120 training losses (measured on the CPU: 6e-6)
 ACC_FP_ABS, ACC_SWEEP_ABS, ACC_SPEEDUP_RTOL = 0.01, 0.02, 0.01
 ACC_PROBE_ABS = 1e-5  # top-1 agreement and logit KL on the reference's weights
 ACC_KL_RTOL = 0.05  # logit KL there also relative to the golden's (measured 1.3%): 0 cannot pass
+# redeploy_delta on the card's own chain (its trained LM and 20 further steps) against the
+# reference's speedups, as the accuracy phase holds the card-trained sweeps
+REDEPLOY_SPEEDUP_RTOL = 0.01
 
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -222,6 +252,7 @@ def trace(run, top: int = 6) -> str:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
@@ -293,9 +324,9 @@ def counts() -> dict:
             **bs_ops.LAUNCHES, "plain": sum(fn.calls for fn in plain_fns())}
 
 
-# the port's kernels by the demangled symbol the profiler records, and the
-# counters each launch adds to; B2 and B4 are one template, told apart by its
-# fourth argument (kSkip)
+# the port's kernels by the symbol the profiler records or a graph's node
+# list names (demangled or mangled), and the counters each launch adds to;
+# B2 and B4 are one template, told apart by its fourth argument (kSkip)
 KERNEL_SYMBOLS = (
     ("cim_packed_tc_kernel", {"false": ("B2", "B2_tc"), "true": ("B4", "B4_tc")}),
     ("cim_packed_kernel", {"false": ("B2",), "true": ("B4",)}),
@@ -341,7 +372,13 @@ def executed_counts(run) -> dict | None:
     """The port's kernels the card executed in one ``run()``, by counter,
     from torch.profiler's kernel records: graph-replayed kernels are
     recorded one by one, though no wrapper runs for them.  None when the
-    profiler recorded no kernel at all."""
+    profiler recorded no kernel at all.
+
+    The profiler can lose a record: late in a long process it kept 27 of a
+    gemma prefill's 28 CIM records in every profile of one generate, with
+    or without 0.1 s of idle window around the run.  It never adds one, so
+    a serve gate holds these counts only as an upper bound; the exact
+    count is the graph's node list's."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -350,16 +387,38 @@ def executed_counts(run) -> dict | None:
         run()
         torch.cuda.synchronize()
     got, seen = {}, False
+    executed_counts.cim = {}  # the CIM kernels' records by symbol, for a failure message
     for e in prof.key_averages():
         if not str(getattr(e, "device_type", "")).endswith("CUDA"):
             continue
         seen = True
+        if "cim_" in e.key:
+            executed_counts.cim[e.key[:120]] = e.count
         for k in kernel_counters(e.key):
             got[k] = got.get(k, 0) + e.count
     return got if seen else None
 
 
-COUNT_NOTES: list[str] = []  # how each serve gate counted the graph's launches
+COUNT_NOTES: list[str] = []  # profiler records a serve gate found missing
+NODE_LIST = {"graphs": 0, "nodes": 0, "s": 0.0}  # node lists read by the serve gates
+
+
+def graph_counts(decode) -> dict:
+    """The port's kernels in a captured decode graph (``CudaGraphCall``),
+    by counter: one per kernel node of the graph's node list, which a
+    replay runs each once."""
+    got = {}
+    t0 = time.perf_counter()
+    labels = decode.node_labels()
+    NODE_LIST["s"] += time.perf_counter() - t0
+    NODE_LIST["graphs"] += 1
+    NODE_LIST["nodes"] += len(labels)
+    for node in labels:
+        for k in kernel_counters(node):
+            got[k] = got.get(k, 0) + 1
+    if not labels:
+        fail("a decode graph's node list holds no node")
+    return got
 
 
 def served(label, cfg, params, batch, gen, kernel, want, want_tc=0):
@@ -371,12 +430,14 @@ def served(label, cfg, params, batch, gen, kernel, want, want_tc=0):
     the tensor-core kernel in bf16 compute), nothing else, and no plain
     version was called.
 
-    Counted three ways: the eager loop by the wrappers' counters; the graph
-    by the kernels the profiler saw the card execute in one generate, and
-    by the wrappers' counts during the capture times the replays (the
-    generator's set-up runs the decode twice, warm-up and capture, plus one
-    prefill; a timed run counts its prefill only).  Returns the graph's
-    tokens, tok/s, timed run and executed counts."""
+    Counted three ways, each exactly: the eager loop by the wrappers'
+    counters; the graph by the prefill's wrappers plus the kernel nodes of
+    the captured graph times the replays, and by the wrappers' counts
+    during the capture times the replays (the generator's set-up runs the
+    decode twice, warm-up and capture, plus one prefill; a timed run counts
+    its prefill only).  The kernels the profiler saw the card execute in
+    one graph generate may be fewer (it can lose a record), never more or
+    others.  Returns the graph's tokens, tok/s, timed run and counts."""
     import torch
 
     from repro_torch.launch import serve
@@ -394,6 +455,8 @@ def served(label, cfg, params, batch, gen, kernel, want, want_tc=0):
         fail(f"{label} graph set-up launched {c_setup}, a timed run {c_eager}: not one prefill "
              f"plus two decodes")
     from_capture = {k: c_eager[k] + twice[k] // 2 * replays for k in c_setup if k != "plain"}
+    nodes = graph_counts(timed.decode)
+    from_graph = {k: c_eager[k] + nodes.get(k, 0) * replays for k in from_capture}
     executed = executed_counts(timed)
     b = batch["tokens"].shape[0]
     tps = b * gen / dt
@@ -409,12 +472,20 @@ def served(label, cfg, params, batch, gen, kernel, want, want_tc=0):
     if nonzero(from_capture) != expect:
         fail(f"{label} graph launched {from_capture} by its capture x {replays} replay(s) "
              f"(want {expect}, nothing else)")
+    if nonzero(from_graph) != expect:
+        fail(f"{label} graph holds {nonzero(nodes)} kernel nodes of the port's, run {replays} "
+             f"time(s) after a prefill of {nonzero(c_eager)}: {nonzero(from_graph)} (want {expect}, "
+             f"nothing else)")
     if executed is None:
-        COUNT_NOTES.append(f"{label}: the profiler recorded no kernel; counted by capture")
-        executed = from_capture
-    elif nonzero(executed) != expect:
-        fail(f"{label} card executed {executed} in one graph generate (want {expect}, nothing "
-             f"else)")
+        COUNT_NOTES.append(f"{label}: the profiler recorded no kernel")
+    else:
+        over = {k: v for k, v in nonzero(executed).items() if v > expect.get(k, 0)}
+        if over:
+            fail(f"{label} card executed {over} in one graph generate (want {expect}, nothing "
+                 f"else; CIM records {getattr(executed_counts, 'cim', {})})")
+        if nonzero(executed) != expect:
+            COUNT_NOTES.append(f"{label}: the profiler recorded {nonzero(executed)} of "
+                               f"{expect}")
 
     eager = serve.make_generator(cfg, params, batch, gen_len=gen, loop="python")
     reset_counts()
@@ -427,9 +498,9 @@ def served(label, cfg, params, batch, gen, kernel, want, want_tc=0):
         fail(f"{label} graph tokens differ from the eager loop's")
     tps_py = max(b * gen / dt_py, b * gen / eager()[1])
     say(f"phase serve-loops: {label}: graph {tps:.1f} tok/s, eager loop {tps_py:.1f} tok/s; "
-        f"tokens identical; launches equal by the profiler, by the capture x {replays} "
+        f"tokens identical; launches equal by the graph's nodes, by the capture x {replays} "
         f"replay(s) and by the eager wrappers")
-    return toks, tps, timed, {**{k: 0 for k in from_capture}, **executed, "plain": 0}
+    return toks, tps, timed, {**from_graph, "plain": 0}
 
 
 def sampled_phase(dev, cfg, params, batch, tok_greedy) -> None:
@@ -458,7 +529,7 @@ def sampled_phase(dev, cfg, params, batch, tok_greedy) -> None:
     del graph
     small = get_arch("gemma-2b", reduced=True)
     p_small = api.init(prng.PRNGKey(0), small, device=dev)
-    b_small = api.make_batch(small, BATCH, PROMPT, seed=0, device=dev)
+    b_small = api.make_batch(small, prng.PRNGKey(0), BATCH, PROMPT, device=dev)
     toks_small, _ = both_loops(small, p_small, b_small, "reduced gemma")
     greedy_small = serve.generate(small, p_small, b_small, gen_len=GEN)[0]
     # the first pick (after the prefill) splits PRNGKey(0) once and draws
@@ -908,7 +979,7 @@ def yi_phases(dev) -> dict:
         f"{cpu_s:.2f} s: report equal, w_hat bytes identical")
     del w_cpu, w_hat_cpu
 
-    batch = api.make_batch(cfg, BATCH, PROMPT, seed=0, device=dev)
+    batch = api.make_batch(cfg, prng.PRNGKey(0), BATCH, PROMPT, device=dev)
     want = (7 * YI_LAYERS + 1) * GEN  # + the planned LM head, once per forward
     p_dense = planner.deploy_params(params, plan, materialize="dense")
     _, tps_fp, _, _ = served("yi-6b fp", cfg, params, batch, GEN, None, 0)
@@ -1403,6 +1474,221 @@ def accuracy_phase(dev) -> dict:
     return {"B1": c["B1"], "B3": c["B3"]}
 
 
+
+def offset_binary_phase(dev, sm_totals: dict) -> dict:
+    """gemma-2b at its published width (LAYERS layers), planned stateless
+    with ``CrossbarSpec(encoding="offset_binary")`` and served dense, packed
+    (B2), packed const_rle (B4) and planes_int8 (B6 builds, B5 serves),
+    each through the decode graph and the eager loop (``served``'s gates).
+    Fails unless packed and int8 prefill logits lie within dense's bound,
+    const_rle tokens equal raw-packed tokens, and B6's integers equal
+    ``round((w_hat - offset) / scale)`` on every planned tensor.  Returns
+    the main path's launch counts."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.configs import get_arch
+    from repro_torch.core import planner, simulator
+    from repro_torch.models import api
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_arch("gemma-2b"), n_layers=LAYERS)
+    params = api.init(prng.PRNGKey(0), cfg, device=dev)
+    spec = planner.CrossbarSpec(rows=128, cols=10, encoding="offset_binary")
+    pcfg = planner.PlannerConfig(p_stuck=P_STUCK)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan = planner.build_deployment(params, spec, pcfg, device=dev)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    c_plan = counts()
+    if c_plan["B1"] <= 0 or any(c_plan[k] for k in c_plan if k not in ("B1", "plain")) \
+            or c_plan["plain"]:
+        fail(f"offset_binary plan launched {c_plan}")
+    tot = plan.totals()
+    say(f"phase offset-binary: gemma-2b x{LAYERS} layers, {len(plan.reports)} tensors planned "
+        f"offset_binary (p_stuck {P_STUCK}, min_size {pcfg.min_size}) in {plan_s:.2f} s, B1 "
+        f"launches {c_plan['B1']}: transitions {tot['transitions_baseline']} -> "
+        f"{tot['transitions_sws']} -> {tot['transitions_final']}, sws {tot['sws_speedup']:.4f}x "
+        f"total {tot['total_speedup']:.4f}x; sign_magnitude: {sm_totals['transitions_baseline']} "
+        f"-> {sm_totals['transitions_sws']} -> {sm_totals['transitions_final']}, sws "
+        f"{sm_totals['sws_speedup']:.4f}x total {sm_totals['total_speedup']:.4f}x")
+
+    batch = api.make_batch(cfg, prng.PRNGKey(0), BATCH, PROMPT, device=dev)
+    want = 7 * LAYERS * GEN
+    p_dense = planner.deploy_params(params, plan, materialize="dense")
+    p_packed = planner.deploy_params(params, plan, materialize="packed")
+    p_rle = planner.deploy_params(params, plan, materialize="packed", codec=CODEC)
+    if any(bool(d["sign_packed"].any()) for d in _operand_dicts(p_packed)):
+        fail("offset_binary packed operands carry a negative sign bit")
+    tok_dense, tps_dense, _, _ = served("offset_binary dense", cfg, p_dense, batch, GEN, None, 0)
+    tok_packed, tps_packed, _, c2 = served("offset_binary packed", cfg, p_packed, batch, GEN,
+                                           "B2", want, want_tc=want)
+    tok_rle, tps_rle, _, c4 = served(f"offset_binary packed {CODEC}", cfg, p_rle, batch, GEN,
+                                     "B4", want, want_tc=want)
+    if not torch.equal(tok_rle, tok_packed):
+        fail(f"offset_binary {CODEC} tokens differ from raw-packed tokens")
+    logit_check(cfg, p_dense, p_packed, batch, "offset_binary packed")
+    logit_check(cfg, p_dense, p_rle, batch, f"offset_binary packed {CODEC}")
+    del p_rle
+    torch.cuda.empty_cache()
+
+    p_int8, c6 = deploy_int8(params, plan)
+    n_eq = 0
+    for name, w_hat in plan.deployed.items():
+        op = _at(p_int8, name)
+        if not isinstance(op, dict):
+            continue  # served dense (the norm gains)
+        r = plan.reports[name]
+        scale = torch.tensor(r.scale, dtype=torch.float32, device=dev)
+        offset = torch.tensor(r.offset, dtype=torch.float32, device=dev)
+        q = torch.clamp(torch.round((w_hat.to(torch.float32) - offset) / scale), 0,
+                        2**spec.cols - 1).to(torch.int32)
+        old = simulator.int8_plane_operands(q, torch.ones_like(q, dtype=torch.int8), scale,
+                                            offset, spec.cols)["splanes"]
+        if not torch.equal(old, op["splanes"]):
+            fail(f"B6 planes of offset_binary {name} differ from round((w_hat - offset) / scale)")
+        n_eq += 1
+        del q, old
+    say(f"phase offset-binary-B6: planes of all {n_eq} planned matmul tensors, built by "
+        f"{c6['B6']} B6 launches on w_hat - offset, equal round((w_hat - offset) / scale) bit "
+        f"for bit")
+    tok_int8, tps_int8, _, c5 = served("offset_binary planes_int8", cfg, p_int8, batch, GEN, "B5",
+                                       want, want_tc=want)
+    logit_check(cfg, p_dense, p_int8, batch, "offset_binary planes_int8")
+    agree = {label: (t == tok_dense).float().mean().item()
+             for label, t in (("packed", tok_packed), ("planes_int8", tok_int8))}
+    say(f"phase offset-binary: batch {BATCH} prompt {PROMPT} gen {GEN} greedy bf16; tok/s "
+        f"dense {tps_dense:.1f}, packed {tps_packed:.1f}, packed {CODEC} {tps_rle:.1f}, "
+        f"planes_int8 {tps_int8:.1f}; token agreement with dense {agree}; B2 {c2['B2']} (tc "
+        f"{c2['B2_tc']}), B4 {c4['B4']} (tc {c4['B4_tc']}), B5 {c5['B5']} (tc {c5['B5_tc']}), "
+        f"want {want} each; B6 {c6['B6']}; plain-version calls 0; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del p_int8, p_dense, p_packed, plan, params
+    torch.cuda.empty_cache()
+    return {"B1": c_plan["B1"], "B2": c2["B2"], "B2_tc": c2["B2_tc"], "B4": c4["B4"],
+            "B4_tc": c4["B4_tc"], "B5": c5["B5"], "B5_tc": c5["B5_tc"], "B6": c6["B6"],
+            "B3": c2["B3"] + c4["B3"] + c5["B3"], "B3_tc": c2["B3_tc"] + c4["B3_tc"] + c5["B3_tc"]}
+
+
+def bench_extra_phase(dev) -> dict:
+    """The port's pool_wear, plane_compression and redeploy_delta on the
+    card, held to the reference (golden file): pool_wear at the golden's
+    deployments with the reference's drift stds, every integer and float
+    equal; plane_compression at the golden's caps, every transition and
+    byte count equal and tokens_match_dense for every codec (served through
+    B2/B4); redeploy_delta on the reference's weights (every integer equal)
+    and on the card's own chain (speedups within REDEPLOY_SPEEDUP_RTOL).
+    Returns the launch counts."""
+    import torch
+
+    from benchmarks_torch import plane_compression, pool_wear, redeploy_delta
+    from repro_torch.models import attention
+
+    gold = json.loads((ROOT / "benchmarks_torch" / "golden" / "reference.json").read_text())
+    t_phase = time.perf_counter()
+    out = {k: 0 for k in ("B1", "B2", "B2_tc", "B3", "B3_tc", "B4", "B4_tc")}
+
+    def tally(c, label, allowed):
+        if c["plain"] or any(c[k] for k in c if k not in allowed and k != "plain"):
+            fail(f"{label} launched {c} (want only {sorted(allowed)}, no plain-version call)")
+        for k in out:
+            out[k] += c.get(k, 0)
+
+    gp = gold["pool_wear"]
+    reset_counts()
+    t0 = time.perf_counter()
+    rp = pool_wear.run(deployments=gp["deployments"], p_stuck=gp["p_stuck"], seed=gp["seed"],
+                       stds=gp["stds"], device=dev)
+    pw_s = time.perf_counter() - t0
+    c = counts()
+    tally(c, "pool_wear", {"B1"})
+    for lev, want in gp["levelings"].items():
+        got = {k: v for k, v in rp["levelings"][lev].items() if k != "seconds"}
+        d = first_difference(json.loads(json.dumps(got)), want)
+        if d:
+            fail(f"pool_wear {lev} on the card differs from the reference at {d}")
+    if rp["max_wear_reduction_lpt_vs_none"] != gp["max_wear_reduction_lpt_vs_none"]:
+        fail("pool_wear's LPT max-wear reduction differs from the reference's")
+    say(f"phase bench-extra: pool_wear {gp['deployments']} deployments x 4 levelings in "
+        f"{pw_s:.2f} s (B1 {c['B1']}), the reference's drift stds: " + "; ".join(
+            f"{lev} max {r['max_cell_writes']} mean {r['mean_cell_writes']:.4f} total "
+            f"{r['total_writes']} imbalance {r['crossbar_imbalance']:.4f}"
+            for lev, r in rp["levelings"].items())
+        + f"; LPT / none {rp['max_wear_reduction_lpt_vs_none']:.4f}x; all equal to the "
+        f"reference's")
+
+    gc = gold["plane_compression"]
+    cfg_c = gc["config"]
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = plane_compression.run(list(gc["models"]), cfg_c["codecs"], max_elems=cfg_c["max_elems"],
+                               l_crossbars=cfg_c["l_crossbars"], seed=gc["seed"], gen=gc["gen"],
+                               device=dev)
+    torch.cuda.synchronize()
+    pc_s = time.perf_counter() - t0
+    c = counts()
+    tally(c, "plane_compression", {"B1", "B2", "B2_tc", "B3", "B4", "B4_tc"})
+    if c["B1"] <= 0 or c["B2"] <= 0 or c["B4"] <= 0 or c["B3"] <= 0:
+        fail(f"plane_compression launched {c} (want B1, B2, B3 and B4)")
+    d = first_difference(json.loads(json.dumps(rc["models"])), gc["models"])
+    if d:
+        fail(f"plane_compression on the card differs from the reference at {d}")
+    srv, gsrv = rc["serving"]["codecs"], gc["serving"]["codecs"]
+    byte_keys = ("plane_bytes", "sign_bytes", "meta_bytes", "total_bytes", "n_weights")
+    for codec, want in gsrv.items():
+        if {k: srv[codec][k] for k in byte_keys} != {k: want[k] for k in byte_keys}:
+            fail(f"plane_compression serving bytes of {codec} differ from the reference's")
+        if not srv[codec]["tokens_match_dense"]:
+            fail(f"plane_compression: {codec} tokens differ from dense on the card")
+    same_tokens = {codec: srv[codec]["tokens"] == want["tokens"] for codec, want in gsrv.items()}
+    say(f"phase bench-extra: plane_compression {list(gc['models'])} at max_elems "
+        f"{cfg_c['max_elems']} in {pc_s:.2f} s (B1 {c['B1']}, B2 {c['B2']}, B4 {c['B4']}, B3 "
+        f"{c['B3']}): " + "; ".join(
+            f"{m} {codec} {r['transitions']} ({r['transition_reduction_vs_raw']:.4f}x) "
+            f"{r['total_bytes']} B" for m, e in rc["models"].items()
+            for codec, r in e["codecs"].items())
+        + f"; all equal to the reference's; serving bytes equal, tokens_match_dense for every "
+        f"codec; tokens equal to the reference's: dense "
+        f"{rc['serving']['tokens_dense'] == gc['serving']['tokens_dense']}, {same_tokens} "
+        f"(not a gate)")
+
+    gr = gold["redeploy_delta"]
+    reset_counts()
+    t0 = time.perf_counter()
+    rr = redeploy_delta.run(device=dev, reference_weights=True)
+    c = counts()
+    tally(c, "redeploy_delta (reference weights)", {"B1"})
+    if rr["tensors"] != gr["tensors"] or list(rr["tensors"]) != list(gr["tensors"]):
+        fail(f"redeploy_delta on the reference's weights differs: {rr['tensors']}")
+    reset_counts()
+    own = redeploy_delta.run(device=dev)
+    c_own = counts()
+    # the further steps' forwards run blockwise_attention (autograd), remat
+    # "full" twice a layer a step
+    bw = attention.blockwise_attention.calls
+    tally({**c_own, "plain": c_own["plain"] - bw}, "redeploy_delta (own chain)", {"B1"})
+    rd_s = time.perf_counter() - t0
+    worst = 0.0
+    for name, want in gr["tensors"].items():
+        got = own["tensors"][name]
+        for k in ("stale_sort_speedup", "fresh_sort_speedup"):
+            worst = max(worst, abs(got[k] / want[k] - 1))
+    if not worst <= REDEPLOY_SPEEDUP_RTOL:
+        fail(f"redeploy_delta's own chain: speedups {worst:.3e} from the reference's (bound "
+             f"{REDEPLOY_SPEEDUP_RTOL:g}): {own['tensors']}")
+    say(f"phase bench-extra: redeploy_delta in {rd_s:.2f} s: on the reference's weights every "
+        f"integer equal ({', '.join(gr['tensors'])}); the card's own chain (trained here, 20 "
+        f"steps more, blockwise_attention {bw}) speedups within {worst:.3e} of the reference's "
+        f"(bound {REDEPLOY_SPEEDUP_RTOL:g}): " + "; ".join(
+            f"{n} stale {r['stale_sort_speedup']:.4f}x fresh {r['fresh_sort_speedup']:.4f}x"
+            for n, r in own["tensors"].items()))
+    say(f"phase bench-extra: launches {out}; phase {time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -1418,9 +1704,11 @@ def main() -> None:
         from repro_torch.kernels.flash_attention import ref as fa_ref
         from repro_torch.kernels.hamming import ops as ham_ops
         from repro_torch.kernels.hamming import ref as ham_ref
+        from repro_torch.launch.steps import CudaGraphCall
         from repro_torch.models import api
     except ImportError as e:
         fail(f"the port is not beside this script ({e})")
+    CudaGraphCall.keep_nodes = True  # the serve gates count each decode graph's kernel nodes
 
     dev = torch.device("cuda")
     _util.full_f32_matmuls()  # TF32 off: f32 results are compared, not approximated
@@ -1672,7 +1960,7 @@ def main() -> None:
     del weights, w_cpu
 
     # --- 5. serve ------------------------------------------------------------
-    batch = api.make_batch(cfg, BATCH, PROMPT, seed=0, device=dev)
+    batch = api.make_batch(cfg, prng.PRNGKey(0), BATCH, PROMPT, device=dev)
     want_launch = 7 * LAYERS * GEN
 
     p_dense = planner.deploy_params(params, plan, materialize="dense")
@@ -1810,6 +2098,12 @@ def main() -> None:
     # --- 5e. the accuracy halves of Figs. 9/10 and accuracy_e2e ----------------
     acc = accuracy_phase(dev)
 
+    # --- 5f. the offset_binary encoding at gemma-2b's full width ---------------
+    ob = offset_binary_phase(dev, tot)
+
+    # --- 5g. pool wear, plane codecs and redeploy delta, held to the reference --
+    bx = bench_extra_phase(dev)
+
     # --- 6. kernels: time, bound, plain, library -------------------------------
     t = 1 << 20
     pairs = [tuple(torch.randint(0, 256, (t, 16, 10), dtype=torch.uint8, device=dev, generator=g)
@@ -1943,23 +2237,24 @@ def main() -> None:
     kernels = [
         row("hamming_pairs", "src/repro_torch/csrc/hamming.cu",
             "src/repro/kernels/hamming/kernel.py:32",
-            b1_plan + figs["B1"] + trained["B1"] + acc["B1"], b1_err,
+            b1_plan + figs["B1"] + trained["B1"] + acc["B1"] + ob["B1"] + bx["B1"], b1_err,
             dict(ms=b1_ms, plain_ms=b1_plain, bound_ms=b1_bound, bound_by="bytes",
                  library_ms=None)),
         row("cim_matmul_packed", "src/repro_torch/csrc/cim_matmul.cu",
-            "src/repro/kernels/cim_matmul/kernel.py:242", b2_launches, b2_err,
-            records["decode"], b2_tc),
+            "src/repro/kernels/cim_matmul/kernel.py:242", b2_launches + ob["B2"] + bx["B2"],
+            b2_err, records["decode"], b2_tc + ob["B2_tc"] + bx["B2_tc"]),
         row("cim_matmul_packed_skip", "src/repro_torch/csrc/cim_matmul.cu",
-            "src/repro/kernels/cim_matmul/kernel.py:193", b4_launches, b4_err,
-            records["B4 decode"], b4_tc),
+            "src/repro/kernels/cim_matmul/kernel.py:193", b4_launches + ob["B4"] + bx["B4"],
+            b4_err, records["B4 decode"], b4_tc + ob["B4_tc"] + bx["B4_tc"]),
         row("cim_matmul_planes", "src/repro_torch/csrc/cim_planes.cu",
-            "src/repro/kernels/cim_matmul/kernel.py:74", b5_launches, b5_err,
-            records["B5 decode"], b5_tc),
+            "src/repro/kernels/cim_matmul/kernel.py:74", b5_launches + ob["B5"], b5_err,
+            records["B5 decode"], b5_tc + ob["B5_tc"]),
         row("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-            "src/repro/kernels/flash_attention/kernel.py:109", yi["B3"] + acc["B3"], b3_err, rec_b3,
-            yi["B3_tc"]),
+            "src/repro/kernels/flash_attention/kernel.py:109",
+            yi["B3"] + acc["B3"] + ob["B3"] + bx["B3"], b3_err, rec_b3,
+            yi["B3_tc"] + ob["B3_tc"] + bx["B3_tc"]),
         row("bitslice", "src/repro_torch/csrc/bitslice.cu",
-            "src/repro/kernels/bitslice/kernel.py:35", yi["B6"], 0.0, rec_b6),
+            "src/repro/kernels/bitslice/kernel.py:35", yi["B6"] + ob["B6"], 0.0, rec_b6),
     ]
     say("kernels: " + ", ".join(
         f"{r['name']} launches={r['launches']}"
@@ -1968,8 +2263,10 @@ def main() -> None:
         f"ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f}"
         + (f" library_ms={r['library_ms']:.4f}" if r["library_ms"] is not None else "")
         for r in kernels))
-    say("launch counting: " + ("; ".join(COUNT_NOTES) or "every serve gate held the graph's "
-                               "launches from the profiler's kernel records"))
+    say(f"launch counting: every serve gate held the graph's launches from its node list "
+        f"({NODE_LIST['graphs']} graphs, {NODE_LIST['nodes']} nodes, read in "
+        f"{NODE_LIST['s']:.2f} s); " + ("; ".join(COUNT_NOTES) or "the profiler recorded "
+                                         "each of them"))
     say(f"phase done: {time.perf_counter() - t_start:.1f} s after the build started")
     say(card)
     say(json.dumps({"kernels": kernels}))

@@ -1,11 +1,13 @@
 """Quantization and bit-plane slicing for bit-sliced CIM crossbars.
 
-Port of ``repro.core.bitslice`` (sign_magnitude encoding, the planner's and
-the serving path's only encoding).  Conventions are the reference's:
+Port of ``repro.core.bitslice``.  Conventions are the reference's:
 
 * plane axis is the **last** axis of section planes; index ``0`` is the
   lowest-order column (LSB) — the column bit stucking targets;
-* ``w ~= sign * scale * q`` with ``q`` in ``[0, 2**cols - 1]``;
+* ``sign_magnitude``: ``w ~= sign * scale * q`` with ``q`` in
+  ``[0, 2**cols - 1]``; ``offset_binary``: ``w ~= scale * q + offset`` with
+  all signs +1 and ``offset = min(w)`` (the rank-1 term ``sum(x) * offset``
+  corrects a matmul);
 * packed words hold 8 rows (or 8 K values) MSB-first per byte, the order of
   ``numpy.packbits``; padding bits are zero.
 
@@ -21,13 +23,14 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-ENCODINGS = ("sign_magnitude",)
+ENCODINGS = ("sign_magnitude", "offset_binary")
 
 
 @dataclasses.dataclass
 class Quantized:
     """A flat quantized tensor: ``q`` int32[n] magnitudes, ``sign`` int8[n]
-    (+1/-1), ``scale``/``offset`` float32 scalars, static ``cols``."""
+    (+1/-1; all +1 for offset_binary), ``scale``/``offset`` float32 scalars
+    (offset 0 for sign_magnitude), static ``cols`` and ``encoding``."""
 
     q: torch.Tensor
     sign: torch.Tensor
@@ -37,30 +40,38 @@ class Quantized:
     encoding: str
 
 
-def _check_encoding(encoding: str) -> None:
-    if encoding not in ENCODINGS:
-        raise NotImplementedError(
-            f"encoding {encoding!r} is not ported yet (the port serves {ENCODINGS}); "
-            "offset_binary is queued with the pool/codec slice"
-        )
-
-
 def quantize(w: torch.Tensor, cols: int, encoding: str = "sign_magnitude") -> Quantized:
     """Quantize a tensor (any shape; flattened) to ``cols``-bit crossbar form.
 
-    Same operation order as the reference: ``scale = amax * (1/levels)`` with
-    a float32 reciprocal constant, then ``round(|w| / scale)`` (half to even).
+    Same operation order as the reference: ``scale = range * (1/levels)``
+    with a float32 reciprocal constant (range ``max|w|``, or ``max - min``
+    for offset_binary), then ``round(|w| / scale)`` or ``round((w - min) /
+    scale)``, a true division, rounding half to even.  A range below
+    ``tiny * levels`` (a constant tensor) gives a subnormal scale, which
+    XLA:CPU flushes to zero; so does the port, and ``0 / 0`` then gives
+    q = 0 as XLA's conversion of NaN does.
     """
-    _check_encoding(encoding)
+    if encoding not in ENCODINGS:
+        raise ValueError(f"unknown encoding: {encoding!r}")
     flat = w.reshape(-1).to(torch.float32)
     dev = flat.device
     levels = float(2**cols - 1)
     inv_levels = torch.tensor(1.0 / (2**cols - 1), dtype=torch.float32, device=dev)
     tiny = torch.tensor(torch.finfo(torch.float32).tiny, dtype=torch.float32, device=dev)
+
+    def quantize_by(rng: torch.Tensor, mag: torch.Tensor):
+        scale = torch.maximum(rng, tiny) * inv_levels
+        scale = torch.where(scale < tiny, torch.zeros_like(scale), scale)
+        q = torch.nan_to_num(torch.round(mag / scale), nan=0.0)
+        return scale, torch.clamp(q, 0, levels).to(torch.int32)
+
+    if encoding == "offset_binary":
+        lo, hi = flat.min(), flat.max()
+        scale, q = quantize_by(hi - lo, flat - lo)
+        sign = torch.ones_like(q, dtype=torch.int8)
+        return Quantized(q=q, sign=sign, scale=scale, offset=lo, cols=cols, encoding=encoding)
     absw = flat.abs()
-    amax = torch.maximum(absw.max() if flat.numel() else tiny, tiny)
-    scale = amax * inv_levels
-    q = torch.clamp(torch.round(absw / scale), 0, levels).to(torch.int32)
+    scale, q = quantize_by(absw.max() if flat.numel() else tiny, absw)
     sign = torch.where(flat < 0, -1, 1).to(torch.int8)
     offset = torch.zeros((), dtype=torch.float32, device=dev)
     return Quantized(q=q, sign=sign, scale=scale, offset=offset, cols=cols, encoding=encoding)
@@ -68,7 +79,10 @@ def quantize(w: torch.Tensor, cols: int, encoding: str = "sign_magnitude") -> Qu
 
 def dequantize(qt: Quantized) -> torch.Tensor:
     """Inverse of :func:`quantize` (returns the flat tensor)."""
-    return qt.q.to(torch.float32) * qt.scale * qt.sign.to(torch.float32)
+    mag = qt.q.to(torch.float32) * qt.scale
+    if qt.encoding == "sign_magnitude":
+        return mag * qt.sign.to(torch.float32)
+    return mag + qt.offset
 
 
 def bitplanes(q: torch.Tensor, cols: int) -> torch.Tensor:

@@ -189,17 +189,25 @@ class _Prep:
     inv_perm: torch.Tensor
 
 
+def _sort_key(flat_padded: torch.Tensor, encoding: str) -> torch.Tensor:
+    """The SWS sort key: sign_magnitude stores |w|, so it sorts by |w|;
+    offset_binary stores w - min, so it sorts by value.  ``+ 0.0`` turns
+    -0.0 into +0.0 (and changes no other value), so the two zeros tie on
+    every sort route, as they do in the reference's float sort."""
+    return flat_padded.abs() if encoding == "sign_magnitude" else flat_padded + 0.0
+
+
 def _perm_full_with_inverse(
     flat_padded: torch.Tensor, spec: CrossbarSpec, config: PlannerConfig, q_padded: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Slot -> source permutation of the padded vector (SWS order by |w|,
-    padding sorting with the zeros; then the TSP section walk if asked),
-    and its inverse; the identity without SWS."""
+    """Slot -> source permutation of the padded vector (SWS order by
+    :func:`_sort_key`, the zero padding sorting with the zeros; then the TSP
+    section walk if asked), and its inverse; the identity without SWS."""
     rows, cols = spec.rows, spec.cols
     if not config.sws:
         ar = torch.arange(flat_padded.shape[0], device=flat_padded.device)
         return ar, ar
-    perm, inv_perm = sws.stable_argsort(flat_padded.abs(), with_inverse=True)
+    perm, inv_perm = sws.stable_argsort(_sort_key(flat_padded, spec.encoding), with_inverse=True)
     if config.section_order == "tsp":
         order = sws.tsp_greedy_order(bitslice.section_planes_packed(q_padded[perm], rows, cols))
         slot = order[:, None] * rows + torch.arange(rows, device=order.device)

@@ -21,9 +21,11 @@ planes, B2 otherwise) and its plain version on CPU tensors
 (``kernels.cim_matmul.ops``), then adds the rank-1 offset term.
 Numerically every route equals ``x @ w_hat``.
 
-The fidelity probes ``output_mse``, ``logit_kl`` and ``top1_agreement``
-compare a model's outputs under two parameter sets (fp and deployed), as
-the reference's do.
+``prepare_linear`` quantizes one [K, N] weight straight into either dict
+(the natural, unsorted layout).  The fidelity probes ``output_mse``,
+``logit_kl`` and ``top1_agreement`` compare a model's outputs under two
+parameter sets (fp and deployed), as the reference's do, and
+``deploy_and_probe`` plans, deploys and probes in one call.
 """
 from __future__ import annotations
 
@@ -31,6 +33,13 @@ import torch
 
 from repro_torch.core import bitslice
 from repro_torch.core import planes as planes_mod
+from repro_torch.core.planner import (
+    CrossbarSpec,
+    DeploymentPlan,
+    PlannerConfig,
+    build_deployment,
+    deploy_params,
+)
 from repro_torch.kernels.bitslice import ops as bs_ops
 from repro_torch.kernels.cim_matmul import ops as cim_ops
 from repro_torch.kernels.cim_matmul import ref as cim_ref
@@ -82,19 +91,23 @@ def operands_from_dense(
 ) -> dict[str, torch.Tensor]:
     """Recover crossbar operands from achieved dense weights ``w_hat``.
 
-    ``w_hat`` is exactly representable under (scale, encoding) for any
-    planner-deployed tensor, so the rounding below recovers the integer
-    magnitudes exactly.  ``signbit`` (not ``< 0``) keeps the sign of a
-    q = 0 cell stored as -0.0.  ``codec`` applies the serving-side plane
-    codec (``planes.encode_operands``) to packed operands; only they have a
+    ``w_hat`` is exactly representable under (scale, offset, encoding) for
+    any planner-deployed tensor, so the rounding below recovers the integer
+    magnitudes exactly: ``round(|w_hat| / scale)`` with the sign from
+    ``signbit`` (not ``< 0``: a q = 0 cell stored as -0.0 keeps its sign)
+    for sign_magnitude, ``round((w_hat - offset) / scale)`` with all signs
+    +1 for offset_binary.  ``codec`` applies the serving-side plane codec
+    (``planes.encode_operands``) to packed operands; only they have a
     stored-plane layout to encode.
 
-    Int8 planes are built by ``bitslice_planes(w_hat, 1 / scale, cols)``
-    (kernel B6 on CUDA, its plain version on the CPU), the role the
+    Int8 planes are built by ``bitslice_planes(d, 1 / scale, cols)`` on
+    ``d = w_hat`` (sign_magnitude) or ``d = w_hat - offset`` (offset_binary)
+    — kernel B6 on CUDA, its plain version on the CPU — the role the
     reference's bitslice kernel was written for: for a deployed weight
-    ``|w_hat| * (1 / scale)`` lies within ~1e-4 of the same integer as
-    ``|w_hat| / scale``, and a q = 0 cell is 0 in every plane whatever its
-    sign, so the planes equal the reference's.
+    ``|d| * (1 / scale)`` lies within ~1e-4 of the same integer as
+    ``d / scale``, and a q = 0 cell (also one whose ``d`` comes out as -0.0
+    or a tiny negative) is 0 in every plane whatever its sign, so the
+    planes equal the reference's.
     """
     if codec != "raw" and materialize != "packed":
         raise ValueError(
@@ -103,20 +116,24 @@ def operands_from_dense(
         )
     if materialize not in ("packed", "planes_int8"):
         raise ValueError(f"unknown operand materialize {materialize!r}")
-    if encoding != "sign_magnitude":
-        raise NotImplementedError(
-            f"encoding {encoding!r} is not ported (offset_binary: ROADMAP A.2)"
-        )
+    if encoding not in bitslice.ENCODINGS:
+        raise ValueError(f"unknown encoding: {encoding!r}")
     w32 = w_hat.to(torch.float32).contiguous()
     scale_t = torch.as_tensor(scale, dtype=torch.float32, device=w32.device)
+    offset_t = torch.as_tensor(offset, dtype=torch.float32, device=w32.device)
+    d = w32 if encoding == "sign_magnitude" else w32 - offset_t
     if materialize == "planes_int8":
-        splanes = bs_ops.bitslice_planes(w32, 1.0 / scale_t, cols)
+        splanes = bs_ops.bitslice_planes(d, 1.0 / scale_t, cols)
         return {"splanes": splanes,
-                **_lead_scalars(scale_t, offset, tuple(w32.shape[:-2]), w32.device)}
+                **_lead_scalars(scale_t, offset_t, tuple(w32.shape[:-2]), w32.device)}
     levels = float(2**cols - 1)
-    q = torch.clamp(torch.round(w32.abs() / scale_t), 0, levels).to(torch.int32)
-    sign = torch.where(torch.signbit(w32), -1, 1).to(torch.int8)
-    return planes_mod.encode_operands(packed_operands(q, sign, scale_t, offset, cols), codec)
+    if encoding == "sign_magnitude":
+        q = torch.clamp(torch.round(w32.abs() / scale_t), 0, levels).to(torch.int32)
+        sign = torch.where(torch.signbit(w32), -1, 1).to(torch.int8)
+    else:
+        q = torch.clamp(torch.round(d / scale_t), 0, levels).to(torch.int32)
+        sign = torch.ones_like(q, dtype=torch.int8)
+    return planes_mod.encode_operands(packed_operands(q, sign, scale_t, offset_t, cols), codec)
 
 
 def is_cim_operands(w) -> bool:
@@ -145,6 +162,40 @@ def densify_packed(params):
     return params
 
 
+def prepare_linear(
+    w: torch.Tensor,
+    spec: CrossbarSpec = CrossbarSpec(),
+    *,
+    materialize: str = "int8",
+    codec: str = "raw",
+) -> dict[str, torch.Tensor]:
+    """Quantize a [K, N] weight matrix into crossbar operands for ``cim_linear``.
+
+    The execution path's natural, unpermuted layout (the planner's
+    programming order does not apply), on ``w``'s device.
+    ``materialize="int8"`` gives the signed int8 planes (plain torch ops,
+    as the reference builds them here) plus the ``encoding`` tag;
+    ``"packed"`` the bit-packed serving operands, codec-encoded by
+    ``planes.encode_operands``.
+    """
+    if w.ndim != 2:
+        raise ValueError("prepare_linear expects a 2-D weight")
+    if codec != "raw" and materialize != "packed":
+        raise ValueError(
+            f"codec {codec!r} encodes packed serving operands; materialize "
+            f"{materialize!r} has no stored-plane layout"
+        )
+    qt = bitslice.quantize(w, spec.cols, spec.encoding)
+    q, sign = qt.q.reshape(w.shape), qt.sign.reshape(w.shape)
+    if materialize == "packed":
+        return planes_mod.encode_operands(
+            packed_operands(q, sign, qt.scale, qt.offset, spec.cols), codec)
+    if materialize != "int8":
+        raise ValueError(f"unknown materialize: {materialize!r}")
+    return {**int8_plane_operands(q, sign, qt.scale, qt.offset, spec.cols),
+            "encoding": spec.encoding}
+
+
 def cim_linear(x: torch.Tensor, operands: dict[str, torch.Tensor]) -> torch.Tensor:
     """y = x @ w_hat computed on the deployed planes -> f32[M, N].
 
@@ -152,7 +203,9 @@ def cim_linear(x: torch.Tensor, operands: dict[str, torch.Tensor]) -> torch.Tens
     packed planes take B4 when they carry zero-tile flags and B2 otherwise,
     with ``plane_ids`` inside the kernel (plain versions on the CPU).  The
     rank-1 term ``sum(x) * offset`` is the offset encoding's digital
-    correction; offset is exactly 0 for sign_magnitude.
+    correction, added once on every operand kind; offset is exactly 0 for
+    sign_magnitude, and an operand tagged ``encoding="sign_magnitude"``
+    (``prepare_linear``'s int8 planes) skips it, as in the reference.
     """
     if "splanes" in operands:
         y = cim_ops.cim_matmul(x, operands["splanes"], operands["scale"])
@@ -161,6 +214,8 @@ def cim_linear(x: torch.Tensor, operands: dict[str, torch.Tensor]) -> torch.Tens
             x, operands["planes_packed"], operands["sign_packed"], operands["scale"],
             tile_nz=operands.get("plane_tile_nz"), plane_ids=operands.get("plane_ids"),
         )
+    if operands.get("encoding") == "sign_magnitude":
+        return y
     return y + torch.sum(x, dim=-1, keepdim=True, dtype=torch.float32) * operands["offset"]
 
 
@@ -186,3 +241,24 @@ def top1_agreement(f, params_a, params_b, batch) -> torch.Tensor:
     """Fraction of positions where argmax predictions agree (accuracy proxy)."""
     la, lb = f(params_a, batch), f(params_b, batch)
     return torch.mean((torch.argmax(la, -1) == torch.argmax(lb, -1)).to(torch.float32))
+
+
+def deploy_and_probe(
+    f,
+    params,
+    batch,
+    spec: CrossbarSpec = CrossbarSpec(),
+    config: PlannerConfig = PlannerConfig(),
+    *,
+    device=None,
+) -> tuple[DeploymentPlan, dict[str, float]]:
+    """One call: plan the deployment (on ``device``: CUDA unless the caller
+    asks for the CPU), swap the weights, measure fidelity."""
+    plan = build_deployment(params, spec, config, device=device)
+    params_hat = deploy_params(params, plan)
+    probes = {
+        "output_mse": float(output_mse(f, params, params_hat, batch)),
+        "logit_kl": float(logit_kl(f, params, params_hat, batch)),
+        "top1_agreement": float(top1_agreement(f, params, params_hat, batch)),
+    }
+    return plan, probes

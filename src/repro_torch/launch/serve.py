@@ -209,7 +209,8 @@ def main(argv: list[str] | None = None) -> None:
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     params = api.init(prng.PRNGKey(args.seed), cfg, device=dev)
-    batch = api.make_batch(cfg, args.batch, args.prompt_len, seed=args.seed, device=dev)
+    batch = api.make_batch(cfg, prng.PRNGKey(args.seed), args.batch, args.prompt_len,
+                           device=dev)
 
     tokens, tps = generate(cfg, params, batch, gen_len=args.gen, seed=args.seed, loop=args.loop)
     print(f"fp weights:   {tps:8.1f} tok/s   first request: {tokens[0, :12].tolist()}")

@@ -167,6 +167,17 @@ def make_decode_loop(cfg: ArchConfig, n_steps: int, *, greedy: bool = True):
     return decode_loop
 
 
+def dot_node_labels(text: str) -> list[str]:
+    """The node statements of a DOT graph (``"name"[attributes];``), one
+    string each, DOT's escapes of ``<>{}|`` undone and a kernel's launch
+    configuration (``<<<grid, block, smem>>>``) left out; edges too."""
+    import re
+
+    nodes = re.split(r'(?m)^\s*"[^"]+"\s*\[', text)[1:]
+    return [re.sub(r"<<<.*?>>>", "", re.sub(r"\\([<>{}|])", r"\1", n), flags=re.S)
+            for n in nodes]
+
+
 class CudaGraphCall:
     """``fn(*static)`` captured once as one CUDA graph, replayed per call.
 
@@ -179,7 +190,12 @@ class CudaGraphCall:
     libraries, sets their shared-memory attributes and sets up cuBLAS, which
     a capture may not do.  Capture and replay errors raise; nothing falls
     back to eager execution.
+
+    With the class attribute ``keep_nodes`` set, graphs captured from then
+    on keep their node list, which :meth:`node_labels` reads.
     """
+
+    keep_nodes = False
 
     def __init__(self, fn, *static):
         self.static = static
@@ -188,10 +204,35 @@ class CudaGraphCall:
         with torch.cuda.stream(stream):
             fn(*static)
         torch.cuda.current_stream().wait_stream(stream)
-        self.graph = torch.cuda.CUDAGraph()
+        if self.keep_nodes:
+            self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+            self.graph.enable_debug_mode()
+        else:
+            self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph, stream=stream):
             self.out = fn(*static)
+        if self.keep_nodes:
+            self.graph.instantiate()  # a kept graph instantiates on demand
         self.replays = 0
+        self._labels = None
+
+    def node_labels(self) -> list[str]:
+        """One label per node of the captured graph, as
+        ``cudaGraphDebugDotPrint`` writes it (a kernel node's names its
+        function), DOT's escapes undone.  Needs ``keep_nodes`` at capture."""
+        if self._labels is None:
+            import os
+            import tempfile
+
+            with tempfile.TemporaryDirectory() as d:
+                path = os.path.join(d, "graph.dot")
+                self.graph.debug_dump(path)
+                if not os.path.exists(path):
+                    raise RuntimeError("the CUDA graph wrote no node list (captured "
+                                       "without keep_nodes?)")
+                with open(path) as f:
+                    self._labels = dot_node_labels(f.read())
+        return self._labels
 
     def __call__(self, *inputs):
         if len(inputs) != len(self.static):

@@ -5,6 +5,7 @@ from typing import Any
 
 import torch
 
+from repro_torch import prng
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels._util import resolve_device
 from repro_torch.models import transformer
@@ -24,12 +25,11 @@ def merge_prefill_cache(cfg: ArchConfig, full_cache: list, pf_cache: list) -> li
     return full_cache
 
 
-def make_batch(
-    cfg: ArchConfig, batch: int, seq_len: int, *, seed: int = 0, device=None
-) -> dict[str, Any]:
-    """Random token batch from ``seed`` (smoke runs / examples), on CUDA
-    unless ``device="cpu"``."""
+def make_batch(cfg: ArchConfig, key: torch.Tensor, batch: int, seq_len: int, *,
+               device=None) -> dict[str, Any]:
+    """Random int32 token batch (smoke runs / examples), on CUDA unless
+    ``device="cpu"``: the reference's draw bit for bit, ``prng.randint``
+    from the first half of ``prng.split(key)``."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    tokens = torch.randint(0, cfg.vocab_size, (batch, seq_len), generator=gen, device=device)
-    return {"tokens": tokens}
+    kt, _ = prng.split(key.to(device)).unbind(-2)
+    return {"tokens": prng.randint(kt, (batch, seq_len), 0, cfg.vocab_size)}

@@ -266,3 +266,33 @@ def test_serve_cli_loop_on_cpu(capsys, loop):
     assert "fp weights" in capsys.readouterr().out
     with pytest.raises(SystemExit):
         serve.main(["--arch", "gemma-2b", "--reduced", "--device", "cpu", "--loop", "scanned"])
+
+
+DOT = '''digraph dot {
+subgraph cluster_1 {
+label="graph_1" graph[style="dashed"];
+"graph_1_node_0"[style="bold" shape="record" label="{KERNEL
+| {ID | 0 | _ZN2tc20cim_packed_tc_kernelILi10ELi2ELb1ELb0ELb0EEEvv\\<\\<\\<(8,1,1),(384,1,1),0\\>\\>\\>}
+}"];
+"graph_1_node_1"[style="solid" shape="rectangle" label="1
+void tc::cim_packed_tc_kernel\\<10, 1, true, true, false\\>()"];
+"graph_1_node_2"[style="solid" shape="rectangle" label="2
+MEMSET"];
+"graph_1_node_0" -> "graph_1_node_1" [style="solid"];
+"graph_1_node_1" -> "graph_1_node_2" [style="solid"];
+}
+}
+'''
+
+
+def test_dot_node_labels_one_per_node():
+    """A decode graph's node list: one label per node statement, no edge
+    read as a node, DOT's escapes undone and launch configurations left
+    out, so a kernel's template arguments are the first ``<...>``."""
+    labels = steps.dot_node_labels(DOT)
+    assert len(labels) == 3
+    assert "cim_packed_tc_kernelILi10ELi2ELb1ELb0ELb0EEEvv}" in labels[0]
+    assert "<<<" not in labels[0] and "\\" not in labels[0]
+    assert "cim_packed_tc_kernel<10, 1, true, true, false>()" in labels[1]
+    assert "MEMSET" in labels[2] and "cim_" not in labels[2]
+    assert steps.dot_node_labels("digraph dot {\n}\n") == []

@@ -8,7 +8,8 @@ The graph (``loop="scan"``) gives the eager per-token loop's tokens bit for
 bit, greedy and sampled, on the reduced gemma-2b and on gemma-2b at full
 width with 1 layer (fp and packed weights); a captured ``decode_step``
 replayed at two positions equals the eager step in logits and cache bits;
-the card's Gumbel noise equals the CPU's bit for bit.
+the card's Gumbel noise equals the CPU's bit for bit; a graph captured with
+``CudaGraphCall.keep_nodes`` lists one kernel node per launch of its capture.
 """
 from __future__ import annotations
 
@@ -53,7 +54,7 @@ def _loops_agree(cfg, params, batch, greedy):
 def test_graph_equals_eager_reduced(cuda_device, greedy):
     cfg = get_arch("gemma-2b", reduced=True)
     params = api.init(prng.PRNGKey(0), cfg, device=cuda_device)
-    batch = api.make_batch(cfg, 2, 12, seed=1, device=cuda_device)
+    batch = api.make_batch(cfg, prng.PRNGKey(1), 2, 12, device=cuda_device)
     _loops_agree(cfg, params, batch, greedy)
 
 
@@ -68,7 +69,8 @@ def gemma_full():
     plan = planner.build_deployment(params, planner.CrossbarSpec(),
                                     planner.PlannerConfig(p_stuck=0.5), device=dev)
     packed = planner.deploy_params(params, plan, materialize="packed")
-    return cfg, {"fp": params, "packed": packed}, api.make_batch(cfg, 4, 32, seed=0, device=dev)
+    batch = api.make_batch(cfg, prng.PRNGKey(0), 4, 32, device=dev)
+    return cfg, {"fp": params, "packed": packed}, batch
 
 
 @pytest.mark.cuda
@@ -86,7 +88,7 @@ def test_graph_equals_eager_full_width(gemma_full, weights, greedy):
 def test_captured_decode_step_replays_at_two_positions(cuda_device):
     cfg = get_arch("gemma-2b", reduced=True)
     params = api.init(prng.PRNGKey(0), cfg, device=cuda_device)
-    batch = api.make_batch(cfg, 2, 12, seed=2, device=cuda_device)
+    batch = api.make_batch(cfg, prng.PRNGKey(2), 2, 12, device=cuda_device)
     step = steps.make_serve_step(cfg)
     with torch.inference_mode():
         _, pf = api.prefill(params, cfg, batch)
@@ -118,3 +120,21 @@ def test_gumbel_on_the_card_equals_the_cpu(cuda_device, shape):
     logits = torch.randn(shape, generator=torch.Generator().manual_seed(0))
     assert torch.equal(prng.categorical(sub.to(cuda_device), logits.to(cuda_device)).cpu(),
                        prng.categorical(sub, logits))
+
+
+@pytest.mark.cuda
+def test_graph_node_list_holds_each_captured_launch(gemma_full, monkeypatch):
+    """A decode graph captured with ``keep_nodes`` lists one kernel node per
+    B2 launch its capture made: the warm-up and the capture each launch the
+    decode's 7 * layers * (gen - 1), beside the prefill's 7 * layers."""
+    cfg, params, batch = gemma_full
+    monkeypatch.setattr(steps.CudaGraphCall, "keep_nodes", True)
+    cim_ops.reset_launches()
+    run = serve.make_generator(cfg, params["packed"], batch, gen_len=GEN)
+    setup = cim_ops.LAUNCHES["B2"]
+    cim_ops.reset_launches()
+    run()
+    prefill = cim_ops.LAUNCHES["B2"]
+    nodes = sum("cim_packed_tc_kernel" in label for label in run.decode.node_labels())
+    assert prefill == 7 * cfg.n_layers
+    assert nodes == (setup - prefill) // 2 == 7 * cfg.n_layers * (GEN - 1)

@@ -399,7 +399,7 @@ def test_model_entry_points_need_a_card(monkeypatch, entry):
     cfg = get_arch("gemma-2b", reduced=True)
     calls = {
         "init": lambda **kw: api.init(prng.PRNGKey(0), cfg, **kw),
-        "make_batch": lambda **kw: api.make_batch(cfg, 2, 8, **kw),
+        "make_batch": lambda **kw: api.make_batch(cfg, prng.PRNGKey(0), 2, 8, **kw),
         "init_cache": lambda **kw: api.init_cache(cfg, 2, 8, **kw),
         "from_numpy_tree": lambda **kw: from_numpy_tree({"w": np.zeros((2, 3), np.float32)}, **kw),
     }

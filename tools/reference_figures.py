@@ -26,6 +26,15 @@ internlm2-1.8b at its published widths with the depth cut to 2 layers
 from ``init(PRNGKey(seed))``: the losses, grad norms and lrs, and the CPU
 seconds of the compile and of each step (~75 s and ~12 GB on 8 cores).
 
+The ``pool_wear``, ``plane_compression`` and ``redeploy_delta`` entries
+are the reference's ``benchmarks/`` runs of those names at
+``benchmarks/run.py``'s settings (3 deployments; ``--max-elems`` a tensor
+and gen 4; 20 further steps), seconds apart.  ``pool_wear`` also
+holds the ``jnp.std`` of every drifted leaf at each drift step (float32
+hex), ``plane_compression`` the served token arrays, and
+``redeploy_delta`` every ``RedeployReport`` field; the post-step weights
+of the 4 priced tensors go to ``golden/redeploy_delta_seed<seed>.npz``.
+
 ``--parts accuracy,trainer`` (any of the entry names) recomputes those
 entries alone and keeps the rest of the file.
 
@@ -36,7 +45,7 @@ from ``benchmarks_torch``, which reads it.
 
   PYTHONPATH=src JAX_PLATFORMS=cpu python tools/reference_figures.py \\
       [--max-elems 2000000] [--planner-max-elems 750000] [--planner-layers 6] \\
-      [--parts all|fig5,...,accuracy,trainer]
+      [--parts all|fig5,...,accuracy,trainer,pool_wear,...]
 
 The weights come from ``jax.random.normal`` on XLA:CPU; the port's
 ``prng.normal`` reproduces those draws bit for bit on an x86-64 host with
@@ -224,6 +233,99 @@ def trainer_record(seed: int = 0) -> dict:
     return out
 
 
+def _f32_hex(x) -> str:
+    import numpy as np
+
+    return f"{int(np.asarray(x, np.float32).reshape(1).view(np.uint32)[0]):08x}"
+
+
+def pool_wear_record(deployments: int = 3, seed: int = 0) -> dict:
+    """The reference's ``pool_wear.run`` (seconds apart) and the ``jnp.std``
+    of every drifted leaf at each drift step, as float32 hex."""
+    import jax
+    import jax.numpy as jnp
+
+    from benchmarks import pool_wear
+
+    res = pool_wear.run(deployments=deployments, seed=seed)
+    stds = []
+    for params in pool_wear._checkpoints(deployments, seed):
+        stds.append({jax.tree_util.keystr(p, simple=True, separator="/"): _f32_hex(jnp.std(w))
+                     for p, w in jax.tree_util.tree_flatten_with_path(params)[0] if w.ndim >= 2})
+    seconds = {lev: r.pop("seconds") for lev, r in res["levelings"].items()}
+    res.pop("backend")
+    return {**res, "seed": seed, "stds": stds, "seconds_cpu": seconds}
+
+
+def plane_compression_record(max_elems: int, gen: int = 4, seed: int = 0) -> dict:
+    """The reference's ``plane_compression.run`` and the token arrays of its
+    serving half (dense and each codec), which ``run`` compares but does
+    not return."""
+    import jax
+    import numpy as np
+
+    from benchmarks import plane_compression as pc
+    from repro.configs import get_arch
+    from repro.core.planner import CrossbarSpec, PlannerConfig, build_deployment, deploy_params
+    from repro.launch.serve import generate
+    from repro.models import api
+
+    res = pc.run(max_elems=max_elems, gen=gen, seed=seed)
+    cfg = get_arch("gemma-2b", reduced=True)
+    key = jax.random.PRNGKey(0)
+    params = api.init(key, cfg)
+    batch = api.make_batch(cfg, key, 2, 12)
+    plan = build_deployment(params, CrossbarSpec(rows=128, cols=pc.COLS),
+                            PlannerConfig(p_stuck=1.0, min_size=1024))
+    dense = np.asarray(generate(cfg, deploy_params(params, plan), batch, gen_len=gen)[0])
+    res["serving"]["tokens_dense"] = dense.tolist()
+    for codec, r in res["serving"]["codecs"].items():
+        p = deploy_params(params, plan, materialize="packed", codec=codec)
+        toks = np.asarray(generate(cfg, p, batch, gen_len=gen)[0])
+        assert r["tokens_match_dense"] == bool(np.array_equal(toks, dense)), codec
+        r["tokens"] = toks.tolist()
+    return {**res, "gen": gen, "seed": seed}
+
+
+def redeploy_delta_record(seed: int = 0, extra_steps: int = 20) -> dict:
+    """The reference's ``redeploy_delta.run``, every ``RedeployReport`` field
+    of its priced tensors, and their post-step weights (golden npz)."""
+    import dataclasses
+
+    import jax
+    import numpy as np
+
+    from benchmarks import redeploy_delta, trained_lm
+    from repro.core.redeploy import delta_cost
+    from repro.data import DataConfig, make_dataset
+    from repro.launch.steps import make_train_step
+    from repro.optim import AdamWConfig, adamw_init
+
+    res = redeploy_delta.run(extra_steps=extra_steps, seed=seed)
+    # the same steps again, keeping the weights run() prices
+    cfg, params_old, _ = trained_lm.get_trained_lm(seed=seed)
+    ds = make_dataset(DataConfig(cfg.vocab_size, 64, 8, task="copy", seed=seed))
+    step = jax.jit(make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1,
+                                                    total_steps=extra_steps)))
+    params, opt = params_old, adamw_init(params_old)
+    for s in range(extra_steps):
+        params, opt, _ = step(params, opt, ds.batch_at(20_000 + s))
+    name_of = lambda p: jax.tree_util.keystr(p, simple=True, separator="/")  # noqa: E731
+    old = dict((name_of(p), v) for p, v in jax.tree_util.tree_flatten_with_path(params_old)[0])
+    new = dict((name_of(p), v) for p, v in jax.tree_util.tree_flatten_with_path(params)[0])
+    reports = {}
+    for name in res["tensors"]:
+        rep = delta_cost(old[name], new[name], name=name)
+        reports[name] = {**dataclasses.asdict(rep), "sws_delta_speedup": rep.sws_delta_speedup,
+                         "stale_sort_speedup": rep.stale_sort_speedup,
+                         "fresh_sort_speedup": rep.fresh_sort_speedup}
+        assert reports[name]["chain_stale_sws"] == res["tensors"][name]["chain_stale_sws"], name
+    npz = OUT.parent / f"redeploy_delta_seed{seed}.npz"
+    np.savez(npz, **{name: np.asarray(new[name]) for name in res["tensors"]})
+    return {**res, "seed": seed, "reports": reports, "npz": npz.name,
+            "npz_sha256": hashlib.sha256(npz.read_bytes()).hexdigest()}
+
+
 def collect(max_elems: int, planner_max_elems: int, planner_layers: int, seed: int = 0,
             only: set | None = None) -> dict:
     import jax
@@ -250,6 +352,9 @@ def collect(max_elems: int, planner_max_elems: int, planner_layers: int, seed: i
         "planner": lambda: planner_plan(planner_max_elems, planner_layers),
         "accuracy": lambda: accuracy_record(seed),
         "trainer": lambda: trainer_record(seed),
+        "pool_wear": lambda: pool_wear_record(seed=seed),
+        "plane_compression": lambda: plane_compression_record(max_elems, seed=seed),
+        "redeploy_delta": lambda: redeploy_delta_record(seed),
     }
     if only is not None:
         if only - parts.keys():
