@@ -193,6 +193,20 @@ def banner(title: str) -> None:
     print(f"\n=== {title} " + "=" * max(0, 70 - len(title)))
 
 
+def logit_kl_f64(f, params_a, params_b, batch) -> float:
+    """``simulator.logit_kl`` taken in float64 from the same float32 logits.
+
+    At the quantization floor (KL ~4e-7 on the reduced LMs) the float32
+    KL's own rounding (log-probabilities of size ~5 carry ~5e-7 each) is of
+    the KL's size, so two float32 KLs of identical weights differ by ~20%;
+    in float64 they agree to ~1e-5, which is what the golden comparisons
+    hold."""
+    la = f(params_a, batch).to(torch.float64)
+    lb = f(params_b, batch).to(torch.float64)
+    pa, pb = torch.log_softmax(la, dim=-1), torch.log_softmax(lb, dim=-1)
+    return float(torch.mean(torch.sum(torch.exp(pa) * (pa - pb), dim=-1)))
+
+
 class Timer:
     """Wall time of a block; synchronizes ``device`` (if CUDA) at both ends."""
 

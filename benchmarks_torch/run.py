@@ -5,16 +5,17 @@
 Runs Fig. 5, Fig. 6, Fig. 7, Fig. 8, Fig. 9 and Fig. 10 (both halves: the
 accuracy halves deploy the reduced LM trained once per process by
 ``trained_lm``), the end-to-end accuracy check, the planner throughput, the
-plane codecs, the pool wear, the serving throughput (both decode loops)
-and the redeploy delta, prints each one's summary as ``benchmarks/run.py``
+plane codecs, the pool wear, the serving throughput (both decode loops),
+the redeploy delta, and the engine-free halves of the fault tolerance and
+the integrity scrub, prints each one's summary as ``benchmarks/run.py``
 does, and writes the JSON artifacts and a summary to
 experiments/bench_torch/.  --full removes the per-tensor element cap.
 
 Left out, with the reason:
 
-* engine, fault tolerance, integrity scrub and fleet: their benchmarks
-  wait for the engine, the fault and integrity layer and the fleet
-  (ROADMAP A.13-A.15);
+* the engine and the fleet benchmarks, the fault tolerance's hot redeploy
+  and the integrity scrub's engine scrub and scrub overhead: they wait for
+  the engine and the fleet (ROADMAP A.14-A.15);
 * the roofline: it reads the dry run's artifacts (ROADMAP A.18).
 """
 from __future__ import annotations
@@ -30,6 +31,8 @@ from benchmarks_torch import (
     fig8_stucking,
     fig9_p_sweep,
     fig10_columns,
+    fault_tolerance,
+    integrity_scrub,
     plane_compression,
     planner_throughput,
     pool_wear,
@@ -171,6 +174,24 @@ def main() -> None:
               f"(fresh re-sort {v['fresh_sort_speedup']:.2f}x)")
     save_json("redeploy_delta", rd)
     summary["redeploy"] = {k: v["stale_sort_speedup"] for k, v in rd["tensors"].items()}
+
+    banner("Fault tolerance — logit KL vs stuck-cell rate, naive vs fault-aware")
+    rft = fault_tolerance.run(device=dev)
+    print(f"  remapping recovers {100 * rft['recovery_at_ref']:.1f}% of the KL degradation "
+          f"at rate {rft['ref_rate']}; horizons "
+          + ", ".join(f"{h:.3g}" for h in rft["endurance"]["horizons"]))
+    save_json("BENCH_fault", rft)
+    summary["fault_tolerance"] = {"recovery_at_ref": rft["recovery_at_ref"]}
+
+    banner("Integrity scrub — storm, detect, repair, restore parity")
+    ris = integrity_scrub.run(device=dev)
+    sr = ris["storm_repair"]
+    print(f"  {sr['detections']} tiles detected, repair cost "
+          f"{100 * sr['repair_cost_ratio']:.1f}% of a full reprogram, token parity "
+          f"{sr['post_repair_parity']}")
+    save_json("BENCH_integrity", ris)
+    summary["integrity_scrub"] = {"repair_cost_ratio": sr["repair_cost_ratio"],
+                                  "post_repair_parity": sr["post_repair_parity"]}
 
     banner(f"benchmarks_torch.run complete in {time.time() - t0:.0f}s")
     save_json("summary", summary)

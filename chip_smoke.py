@@ -11,9 +11,11 @@ paper's planner figures on its models' published shapes, held to the
 reference's integers; train internlm2-1.8b at full width (2 layers) with
 checkpoints, a resume and redeploy pricing; the accuracy halves of
 Figs. 9/10 and accuracy_e2e on a trained LM, held to the reference's;
-gemma-2b planned and served under the offset_binary encoding; and the
+gemma-2b planned and served under the offset_binary encoding; the
 pool-wear, plane-codec and redeploy-delta benchmarks, held to the
-reference's numbers — and
+reference's numbers; and gemma-2b planned through a pool with stuck cells,
+served from the fault-leveled bits and from drifted operands, and scrubbed
+and repaired after a fault storm — and
 holds each hand-written kernel against its plain PyTorch version on the
 card.
 Phases (one line each, any failed check exits 1):
@@ -118,16 +120,35 @@ Phases (one line each, any failed check exits 1):
      B2/B4; whether the tokens equal the reference's is printed, not
      gated); the card's own redeploy chain's speedups within 1% of the
      reference's; B1/B2/B4 counted, no plain-version call;
+  5h. faults: gemma-2b at full width (4 layers) through a 32-crossbar pool
+     with stuck cells (1e-3 each way, 25% hotspots at 8x, PRNGKey(42)),
+     planned with leveling none and fault beside a fault-free plan; a CPU
+     pool with the same faults gives the same damage matrices, assignment,
+     state, wear, achieved_read and w_hat up to segments/0/attn/wk; the
+     fault-leveled plan served packed (B2) and planes_int8 (B6, B5) through
+     the serve gates, the shadow-batch KL of each plan printed; drifted
+     operands (stuck 1e-3, drift 0.05, IR 0.1) in one prefill on B2's FMA
+     kernel with gains (B2_gain = 7 x layers, no plain-version call), each
+     drifted layer matmul within B2's bound of densify_operands @ x; an
+     integrity deployment (2 spare columns, 65536 tiles a round) stormed
+     (2e-7 flips, 2e-8 stuck) and scrubbed to a clean cycle: detected,
+     reads restored, repair <= 0.5x a full reprogram, B1 > 0, the rebuilt
+     packed deployment serving the pre-storm tokens; fault_tolerance and
+     integrity_scrub on the card equal to the golden file (integers; float64
+     KLs within 5%);
   6. kernels: time, bound (the bf16 tensor-core rate for the tensor-core
      paths, the f32 rate for the FMA kernels), plain-version and library
-     times; B2, B3 and B5 on both paths; B6 at yi-6b's wi_gate and head.
+     times; B2, B3 and B5 on both paths, B2 with plane gains at decode (f32
+     x); B6 at yi-6b's wi_gate and head.
 
 The line before the last is the kernels' JSON record (B1's launches are
-those of the gemma-2b plan and the figures, train, accuracy, offset-binary
-and bench-extra phases; B2's, B4's and B5's those of gemma's packed,
-const_rle and planes_int8 generates plus the offset-binary and bench-extra
-phases'; B3's those of yi-6b's generate and the accuracy, offset-binary
-and bench-extra phases; B6's yi-6b's and the offset-binary deployment's);
+those of the gemma-2b plan and the figures, train, accuracy, offset-binary,
+bench-extra and faults phases; B2's, B4's and B5's those of gemma's packed,
+const_rle and planes_int8 generates plus the offset-binary, bench-extra
+and faults phases' (B2's ``launches_gain`` those with plane gains); B3's
+those of yi-6b's generate and the accuracy, offset-binary, bench-extra and
+faults phases; B6's yi-6b's, the offset-binary and the faults
+deployments');
 the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
 ``python3 chip_smoke.py`` (needs one CUDA card; fails without one).
@@ -193,6 +214,15 @@ ACC_KL_RTOL = 0.05  # logit KL there also relative to the golden's (measured 1.3
 # redeploy_delta on the card's own chain (its trained LM and 20 further steps) against the
 # reference's speedups, as the accuracy phase holds the card-trained sweeps
 REDEPLOY_SPEEDUP_RTOL = 0.01
+# phase faults (gemma-2b x LAYERS): the pool's stuck cells, the drifted operands, and an
+# integrity deployment scrubbed after a storm sized for ~4.4G planned cells (~880 flipped
+# bits, ~90 new stuck cells: the reference benchmark's 2e-3 / 2e-4 would dirty most tiles)
+FAULT_MODEL = dict(stuck0=1e-3, stuck1=1e-3, hotspot_fraction=0.25, hotspot_mult=8.0)
+FAULT_SEED = 42
+DRIFT_MODEL = dict(stuck0=1e-3, stuck1=1e-3, drift_sigma=0.05, ir_alpha=0.1)
+INTEGRITY_CFG = dict(spare_cols=2, scrub_tiles=65536)  # ~53 rounds a clean cycle at x4
+STORM_SEED = 1729
+STORM_RATES = dict(corrupt_rate=2e-7, stuck_rate=2e-8)
 
 
 def fail(msg: str) -> None:
@@ -326,7 +356,8 @@ def counts() -> dict:
 
 # the port's kernels by the symbol the profiler records or a graph's node
 # list names (demangled or mangled), and the counters each launch adds to;
-# B2 and B4 are one template, told apart by its fourth argument (kSkip)
+# B2 and B4 are one template, told apart by its fourth argument (kSkip); the
+# FMA kernel's sixth (kGain) marks B2 with plane gains
 KERNEL_SYMBOLS = (
     ("cim_packed_tc_kernel", {"false": ("B2", "B2_tc"), "true": ("B4", "B4_tc")}),
     ("cim_packed_kernel", {"false": ("B2",), "true": ("B4",)}),
@@ -363,7 +394,10 @@ def kernel_counters(name: str) -> tuple[str, ...]:
         if re.search(rf"(^|[^A-Za-z0-9_]|\d){symbol}(<|I|\(|$)", name):
             if isinstance(keys, dict):
                 args = _template_args(name)
-                return keys[args[3]] if len(args) > 3 and args[3] in keys else ()
+                if len(args) <= 3 or args[3] not in keys:
+                    return ()
+                gain = symbol == "cim_packed_kernel" and len(args) > 5 and args[5] == "true"
+                return keys[args[3]] + (("B2_gain",) if gain else ())
             return keys
     return ()
 
@@ -1689,6 +1723,408 @@ def bench_extra_phase(dev) -> dict:
     return out
 
 
+def _drifted(p_packed, model, dev):
+    """The packed deployment with ``nonideal.perturb_operands(op_i, model,
+    fold_in(PRNGKey(7), i))`` applied to its i-th operand dict."""
+    from repro_torch import prng
+    from repro_torch.core import nonideal
+
+    key, count = prng.PRNGKey(7, device=dev), [0]
+
+    def walk(t):
+        if isinstance(t, dict) and "planes_packed" in t:
+            count[0] += 1
+            return nonideal.perturb_operands(t, model, prng.fold_in(key, count[0] - 1))
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [walk(v) for v in t]
+        return t
+
+    return walk(p_packed), count[0]
+
+
+def _tensor_bytes(obj) -> dict:
+    """Bytes of the tensors and numpy arrays an object's fields hold, by
+    where they live ("host" or the device's type)."""
+    import numpy as np
+    import torch
+
+    out: dict = {}
+    items = obj.values() if isinstance(obj, dict) else vars(obj).values()
+    for v in items:
+        if isinstance(v, torch.Tensor):
+            where = "host" if v.device.type == "cpu" else v.device.type
+            out[where] = out.get(where, 0) + v.numel() * v.element_size()
+        elif isinstance(v, np.ndarray):
+            out["host"] = out.get("host", 0) + v.nbytes
+    return out
+
+
+def faults_phase(dev) -> dict:
+    """Faults and integrity at gemma-2b's published width (LAYERS layers).
+
+    (a) plan through a 32-crossbar pool with stuck cells (FAULT_MODEL,
+    ``PRNGKey(42)``), leveling ``none`` and ``fault``, beside a fault-free
+    plan; a CPU pool with the same faults plans the same tensors up to
+    CHECK_TENSOR with the same damage matrices, assignment, state, wear,
+    ``achieved_read`` and ``w_hat`` bytes.  (b) the fault-leveled plan
+    served packed (B2) and planes_int8 (B6 builds, B5 serves) through the
+    serve gates; shadow-batch KL against fp and the recovery printed.  (c)
+    drifted operands (DRIFT_MODEL): one prefill on B2's FMA kernel with
+    gains, and each drifted operand within B2's bound of its densified
+    weights.  (d) an integrity-enabled deployment (INTEGRITY_CFG), a storm
+    (STORM_RATES), scrub to a clean cycle: detected, reads restored, repair
+    <= 0.5x a full reprogram, the rebuilt packed deployment serving the
+    pre-storm tokens.  (e) ``benchmarks_torch.fault_tolerance`` and
+    ``integrity_scrub`` held to the golden file.  Returns the launches."""
+    import torch
+
+    from benchmarks_torch import common, fault_tolerance, integrity_scrub
+    from repro_torch import prng
+    from repro_torch.configs import get_arch
+    from repro_torch.core import integrity, nonideal, planner, pool, simulator
+    from repro_torch.kernels.cim_matmul import ops as cim_ops
+    from repro_torch.kernels.cim_matmul import ref as cim_ref
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+
+    t_phase = time.perf_counter()
+    out = {k: 0 for k in ("B1", "B2", "B2_tc", "B2_gain", "B3", "B3_tc", "B5", "B5_tc", "B6")}
+
+    def tally(c, label, allowed):
+        if c["plain"] or any(c[k] for k in c if k not in allowed and k != "plain"):
+            fail(f"{label} launched {c} (want only {sorted(allowed)}, no plain-version call)")
+        for k in out:
+            out[k] += c.get(k, 0)
+
+    cfg = dataclasses.replace(get_arch("gemma-2b"), n_layers=LAYERS)
+    params = api.init(prng.PRNGKey(0), cfg, device=dev)
+    spec, pcfg = planner.CrossbarSpec(), planner.PlannerConfig(p_stuck=P_STUCK)
+    model = nonideal.FaultModel(**FAULT_MODEL)
+
+    # --- (a) fault-aware planning, held to a CPU pool ------------------------
+    damage_log = {"s": 0.0, "calls": 0, "record": None}
+    damage_matrix = nonideal.damage_matrix
+
+    def timed_damage(packed, chains, state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d = damage_matrix(packed, chains, state)
+        damage_log["s"] += time.perf_counter() - t0
+        damage_log["calls"] += 1
+        if damage_log["record"] is not None:
+            damage_log["record"].append(d)
+        return d
+
+    def recording(xb, keep):
+        """``xb.program`` keeping CHECK_TENSOR's assignment and read."""
+        program = xb.program
+
+        def run(*a, **kw):
+            rep = program(*a, **kw)
+            if kw.get("name") == CHECK_TENSOR:
+                keep["assignment"] = rep.assignment.copy()
+                keep["read"] = rep.achieved_read.cpu()
+                keep["state"], keep["wear"] = xb.state, xb.wear.copy()
+            return rep
+
+        xb.program = run
+
+    nonideal.damage_matrix = timed_damage
+    try:
+        plans, pools, seconds, snaps = {}, {}, {}, {}
+        for label, leveling, faulted in (("clean", "none", False), ("none", "none", True),
+                                         ("fault", "fault", True)):
+            xb = pool.CrossbarPool(spec, 2 * pcfg.crossbars, leveling=leveling, device=dev)
+            if faulted:
+                xb.inject_faults(model, prng.PRNGKey(FAULT_SEED))
+            snaps[label] = {}
+            recording(xb, snaps[label])
+            damage_log["record"] = [] if label == "fault" else None
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plans[label] = planner.build_deployment(params, spec, pcfg, pool=xb, device=dev)
+            torch.cuda.synchronize()
+            seconds[label] = time.perf_counter() - t0
+            c = counts()
+            tally(c, f"{label} fault plan", {"B1"})
+            if c["B1"] <= 0:
+                fail(f"{label} fault plan launched no B1")
+            pools[label] = xb
+            if label == "fault":
+                card_damage = damage_log["record"]
+        damage_s, damage_calls = damage_log["s"], damage_log["calls"]
+
+        # the CPU pool: same faults, the same tensors up to CHECK_TENSOR
+        cpu_pool = pool.CrossbarPool(spec, 2 * pcfg.crossbars, leveling="fault", device="cpu")
+        cpu_pool.inject_faults(model, prng.PRNGKey(FAULT_SEED))
+        cpu_snap = {}
+        recording(cpu_pool, cpu_snap)
+        damage_log["record"] = []
+        keys = planner.tensor_keys(params, pcfg)
+        weights = dict(planner.iter_weights(params, pcfg))
+        names = list(weights)
+        for name in names[: names.index(CHECK_TENSOR) + 1]:
+            r_cpu, w_hat_cpu = planner.analyze_tensor(weights[name].cpu(), spec, pcfg, keys[name],
+                                                      name=name, pool=cpu_pool)
+        cpu_damage = damage_log["record"]
+    finally:
+        nonideal.damage_matrix = damage_matrix
+    fstate = pools["fault"].faults
+    if not (torch.equal(fstate.stuck0.cpu(), cpu_pool.faults.stuck0)
+            and torch.equal(fstate.stuck1.cpu(), cpu_pool.faults.stuck1)):
+        fail("the card's fault masks differ from the CPU's")
+    n_up = len(cpu_damage)
+    if n_up == 0 or any(not (a == b).all() for a, b in zip(card_damage[:n_up], cpu_damage)):
+        fail(f"the card's damage matrices up to {CHECK_TENSOR} differ from the CPU's")
+    snap = snaps["fault"]
+    same_report(plans["fault"].reports[CHECK_TENSOR], r_cpu, f"{CHECK_TENSOR} (faulty pool)")
+    if (snap["assignment"].tolist() != cpu_snap["assignment"].tolist()
+            or not torch.equal(snap["read"], cpu_snap["read"])
+            or snap["state"].tobytes() != cpu_snap["state"].tobytes()
+            or not (snap["wear"] == cpu_snap["wear"]).all()
+            or plans["fault"].deployed[CHECK_TENSOR].cpu().numpy().tobytes()
+            != w_hat_cpu.numpy().tobytes()):
+        fail(f"the CPU faulty pool after {CHECK_TENSOR} differs from the card's (assignment, "
+             f"achieved_read, state, wear or w_hat)")
+    del weights
+    cells = fstate.fault_cells()
+    say(f"phase faults: gemma-2b x{LAYERS}, a {2 * pcfg.crossbars}-crossbar pool with "
+        f"{FAULT_MODEL} from PRNGKey({FAULT_SEED}): {int(cells.sum())} stuck cells (worst "
+        f"crossbar {int(cells.max())}), {int(fstate.hot.sum())} hotspots; plans in "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items())
+        + f"; damage_matrix {damage_calls} calls in {damage_s:.2f} s (synchronized)")
+    for label in plans:
+        t, st = plans[label].totals(), pools[label].stats()
+        say(f"phase faults: {label}: transitions {t['transitions_baseline']} -> "
+            f"{t['transitions_sws']} -> {t['transitions_final']}, total {t['total_speedup']:.4f}x; "
+            f"wear max {st.max_cell_writes} mean {st.mean_cell_writes:.4f} total "
+            f"{st.total_writes}; crossbars used {int((pools[label].wear_totals() > 0).sum())}")
+    say(f"phase faults-cpu: {CHECK_TENSOR} through a CPU pool with the same faults: "
+        f"{n_up} damage matrices, the assignment {snap['assignment'].tolist()}, achieved_read, "
+        f"state, wear and w_hat bytes identical to the card's")
+
+    # --- (b) the fault-leveled deployment served ---------------------------------
+    batch = api.make_batch(cfg, prng.PRNGKey(0), BATCH, PROMPT, device=dev)
+    want = 7 * LAYERS * GEN
+    p_dense = planner.deploy_params(params, plans["fault"], materialize="dense")
+    p_packed = planner.deploy_params(params, plans["fault"], materialize="packed")
+    _, tps_dense, _, _ = served("fault-leveled dense", cfg, p_dense, batch, GEN, None, 0)
+    tok_packed, tps_packed, _, c2 = served("fault-leveled packed", cfg, p_packed, batch, GEN, "B2",
+                                           want, want_tc=want)
+    tally(c2, "fault-leveled packed", {"B2", "B2_tc", "B3", "B3_tc"})
+    logit_check(cfg, p_dense, p_packed, batch, "fault-leveled packed")
+    p_int8, c6 = deploy_int8(params, plans["fault"])
+    tally(c6, "fault-leveled int8 deployment", {"B6"})
+    tok_int8, tps_int8, _, c5 = served("fault-leveled planes_int8", cfg, p_int8, batch, GEN, "B5",
+                                       want, want_tc=want)
+    tally(c5, "fault-leveled planes_int8", {"B5", "B5_tc", "B3", "B3_tc"})
+    logit_check(cfg, p_dense, p_int8, batch, "fault-leveled planes_int8")
+    del p_int8, p_dense
+    torch.cuda.empty_cache()
+    shadow = api.make_batch(cfg, prng.PRNGKey(0), 2, 16, device=dev)
+    f = lambda p, b: api.forward(p, cfg, b)[0]  # noqa: E731
+    kl = {}
+    with torch.inference_mode():
+        for label, plan in plans.items():
+            p_hat = planner.deploy_params(params, plan, materialize="dense")
+            kl[label] = common.logit_kl_f64(f, params, p_hat, shadow)
+            del p_hat
+    degradation = kl["none"] - kl["clean"]
+    recovery = (kl["none"] - kl["fault"]) / degradation if degradation > 0 else 1.0
+    say(f"phase faults-serve: batch {BATCH} prompt {PROMPT} gen {GEN} greedy bf16; tok/s dense "
+        f"{tps_dense:.1f}, packed {tps_packed:.1f}, planes_int8 {tps_int8:.1f}; B2 {c2['B2']} "
+        f"(tc {c2['B2_tc']}), B5 {c5['B5']} (tc {c5['B5_tc']}), want {want} each; B6 {c6['B6']}; "
+        f"shadow-batch (2 x 16) logit KL vs fp (float64, bf16 forward): clean {kl['clean']:.6e}, "
+        f"none {kl['none']:.6e}, fault {kl['fault']:.6e}; remapping recovers "
+        f"{100 * recovery:.1f}% (printed, not gated: random weights)")
+
+    # --- (c) drifted operands on B2's FMA kernel with gains ----------------------
+    drift = nonideal.FaultModel(**DRIFT_MODEL)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p_drift, n_ops = _drifted(p_packed, drift, dev)
+    torch.cuda.synchronize()
+    perturb_s = time.perf_counter() - t0
+    del p_packed
+    reset_counts()
+    with torch.inference_mode():
+        logits, _ = api.prefill(p_drift, cfg, batch)
+    torch.cuda.synchronize()
+    c = counts()
+    expect = {"B2": 7 * LAYERS, "B2_gain": 7 * LAYERS, "B3": LAYERS, "B3_tc": LAYERS}
+    if {k: v for k, v in c.items() if v and k != "plain"} != expect or c["plain"]:
+        fail(f"drifted prefill launched {c} (want {expect}, no plain-version call)")
+    if not bool(torch.isfinite(logits).all()):
+        fail("drifted prefill logits are not finite")
+    tally(c, "drifted prefill", set(expect))
+    eps = torch.finfo(torch.float32).eps
+    g = torch.Generator(device=dev).manual_seed(5)
+    worst, n_checked = 0.0, 0
+    for op in _operand_dicts(p_drift):
+        for i in range(op["planes_packed"].shape[0]):
+            op_i = {k: v[i] for k, v in op.items()}
+            k_dim = op_i["kdim"].shape[-2]
+            x = torch.randn(BATCH * PROMPT, k_dim, device=dev, generator=g)
+            reset_counts()
+            got = simulator.cim_linear(x, op_i)
+            c_i = counts()
+            if c_i["B2"] != 1 or c_i["B2_gain"] != 1 or c_i["plain"]:
+                fail(f"a drifted operand's matmul launched {c_i}")
+            tally(c_i, "drifted operand check", {"B2", "B2_gain"})
+            w = simulator.densify_operands(op_i)
+            want_y = x @ w
+            err = (got - want_y).abs()
+            bnd = B2_BOUND_C * eps * k_dim * (x.abs() @ w.abs())
+            if not bool((err <= bnd).all()):
+                fail(f"a drifted operand's B2 result is outside {B2_BOUND_C}*eps*K*(|x|@|w|) of "
+                     f"densify_operands @ x: max err {err.max().item():.3e}")
+            worst = max(worst, (err / bnd.clamp_min(1e-30)).max().item())
+            n_checked += 1
+            del w, want_y, x
+    say(f"phase faults-drift: {n_ops} operand dicts perturbed ({DRIFT_MODEL}, key fold_in("
+        f"PRNGKey(7), i)) in {perturb_s:.2f} s; one prefill: B2 {c['B2']} all with gains "
+        f"(B2_gain {c['B2_gain']}), B3 {c['B3']}, no plain-version call; {n_checked} drifted "
+        f"layer matmuls (M {BATCH * PROMPT}) within {worst:.3f} of B2's bound of "
+        f"densify_operands @ x")
+    del p_drift, logits
+    torch.cuda.empty_cache()
+
+    # --- (d) integrity: register, storm, scrub, rebuild --------------------------
+    xb = pool.CrossbarPool(spec, 2 * pcfg.crossbars, leveling="lpt", device=dev)
+    mgr = xb.enable_integrity(integrity.IntegrityConfig(**INTEGRITY_CFG))
+    reg = {"s": 0.0}
+    register = mgr.register
+
+    def timed_register(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = register(*a, **kw)
+        torch.cuda.synchronize()
+        reg["s"] += time.perf_counter() - t0
+        return rec
+
+    mgr.register = timed_register
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan_i = planner.build_deployment(params, spec, pcfg, pool=xb, device=dev)
+    torch.cuda.synchronize()
+    plan_i_s = time.perf_counter() - t0
+    tally(counts(), "integrity plan", {"B1"})
+    rec_bytes: dict = {}
+    for rec in mgr.tensors.values():
+        for where, n in list(_tensor_bytes(rec).items()) + list(_tensor_bytes(rec.aux).items()):
+            rec_bytes[where] = rec_bytes.get(where, 0) + n
+    p_clean = planner.deploy_params(params, plan_i, materialize="packed")
+    reset_counts()
+    # the eager loop: every wrapper call below is a launch (a graph's capture
+    # counts calls that record, not launch)
+    tok_clean, _ = serve.generate(cfg, p_clean, batch, gen_len=GEN, loop="python")
+    c = counts()
+    tally(c, "pre-storm generate", {"B2", "B2_tc", "B3", "B3_tc"})
+    del p_clean
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = mgr.storm(prng.PRNGKey(STORM_SEED), **STORM_RATES)
+    torch.cuda.synchronize()
+    storm_s = time.perf_counter() - t0
+    if mgr.verify_all():
+        fail("the storm changed no read")
+    reset_counts()
+    t0 = time.perf_counter()
+    rep = mgr.scrub_until_clean()
+    torch.cuda.synchronize()
+    scrub_s = time.perf_counter() - t0
+    c_scrub = counts()
+    tally(c_scrub, "scrub", {"B1"})
+    full = mgr.transitions_full_affected()
+    if rep.detections < 1 or not mgr.clean or not mgr.verify_all():
+        fail(f"the scrub did not detect and repair the storm: {rep.to_dict()}, clean {mgr.clean}")
+    if rep.repair_transitions > 0.5 * full:
+        fail(f"repair cost {rep.repair_transitions} transitions > 0.5 x {full} (full reprogram)")
+    if c_scrub["B1"] <= 0:
+        fail("the repairs were priced without B1")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p_rep = planner.deploy_params(params, mgr.rebuild_plan(plan_i), materialize="packed")
+    torch.cuda.synchronize()
+    rebuild_s = time.perf_counter() - t0
+    reset_counts()
+    tok_rep, _ = serve.generate(cfg, p_rep, batch, gen_len=GEN, loop="python")
+    tally(counts(), "post-repair generate", {"B2", "B2_tc", "B3", "B3_tc"})
+    if not torch.equal(tok_rep, tok_clean):
+        fail("the repaired deployment serves other tokens than the pre-storm deployment")
+    say(f"phase faults-integrity: {len(mgr.tensors)} tensors, {mgr.total_tiles} tiles "
+        f"({INTEGRITY_CFG}), planned and registered in {plan_i_s:.2f} s (register {reg['s']:.2f} "
+        f"s); records hold {', '.join(f'{w} {n / 1e9:.3f} GB' for w, n in sorted(rec_bytes.items()))}; "
+        f"storm {STORM_RATES} in {storm_s:.2f} s: {st['corrupted_bits']} bits corrupted, "
+        f"{st['new_stuck_cells']} new stuck cells; scrub in {scrub_s:.2f} s: {rep.to_dict()}; "
+        f"B1 {c_scrub['B1']}; repair {rep.repair_transitions} transitions vs {full} full "
+        f"reprogram ({rep.repair_transitions / max(full, 1):.5f}x); rebuild_plan + packed "
+        f"deploy {rebuild_s:.2f} s; repaired tokens == pre-storm tokens; reads restored")
+    del p_rep, plan_i, mgr, xb, plans, pools, params
+    torch.cuda.empty_cache()
+
+    # --- (e) the two benchmarks, held to the golden file ---------------------------
+    gold = json.loads((ROOT / "benchmarks_torch" / "golden" / "reference.json").read_text())
+    gf, gi = gold["fault_tolerance"], gold["integrity_scrub"]
+    reset_counts()
+    t0 = time.perf_counter()
+    rf = fault_tolerance.run(rates=tuple(gf["rates"]), ref_rate=gf["ref_rate"], device=dev)
+    ft_s = time.perf_counter() - t0
+    tally(counts(), "fault_tolerance", {"B1", "B3"})
+    worst_kl = 0.0
+    for g_row, w_row in zip(rf["fault_curve"], gf["fault_curve"], strict=True):
+        for k in ("rate", "stuck_cells", "hotspots"):
+            if g_row.get(k) != w_row.get(k):
+                fail(f"fault_tolerance {k} at rate {w_row['rate']}: {g_row.get(k)} vs "
+                     f"{w_row.get(k)}")
+        for lev in ("none", "fault"):
+            rel = abs(g_row[f"kl_{lev}_f64"] / w_row[f"kl_{lev}_f64"] - 1)
+            worst_kl = max(worst_kl, rel)
+    d = first_difference(json.loads(json.dumps(rf["deploys"])), gf["deploys"]) or \
+        first_difference(json.loads(json.dumps(rf["endurance"])), gf["endurance"])
+    if d:
+        fail(f"fault_tolerance on the card differs from the reference at {d}")
+    reset_counts()
+    t0 = time.perf_counter()
+    ri = integrity_scrub.run(n_requests=gi["n_requests"], kl_rates=tuple(gi["kl_rates"]),
+                             device=dev)
+    is_s = time.perf_counter() - t0
+    tally(counts(), "integrity_scrub", {"B1", "B3"})
+    sr, gsr = dict(ri["storm_repair"]), dict(gi["storm_repair"])
+    degraded = (sr.pop("streams_degraded_by_storm"), gsr.pop("streams_degraded_by_storm"))
+    d = first_difference(json.loads(json.dumps(sr)), gsr)
+    if d or integrity_scrub.check(ri):
+        fail(f"integrity_scrub's storm and repair on the card differs from the reference at {d} "
+             f"or fails its gates: {integrity_scrub.check(ri)}")
+    for g_row, w_row in zip(ri["tolerated_kl"], gi["tolerated_kl"], strict=True):
+        if (g_row["stuck_rate"], g_row["tolerated"], g_row["remaps"]) != \
+                (w_row["stuck_rate"], w_row["tolerated"], w_row["remaps"]):
+            fail(f"integrity_scrub tolerated-fault counters differ at {w_row['stuck_rate']}")
+        worst_kl = max(worst_kl, abs(g_row["kl_f64"] / w_row["kl_f64"] - 1))
+    if not worst_kl <= ACC_KL_RTOL:
+        fail(f"the benchmarks' float64 logit KLs are {worst_kl:.3e} from the reference's (bound "
+             f"{ACC_KL_RTOL:g})")
+    say(f"phase faults-bench: fault_tolerance in {ft_s:.2f} s (stuck cells "
+        f"{[r.get('stuck_cells', 0) for r in rf['fault_curve']]}, recovery "
+        f"{100 * rf['recovery_at_ref']:.2f}% vs the reference's {100 * gf['recovery_at_ref']:.2f}%, "
+        f"horizons {rf['endurance']['horizons']}), every deployment's wear and deployed bytes "
+        f"equal to the reference's; integrity_scrub in {is_s:.2f} s: storm {sr['corrupted_bits']} "
+        f"bits + {sr['new_stuck_cells']} stuck -> {sr['detections']} detections, "
+        f"{sr['repair_transitions']} repair transitions ({100 * sr['repair_cost_ratio']:.2f}% of "
+        f"a full reprogram), post-repair parity {sr['post_repair_parity']}, every counter equal "
+        f"to the reference's; streams degraded by the storm {degraded[0]} (reference "
+        f"{degraded[1]}, not a gate); float64 KLs within {worst_kl:.2e} of the reference's "
+        f"(bound {ACC_KL_RTOL:g})")
+    say(f"phase faults: launches {out}; phase {time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -2104,6 +2540,9 @@ def main() -> None:
     # --- 5g. pool wear, plane codecs and redeploy delta, held to the reference --
     bx = bench_extra_phase(dev)
 
+    # --- 5h. faults and integrity at gemma-2b's full width ---------------------
+    fl = faults_phase(dev)
+
     # --- 6. kernels: time, bound, plain, library -------------------------------
     t = 1 << 20
     pairs = [tuple(torch.randint(0, 256, (t, 16, 10), dtype=torch.uint8, device=dev, generator=g)
@@ -2141,6 +2580,27 @@ def main() -> None:
         b, by = bound(m * k * 2 + 11 * (k // 8) * n + m * n * 4, 2 * m * k * n, BF16_TC_FLOPS)
         b32, by32 = bound(m * k * 4 + 11 * (k // 8) * n + m * n * 4, 2 * m * k * n)
         records[label] = dict(ms=ms, plain_ms=plain, library_ms=library, bound_ms=b, bound_by=by)
+        if label == "decode":
+            # B2 with drift gains (the FMA kernel, f32 x): the gains' bytes and
+            # the cols float adds a weight that rebuilding its magnitude takes
+            gains = [torch.exp(0.05 * torch.randn(10, n, device=dev, generator=g))
+                     for _ in range(4)]
+            dense_g = [cim_ref.unpack_weights(p, s, k, None, gn) * sc
+                       for (p, s, sc), gn in zip(ops, gains)]
+            gain_call = lambda fn, i: fn(xf, *ops[i], plane_gain=gains[i])  # noqa: E731
+            ms_g = cuda_ms(lambda: gain_call(cim_ops.cim_matmul_packed, nxt()))
+            dev_g = device_ms(lambda: gain_call(cim_ops.cim_matmul_packed, nxt()))
+            plain_g = cuda_ms(lambda: gain_call(cim_ref.cim_matmul_packed, nxt()), reps=5)
+            library_g = cuda_ms(lambda: torch.matmul(xf, dense_g[nxt()]))
+            bg, byg = bound(m * k * 4 + 11 * (k // 8) * n + 10 * n * 4 + m * n * 4,
+                            2 * m * k * n + 10 * k * n)
+            records[label].update(gain_ms=ms_g, gain_plain_ms=plain_g, gain_library_ms=library_g,
+                                  gain_bound_ms=bg, gain_bound_by=byg)
+            say(f"phase kernels: B2 with plane gains {label} M={m} K={k} N={n}, f32 x on the FMA "
+                f"kernel: {ms_g:.4f} ms (device only {fmt_ms(dev_g)}; bound {bg:.4f} by {byg}); "
+                f"without gains {ms_f32:.4f} ms; plain {plain_g:.4f}, torch.matmul on dense f32 "
+                f"{library_g:.4f}")
+            del gains, dense_g
         nwg2, splits2, _ = cim_ops.tc_packed_launch_plan(
             m, k, n, torch.cuda.get_device_properties(0).multi_processor_count)
         say(f"phase kernels: B2 {label} M={m} K={k} N={n}: bf16 x on tensor cores {ms:.4f} ms "
@@ -2237,28 +2697,35 @@ def main() -> None:
     kernels = [
         row("hamming_pairs", "src/repro_torch/csrc/hamming.cu",
             "src/repro/kernels/hamming/kernel.py:32",
-            b1_plan + figs["B1"] + trained["B1"] + acc["B1"] + ob["B1"] + bx["B1"], b1_err,
+            b1_plan + figs["B1"] + trained["B1"] + acc["B1"] + ob["B1"] + bx["B1"] + fl["B1"],
+            b1_err,
             dict(ms=b1_ms, plain_ms=b1_plain, bound_ms=b1_bound, bound_by="bytes",
                  library_ms=None)),
-        row("cim_matmul_packed", "src/repro_torch/csrc/cim_matmul.cu",
-            "src/repro/kernels/cim_matmul/kernel.py:242", b2_launches + ob["B2"] + bx["B2"],
-            b2_err, records["decode"], b2_tc + ob["B2_tc"] + bx["B2_tc"]),
+        {**row("cim_matmul_packed", "src/repro_torch/csrc/cim_matmul.cu",
+               "src/repro/kernels/cim_matmul/kernel.py:242",
+               b2_launches + ob["B2"] + bx["B2"] + fl["B2"], b2_err, records["decode"],
+               b2_tc + ob["B2_tc"] + bx["B2_tc"] + fl["B2_tc"]),
+         "launches_gain": fl["B2_gain"],
+         **{k: v for k, v in records["decode"].items() if k.startswith("gain_")}},
         row("cim_matmul_packed_skip", "src/repro_torch/csrc/cim_matmul.cu",
             "src/repro/kernels/cim_matmul/kernel.py:193", b4_launches + ob["B4"] + bx["B4"],
             b4_err, records["B4 decode"], b4_tc + ob["B4_tc"] + bx["B4_tc"]),
         row("cim_matmul_planes", "src/repro_torch/csrc/cim_planes.cu",
-            "src/repro/kernels/cim_matmul/kernel.py:74", b5_launches + ob["B5"], b5_err,
-            records["B5 decode"], b5_tc + ob["B5_tc"]),
+            "src/repro/kernels/cim_matmul/kernel.py:74", b5_launches + ob["B5"] + fl["B5"], b5_err,
+            records["B5 decode"], b5_tc + ob["B5_tc"] + fl["B5_tc"]),
         row("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/kernel.py:109",
-            yi["B3"] + acc["B3"] + ob["B3"] + bx["B3"], b3_err, rec_b3,
-            yi["B3_tc"] + ob["B3_tc"] + bx["B3_tc"]),
+            yi["B3"] + acc["B3"] + ob["B3"] + bx["B3"] + fl["B3"], b3_err, rec_b3,
+            yi["B3_tc"] + ob["B3_tc"] + bx["B3_tc"] + fl["B3_tc"]),
         row("bitslice", "src/repro_torch/csrc/bitslice.cu",
-            "src/repro/kernels/bitslice/kernel.py:35", yi["B6"] + ob["B6"], 0.0, rec_b6),
+            "src/repro/kernels/bitslice/kernel.py:35", yi["B6"] + ob["B6"] + fl["B6"], 0.0,
+            rec_b6),
     ]
     say("kernels: " + ", ".join(
         f"{r['name']} launches={r['launches']}"
         + (f" launches_tc={r['launches_tc']}" if "launches_tc" in r else "")
+        + (f" launches_gain={r['launches_gain']} gain_ms={r['gain_ms']:.4f}"
+           f" gain_bound_ms={r['gain_bound_ms']:.4f}" if "launches_gain" in r else "")
         + f" max_abs_err={r['max_abs_err']:.3e} "
         f"ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f}"
         + (f" library_ms={r['library_ms']:.4f}" if r["library_ms"] is not None else "")

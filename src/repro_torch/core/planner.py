@@ -334,6 +334,14 @@ def analyze_tensor(
     if pset is not None:
         achieved = planes.logical_from_physical(achieved, pset.col_order)
     w_hat_flat, w_hat = _w_hat(achieved, prep, w, spec.rows)
+    if pool.integrity is not None:
+        # the reconstruction closure integrity.rebuild dequantizes repaired
+        # planes with, into the same w_hat bytes
+        pool.integrity.attach_aux(name, {
+            "sign_slots": prep.sign_slots, "scale": prep.scale, "offset": prep.offset,
+            "inv_perm": prep.inv_perm, "n": prep.flat.shape[0], "shape": tuple(w.shape),
+            "dtype": w.dtype,
+        })
     jobs_s, trans_final = res.job_costs, res.transitions_programmed
     if not config.include_initial:
         # the pristine pool's seams are the initial programs: drop them

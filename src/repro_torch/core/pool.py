@@ -17,10 +17,17 @@ set of crossbars and answers the endurance question: how many writes each
 * Wear-leveling chain -> crossbar assignment (``leveling=``): ``"rotate"``
   starts the chain block at the least-worn crossbar; ``"lpt"`` gives the
   heaviest chains the least-worn crossbars (``schedule.lpt_assignment``
-  with capacity 1, seeded by accumulated wear); ``"fault"`` is the
-  fault-aware remap of the reference, which falls back to ``"lpt"`` when no
-  faults are injected — and fault injection is not ported yet (ROADMAP
-  A13), so here it always does.
+  with capacity 1, seeded by accumulated wear); ``"fault"`` steers chains
+  away from crossbars whose stuck cells would flip their high-order bits
+  (``nonideal.damage_matrix`` and ``fault_aware_assignment``, ties toward
+  least wear), and falls back to ``"lpt"`` when no faults are injected.
+* Faulty reads (``inject_faults``): a drawn ``nonideal.FaultState``
+  attaches stuck-at masks per crossbar; ``PoolProgramReport.achieved_read``
+  is what each section's crossbar reads back through them, equal to
+  ``achieved`` byte for byte at zero fault rate.
+* Integrity (``enable_integrity``): every ``program`` registers the tensor
+  with an ``integrity.IntegrityManager`` (reference planes, tile checksums,
+  spare columns) for the scrub / detect / repair loop.
 
 Parity invariants (pinned by ``tests/test_torch_pool.py`` against the
 reference):
@@ -33,8 +40,8 @@ reference):
     sum exactly to its programmed transitions (seams included).
 
 ``PoolProgramReport.achieved`` is the resident packed state per section
-after a program call; the planner dequantizes it into the plan's
-``deployed`` weights.
+after a program call; the planner dequantizes ``achieved_read`` into the
+plan's ``deployed`` weights.
 """
 from __future__ import annotations
 
@@ -45,7 +52,7 @@ import numpy as np
 import torch
 
 from repro_torch import prng
-from repro_torch.core import bitslice, schedule, stucking
+from repro_torch.core import bitslice, nonideal, schedule, stucking
 from repro_torch.kernels._util import resolve_device
 from repro_torch.kernels.hamming import ops as hamming_ops
 
@@ -73,7 +80,8 @@ class PoolProgramReport:
     wear_increment_total: int
     wear_increment_max: int
     achieved: torch.Tensor  # uint8[S, W, cols] resident state per section
-    # what a read returns; equals ``achieved`` while no faults are injected
+    # what a read returns through the pool's fault masks (== achieved when
+    # no faults are injected)
     achieved_read: torch.Tensor
 
 
@@ -134,20 +142,36 @@ class CrossbarPool:
         self.tensors_seen = 0
         self.programs = 0
         self.total_writes = 0
+        self.faults: nonideal.FaultState | None = None
+        self.integrity = None  # Optional[integrity.IntegrityManager]
 
-    # -- faults and integrity (ROADMAP A.13) ---------------------------------
+    # -- faults and integrity ------------------------------------------------
 
     def enable_integrity(self, cfg=None):
-        raise NotImplementedError(
-            "the integrity layer (scrub/repair) is ported with ROADMAP A.13"
-        )
+        """Attach an :class:`~repro_torch.core.integrity.IntegrityManager`:
+        every later ``program()`` registers its tensor (reference planes,
+        tile checksums, spare columns) for the scrub / repair loop.
+        Returns the manager (also kept on ``self.integrity``)."""
+        from repro_torch.core import integrity  # local: integrity imports pool's planner
 
-    def inject_faults(self, model, key=None):
-        raise NotImplementedError("fault injection (core/nonideal) is ported with ROADMAP A.13")
+        self.integrity = integrity.IntegrityManager(self, cfg or integrity.IntegrityConfig())
+        return self.integrity
+
+    def inject_faults(self, model: nonideal.FaultModel, key: torch.Tensor | None = None):
+        """Draw and attach a ``nonideal.FaultState`` (masks on the pool's
+        device), deterministic per (model, key).  Every later ``program()``
+        reads ``achieved_read`` through the masks, and the ``"fault"``
+        leveling remaps against them.  Returns the state."""
+        if key is None:
+            key = prng.PRNGKey(0)
+        self.faults = nonideal.inject(self.spec, self.n_crossbars, model, key, device=self.device)
+        return self.faults
 
     def read_state(self) -> np.ndarray:
-        """Host copy of the pool content as read (no fault masks yet)."""
-        return self.state
+        """Host copy of the pool content as read through any fault masks."""
+        if self.faults is None:
+            return self.state
+        return nonideal.read_packed(self._state, self.faults.stuck0, self.faults.stuck1).cpu().numpy()
 
     # -- introspection -----------------------------------------------------
 
@@ -188,7 +212,8 @@ class CrossbarPool:
 
     # -- chain -> crossbar assignment --------------------------------------
 
-    def _assign(self, chain_costs: np.ndarray, leveling: str) -> np.ndarray:
+    def _assign(self, chain_costs: np.ndarray, leveling: str, packed: torch.Tensor,
+                chains: list[np.ndarray]) -> np.ndarray:
         lc = chain_costs.shape[0]
         if leveling == "none":
             return np.arange(lc, dtype=np.int32)
@@ -196,6 +221,11 @@ class CrossbarPool:
             # seed the contiguous chain block at the least-worn crossbar
             start = int(np.argmin(self.wear_totals()))
             return ((start + np.arange(lc)) % self.n_crossbars).astype(np.int32)
+        if leveling == "fault" and self.faults is not None:
+            # steer damage-sensitive chains away from crossbars whose stuck
+            # cells would flip their high-order bits, ties toward least wear
+            damage = nonideal.damage_matrix(packed, chains, self.faults)
+            return nonideal.fault_aware_assignment(damage, wear=self.wear_totals())
         # "lpt", and "fault" with no injected faults (nothing to avoid):
         # heaviest chains to least-worn crossbars, one chain per crossbar,
         # loads seeded with accumulated wear
@@ -240,7 +270,9 @@ class CrossbarPool:
         leveling = self.leveling if leveling is None else leveling
         if leveling not in LEVELINGS:
             raise ValueError(f"unknown pool leveling {leveling!r}; choose from {LEVELINGS}")
+        col_order = None
         if hasattr(packed, "physical"):  # PlaneSet: program the stored bits
+            col_order = packed.col_order
             packed = packed.physical()
         if packed.dtype != torch.uint8:
             packed = bitslice.pack_rows(packed)
@@ -275,7 +307,7 @@ class CrossbarPool:
         chain_intra = np.array([x.sum() for x in intra_per_chain], np.int64)
 
         # --- chain -> crossbar assignment + seam pricing --------------------
-        assignment = self._assign(chain_intra, leveling)
+        assignment = self._assign(chain_intra, leveling, packed, chains)
         firsts = torch.from_numpy(np.array([c[0] for c in chains], np.int64)).to(self.device)
         assignment_dev = torch.from_numpy(assignment.astype(np.int64)).to(self.device)
         state_assigned = self._state[assignment_dev]
@@ -308,6 +340,16 @@ class CrossbarPool:
             )
         wear_inc = wear_inc.cpu().numpy().astype(np.int64)
 
+        # --- the read through the fault masks of each section's crossbar ------
+        achieved_read = achieved
+        if self.faults is not None:
+            sec_xbar = np.zeros(s, np.int64)
+            for j, c in enumerate(chains):
+                sec_xbar[c] = assignment[j]
+            idx = torch.from_numpy(sec_xbar).to(self.device)
+            achieved_read = nonideal.read_packed(achieved, self.faults.stuck0[idx],
+                                                 self.faults.stuck1[idx])
+
         # --- commit ---------------------------------------------------------
         self._state[assignment_dev] = new_states
         self.wear[assignment] += wear_inc
@@ -316,7 +358,7 @@ class CrossbarPool:
         wear_total = int(wear_inc.sum())
         self.total_writes += wear_total
 
-        return PoolProgramReport(
+        report = PoolProgramReport(
             name=name,
             assignment=assignment,
             seam_costs=seam,
@@ -328,5 +370,9 @@ class CrossbarPool:
             wear_increment_total=wear_total,
             wear_increment_max=int(wear_inc.max()),
             achieved=achieved,
-            achieved_read=achieved,
+            achieved_read=achieved_read,
         )
+        if self.integrity is not None:
+            # reference planes + tile checksums for the scrub loop
+            self.integrity.register(report, chains=chains, col_order=col_order)
+        return report

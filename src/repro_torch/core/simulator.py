@@ -10,7 +10,10 @@ of a deployed weight ``[..., K, N]`` is one of two dicts:
   zero-size marker whose shape carries the true contraction length.  A
   plane codec may add ``plane_ids`` int32[..., cols] (col_perm: stored plane
   ``p`` weighs ``2**plane_ids[p]``) and ``plane_tile_nz``
-  uint8[..., cols, ceil(K/128)] (const_rle: zero-tile flags);
+  uint8[..., cols, ceil(K/128)] (const_rle: zero-tile flags), and
+  ``nonideal.perturb_operands`` the faults of a non-ideal array
+  (``stuck0_packed`` / ``stuck1_packed`` masks, ``plane_gain``
+  f32[..., cols, N], ``row_atten`` f32[..., K]);
 * **int8 signed planes** — ``splanes`` int8[..., cols, K, N] in
   {-1, 0, 1}, sign folded in (built by kernel B6 on CUDA): one byte of
   traffic per bit cell, the per-step bit-sliced simulation baseline.
@@ -141,12 +144,32 @@ def is_cim_operands(w) -> bool:
     return isinstance(w, dict) and ("planes_packed" in w or "splanes" in w)
 
 
+def read_planes(op: dict[str, torch.Tensor]) -> torch.Tensor:
+    """The stored planes of a packed operand dict as a read returns them:
+    through the stuck masks ``nonideal.perturb_operands`` adds, if any."""
+    planes = op["planes_packed"]
+    if "stuck0_packed" in op:
+        planes = (planes & ~op["stuck0_packed"]) | op["stuck1_packed"]
+    return planes
+
+
 def densify_operands(op: dict[str, torch.Tensor]) -> torch.Tensor:
     """Packed operand dict -> dense achieved weights f32[..., K, N]
-    (unpack, weight by ``2**plane_ids``, sign, then ``* scale + offset``)."""
+    (unpack, weight by ``plane_gain * 2**plane_ids``, sign, then ``* scale
+    + offset``).
+
+    A perturbed dict (``nonideal.perturb_operands``) densifies to what a
+    faulty read yields: stuck masks applied to the stored planes,
+    ``plane_gain`` in the plane weights (significance from ``plane_ids``
+    after the masked read) and ``row_atten`` folded into the rows (``x @
+    (diag(a) W) == (x * a) @ W``, as ``cim_linear`` folds it into x)."""
     k = op["kdim"].shape[-2]
-    w = cim_ref.unpack_weights(op["planes_packed"], op["sign_packed"], k, op.get("plane_ids"))
-    return w * op["scale"][..., None, None] + op["offset"][..., None, None]
+    w = cim_ref.unpack_weights(read_planes(op), op["sign_packed"], k, op.get("plane_ids"),
+                               op.get("plane_gain"))
+    w = w * op["scale"][..., None, None] + op["offset"][..., None, None]
+    if "row_atten" in op:
+        w = w * op["row_atten"][..., :, None]
+    return w
 
 
 def densify_packed(params):
@@ -206,13 +229,23 @@ def cim_linear(x: torch.Tensor, operands: dict[str, torch.Tensor]) -> torch.Tens
     correction, added once on every operand kind; offset is exactly 0 for
     sign_magnitude, and an operand tagged ``encoding="sign_magnitude"``
     (``prepare_linear``'s int8 planes) skips it, as in the reference.
+
+    A perturbed packed dict (``nonideal.perturb_operands``) reads its planes
+    through the stuck masks first (the zero-tile flags no longer describe
+    them, so B2 serves it), folds ``row_atten`` into x (the offset term
+    then sums the folded x, as in the reference) and hands ``plane_gain``
+    to B2's FMA kernel (x in float32).
     """
     if "splanes" in operands:
         y = cim_ops.cim_matmul(x, operands["splanes"], operands["scale"])
     else:
+        if "row_atten" in operands:
+            x = x * operands["row_atten"]
+        masked = "stuck0_packed" in operands
         y = cim_ops.cim_matmul_packed(
-            x, operands["planes_packed"], operands["sign_packed"], operands["scale"],
-            tile_nz=operands.get("plane_tile_nz"), plane_ids=operands.get("plane_ids"),
+            x, read_planes(operands), operands["sign_packed"], operands["scale"],
+            tile_nz=None if masked else operands.get("plane_tile_nz"),
+            plane_ids=operands.get("plane_ids"), plane_gain=operands.get("plane_gain"),
         )
     if operands.get("encoding") == "sign_magnitude":
         return y

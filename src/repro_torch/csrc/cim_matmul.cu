@@ -14,6 +14,9 @@
 //   sign      uint8 [ceil(K/8), N], bit 1 = negative weight
 //   plane_ids int32 [cols] or null: stored plane p weighs 2^plane_ids[p]
 //             (the col_perm codec; plane p weighs 2^p when null)
+//   plane_gain f32 [cols, N] or null (FMA kernel, B2 only): stored plane p
+//             at column n weighs gain[p, n] * 2^plane_ids[p] (drifted
+//             conductances, repro_torch.core.nonideal.perturb_operands)
 //   tile_nz   uint8 [cols, ceil(K/128)] (B4 only): 0 = the (plane, K block)
 //             tile is zero across all N
 //   scale     f32 scalar (device pointer)
@@ -89,7 +92,12 @@
 // magnitudes are exact integers however they are built, and the FMA order
 // is the same on every path, so B2 and B4 agree bit for bit.  plane_ids
 // makes the bit positions runtime values, so it is a template flag: without
-// it they are constants the compiler folds.  The weights are read once per
+// it they are constants the compiler folds.  plane_gain (template flag
+// kGain, B2 only) makes the weights of a thread's 4 columns float: each
+// thread reads gain[p, n] * 2^id[p] for its columns once (exact: a power of
+// two scales) and a weight's magnitude is the sum, in plane order, of the
+// weights of its set bits; the reference sends such operands to its plain
+// version, whose unpack sums the same products.  The weights are read once per
 // M tile (MT = 4 at decode, 16 at prefill).  Gemma's narrow matrices
 // (N = 256 or 2048) have too few column blocks to fill 132 SMs, so K is
 // split across blocks: each split writes an f32 partial to a workspace and
@@ -124,8 +132,9 @@ __device__ __forceinline__ uint32_t load4(const uint8_t* __restrict__ row, int n
 }
 
 // Accumulate one byte row (8 K values x 4 columns) into acc, given the
-// magnitude of weight (j, c) as mag(j, c).  The FMA order (j, c, mm) is the
-// same for every way of building the magnitudes, so B2 and B4 agree.
+// magnitude of weight (j, c) as mag(j, c) (an integer, or a float with
+// plane gains).  The FMA order (j, c, mm) is the same for every way of
+// building the magnitudes, so B2 and B4 agree.
 template <int MT, typename Mag>
 __device__ __forceinline__ void fma_row(float (&acc)[MT][kCols], float (*xs)[kKChunk],
                                         int kk, uint32_t sw, Mag mag) {
@@ -137,21 +146,22 @@ __device__ __forceinline__ void fma_row(float (&acc)[MT][kCols], float (*xs)[kKC
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       const int sh = 8 * c + 7 - j;  // K value k + j is bit 7 - j of its byte
-      const uint32_t m = mag(j, c, sh);
-      const float w = ((sw >> sh) & 1u) ? -(float)m : (float)m;
+      const float m = (float)mag(j, c, sh);
+      const float w = ((sw >> sh) & 1u) ? -m : m;
 #pragma unroll
       for (int mm = 0; mm < MT; ++mm) acc[mm][c] = fmaf(xv[mm], w, acc[mm][c]);
     }
   }
 }
 
-template <int MT, int COLS, bool kVec, bool kSkip, bool kIds>
+template <int MT, int COLS, bool kVec, bool kSkip, bool kIds, bool kGain>
 __global__ void __launch_bounds__(kThreads)
 cim_packed_kernel(const float* __restrict__ x, const uint8_t* __restrict__ planes,
                   const uint8_t* __restrict__ sign, const int* __restrict__ plane_ids,
-                  const uint8_t* __restrict__ tile_nz, const float* __restrict__ scale,
-                  float* __restrict__ dst, int m_rows, int k_dim, int n_cols,
-                  int cols, int k_per_split, int apply_scale) {
+                  const uint8_t* __restrict__ tile_nz, const float* __restrict__ plane_gain,
+                  const float* __restrict__ scale, float* __restrict__ dst, int m_rows,
+                  int k_dim, int n_cols, int cols, int k_per_split, int apply_scale) {
+  static_assert(!(kGain && kSkip), "plane gains run on B2's path only");
   __shared__ float xs[MT][kKChunk];
   const int n0 = (blockIdx.x * kThreads + threadIdx.x) * kCols;
   const int split = blockIdx.y;
@@ -166,6 +176,18 @@ cim_packed_kernel(const float* __restrict__ x, const uint8_t* __restrict__ plane
   int weight_bit[COLS];
 #pragma unroll
   for (int b = 0; b < COLS; ++b) weight_bit[b] = (kIds && b < cols) ? __ldg(plane_ids + b) : b;
+
+  // with plane gains: stored plane b's weight at each of this thread's columns
+  float gain_w[kGain ? COLS : 1][kCols];
+  if constexpr (kGain) {
+#pragma unroll
+    for (int b = 0; b < COLS; ++b)
+#pragma unroll
+      for (int c = 0; c < kCols; ++c)
+        gain_w[b][c] = (b < cols && n0 + c < n_cols)
+                           ? ldexpf(__ldg(plane_gain + (size_t)b * n_cols + n0 + c), weight_bit[b])
+                           : 0.f;
+  }
 
   float acc[MT][kCols];
 #pragma unroll
@@ -204,12 +226,21 @@ cim_packed_kernel(const float* __restrict__ x, const uint8_t* __restrict__ plane
           pw[b] = b < cols ? load4<kVec>(planes + ((size_t)b * k_bytes + kb) * n_cols, n0, n_cols)
                            : 0u;
         const uint32_t sw = load4<kVec>(sign + (size_t)kb * n_cols, n0, n_cols);
-        fma_row<MT>(acc, xs, k - kc, sw, [&](int, int, int sh) {
-          uint32_t m = 0;
+        if constexpr (kGain) {
+          fma_row<MT>(acc, xs, k - kc, sw, [&](int, int c, int sh) {
+            float m = 0.f;
 #pragma unroll
-          for (int b = 0; b < COLS; ++b) m |= ((pw[b] >> sh) & 1u) << (kIds ? weight_bit[b] : b);
-          return m;
-        });
+            for (int b = 0; b < COLS; ++b) m += ((pw[b] >> sh) & 1u) ? gain_w[b][c] : 0.f;
+            return m;
+          });
+        } else {
+          fma_row<MT>(acc, xs, k - kc, sw, [&](int, int, int sh) {
+            uint32_t m = 0;
+#pragma unroll
+            for (int b = 0; b < COLS; ++b) m |= ((pw[b] >> sh) & 1u) << (kIds ? weight_bit[b] : b);
+            return m;
+          });
+        }
       } else {
         // B4 with dead planes in this tile: load and unpack the live ones
 #pragma unroll
@@ -270,44 +301,44 @@ cudaError_t reduce_splits(const float* ws, const float* scale, float* out, int s
 }
 
 struct Args {
-  const void *x, *planes, *sign, *plane_ids, *tile_nz, *scale;
+  const void *x, *planes, *sign, *plane_ids, *tile_nz, *plane_gain, *scale;
   float* dst;
   int m, k, n, cols, splits, k_per_split, apply_scale;
   cudaStream_t stream;
 };
 
-template <int MT, int COLS, bool kVec, bool kSkip, bool kIds>
+template <int MT, int COLS, bool kVec, bool kSkip, bool kIds, bool kGain>
 void launch_main(const Args& a) {
   const int col_groups = (a.n + kCols - 1) / kCols;
   dim3 grid((col_groups + kThreads - 1) / kThreads, a.splits, (a.m + MT - 1) / MT);
-  cim_packed_kernel<MT, COLS, kVec, kSkip, kIds><<<grid, kThreads, 0, a.stream>>>(
+  cim_packed_kernel<MT, COLS, kVec, kSkip, kIds, kGain><<<grid, kThreads, 0, a.stream>>>(
       (const float*)a.x, (const uint8_t*)a.planes, (const uint8_t*)a.sign,
-      (const int*)a.plane_ids, (const uint8_t*)a.tile_nz, (const float*)a.scale,
-      a.dst, a.m, a.k, a.n, a.cols, a.k_per_split, a.apply_scale);
+      (const int*)a.plane_ids, (const uint8_t*)a.tile_nz, (const float*)a.plane_gain,
+      (const float*)a.scale, a.dst, a.m, a.k, a.n, a.cols, a.k_per_split, a.apply_scale);
 }
 
-template <int MT, int COLS, bool kSkip, bool kIds>
+template <int MT, int COLS, bool kSkip, bool kIds, bool kGain>
 void launch_vec(bool vec, const Args& a) {
-  if (vec) launch_main<MT, COLS, true, kSkip, kIds>(a);
-  else launch_main<MT, COLS, false, kSkip, kIds>(a);
+  if (vec) launch_main<MT, COLS, true, kSkip, kIds, kGain>(a);
+  else launch_main<MT, COLS, false, kSkip, kIds, kGain>(a);
 }
 
-template <int MT, bool kSkip, bool kIds>
+template <int MT, bool kSkip, bool kIds, bool kGain>
 void launch_cols(bool vec, const Args& a) {
-  if (a.cols == 10) launch_vec<MT, 10, kSkip, kIds>(vec, a);
-  else launch_vec<MT, 16, kSkip, kIds>(vec, a);
+  if (a.cols == 10) launch_vec<MT, 10, kSkip, kIds, kGain>(vec, a);
+  else launch_vec<MT, 16, kSkip, kIds, kGain>(vec, a);
 }
 
-template <bool kSkip, bool kIds>
+template <bool kSkip, bool kIds, bool kGain>
 void launch_mt(int mt, bool vec, const Args& a) {
-  if (mt == 4) launch_cols<4, kSkip, kIds>(vec, a);
-  else launch_cols<16, kSkip, kIds>(vec, a);
+  if (mt == 4) launch_cols<4, kSkip, kIds, kGain>(vec, a);
+  else launch_cols<16, kSkip, kIds, kGain>(vec, a);
 }
 
-template <bool kSkip>
+template <bool kSkip, bool kGain>
 void launch_ids(int mt, bool vec, const Args& a) {
-  if (a.plane_ids != nullptr) launch_mt<kSkip, true>(mt, vec, a);
-  else launch_mt<kSkip, false>(mt, vec, a);
+  if (a.plane_ids != nullptr) launch_mt<kSkip, true, kGain>(mt, vec, a);
+  else launch_mt<kSkip, false, kGain>(mt, vec, a);
 }
 
 // ---- tensor-core kernel (bf16 x) --------------------------------------------
@@ -744,20 +775,23 @@ cudaError_t launch_nwg(int nwg, bool vec, const Args& a) {
 // The FMA kernel, f32 x only (bf16 x runs cim_matmul_packed_tc_launch).  The
 // wrapper validates shapes and pointers.  cols <= 16; k_per_split is a
 // multiple of 8; mt is 4 or 16; vec requires n % 4 == 0 and 4-byte aligned
-// planes and sign.  plane_ids may be null; tile_nz non-null selects B4.
+// planes and sign.  plane_ids may be null; tile_nz non-null selects B4;
+// plane_gain (f32 [cols, n]) may be non-null only where tile_nz is null.
 // With splits > 1, ws holds f32[splits, m, n].
 // Returns the first CUDA error of the launches (0 on success).
 extern "C" int cim_matmul_packed_launch(const void* x, const void* planes, const void* sign,
                                         const void* plane_ids, const void* tile_nz,
-                                        const void* scale, void* out, void* ws, int m, int k,
-                                        int n, int cols, int mt, int vec, int splits,
-                                        int k_per_split, void* stream) {
+                                        const void* plane_gain, const void* scale, void* out,
+                                        void* ws, int m, int k, int n, int cols, int mt,
+                                        int vec, int splits, int k_per_split, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  Args a{x, planes, sign, plane_ids, tile_nz, scale,
+  if (plane_gain != nullptr && tile_nz != nullptr) return (int)cudaErrorInvalidValue;
+  Args a{x, planes, sign, plane_ids, tile_nz, plane_gain, scale,
          splits > 1 ? (float*)ws : (float*)out,
          m, k, n, cols, splits, k_per_split, splits > 1 ? 0 : 1, st};
-  if (tile_nz != nullptr) launch_ids<true>(mt, vec != 0, a);
-  else launch_ids<false>(mt, vec != 0, a);
+  if (tile_nz != nullptr) launch_ids<true, false>(mt, vec != 0, a);
+  else if (plane_gain != nullptr) launch_ids<false, true>(mt, vec != 0, a);
+  else launch_ids<false, false>(mt, vec != 0, a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits <= 1) return (int)err;
   return (int)reduce_splits((const float*)ws, (const float*)scale, (float*)out, splits, m, n, st);
@@ -776,7 +810,7 @@ extern "C" int cim_matmul_packed_tc_launch(const void* x, const void* planes, co
                                            int k, int n, int cols, int nwg, int vec,
                                            int splits, int k_per_split, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  Args a{x, planes, sign, plane_ids, tile_nz, scale,
+  Args a{x, planes, sign, plane_ids, tile_nz, nullptr, scale,
          splits > 1 ? (float*)ws : (float*)out,
          m, k, n, cols, splits, k_per_split, splits > 1 ? 0 : 1, st};
   const cudaError_t err = cols <= 10 ? tc::launch_nwg<10>(nwg, vec != 0, a)

@@ -4,7 +4,8 @@ Counterparts of ``repro.kernels.cim_matmul.ops``:
 
 * ``cim_matmul_packed`` — bit-packed planes: kernel B2, or B4 when the
   const_rle codec's ``tile_nz`` flags are given; both take the col_perm
-  codec's ``plane_ids``; bf16 x takes their tensor-core kernel;
+  codec's ``plane_ids``; bf16 x takes their tensor-core kernel; drift
+  ``plane_gain`` runs B2's FMA kernel (x in float32);
 * ``cim_matmul`` — int8 signed planes: kernel B5 (``fused_dequant`` or the
   per-plane ``planes`` oracle); ``fused_dequant`` on bf16 x takes B5's
   tensor-core kernel.
@@ -12,7 +13,8 @@ Counterparts of ``repro.kernels.cim_matmul.ops``:
 CUDA tensors launch the kernels, CPU tensors run the plain versions in
 ``ref.py``.  ``LAUNCHES`` counts kernel launches by kernel (``"B2"``,
 ``"B4"``, ``"B5"``; ``"B2_tc"``, ``"B4_tc"`` and ``"B5_tc"`` count the
-launches that took a tensor-core kernel); ``reset_launches`` zeroes it.
+launches that took a tensor-core kernel, ``"B2_gain"`` those with plane
+gains); ``reset_launches`` zeroes it.
 """
 from __future__ import annotations
 
@@ -42,7 +44,7 @@ TC_MIN_TILES = 4  # K stages per split at least (the ring's depth plus one)
 TC_FILL = 2  # stages' worth of time a block spends filling its ring and in its epilogue
 TC_PACKED_BN = 128  # output columns per block of B2/B4's tensor-core kernel
 
-LAUNCHES = {"B2": 0, "B2_tc": 0, "B4": 0, "B4_tc": 0, "B5": 0, "B5_tc": 0}
+LAUNCHES = {"B2": 0, "B2_tc": 0, "B2_gain": 0, "B4": 0, "B4_tc": 0, "B5": 0, "B5_tc": 0}
 
 
 def reset_launches() -> None:
@@ -57,7 +59,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def _packed_lib():
     """The C launcher of B2/B4's FMA kernel (f32 x), argument types set once per process."""
     fn = load_kernel_lib("cim_matmul").cim_matmul_packed_launch
-    fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P,
+    fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                    _I, _I, _I, _I, _I, _I, _I, _I, _P]
     fn.restype = ctypes.c_int
     return fn
@@ -161,6 +163,7 @@ def cim_matmul_packed(
     *,
     tile_nz: torch.Tensor | None = None,
     plane_ids: torch.Tensor | None = None,
+    plane_gain: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Bit-packed serving matmul: y = scale * (x @ unpack(planes, signs)) -> f32[M, N].
 
@@ -170,6 +173,11 @@ def cim_matmul_packed(
     codec) select kernel B4, which skips the flagged-zero tiles;
     ``plane_ids`` int32[cols] (the col_perm codec) weighs stored plane ``p``
     by ``2**plane_ids[p]``.  Both kernels give the same bits.
+    ``plane_gain`` f32[cols, N] (drifted conductances) weighs stored plane
+    ``p`` at column ``n`` by ``gain[p, n] * 2**plane_ids[p]``: B2's FMA
+    kernel serves it with x cast to float32 (the tensor-core kernel's exact
+    hi/lo split needs integer weights), and ``tile_nz`` is not used (the
+    flags only skip exact zeros).
 
     On CUDA, bf16 x runs the tensor-core kernel and f32 x the FMA kernel.
     The tensor-core kernel needs ``plane_ids`` to be a permutation of
@@ -188,9 +196,15 @@ def cim_matmul_packed(
         raise ValueError(f"tile_nz shape {tuple(tile_nz.shape)} != {(cols, cdiv(k, TILE_ROWS))}")
     if plane_ids is not None and tuple(plane_ids.shape) != (cols,):
         raise ValueError(f"plane_ids shape {tuple(plane_ids.shape)} != {(cols,)}")
+    if plane_gain is not None:
+        if tuple(plane_gain.shape) != (cols, n):
+            raise ValueError(f"plane_gain shape {tuple(plane_gain.shape)} != {(cols, n)}")
+        tile_nz = None
+        x = x.to(torch.float32)
     if not use_kernel(x):
         # the flags only skip exact zeros: the plain version needs none
-        return cim_ref.cim_matmul_packed(x, planes_packed, sign_packed, scale, plane_ids)
+        return cim_ref.cim_matmul_packed(x, planes_packed, sign_packed, scale, plane_ids,
+                                         plane_gain)
     if not 1 <= cols <= MAX_COLS:
         raise ValueError(f"cols={cols} outside [1, {MAX_COLS}]")
     _check_x_scale(x, scale)
@@ -200,6 +214,8 @@ def cim_matmul_packed(
         check_cuda_operand(tile_nz, "tile_nz", torch.uint8, 2)
     if plane_ids is not None:
         check_cuda_operand(plane_ids, "plane_ids", torch.int32, 1)
+    if plane_gain is not None:
+        check_cuda_operand(plane_gain, "plane_gain", torch.float32, 2)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0 or k == 0:
         return out.zero_()
@@ -213,18 +229,22 @@ def cim_matmul_packed(
         mt, splits, k_per_split = launch_plan(m, k, n, sms)
         vec = n % 4 == 0 and planes_packed.data_ptr() % 4 == 0 and sign_packed.data_ptr() % 4 == 0
     ws = torch.empty((splits, m, n), dtype=torch.float32, device=x.device) if splits > 1 else out
-    args = (x.data_ptr(), planes_packed.data_ptr(), sign_packed.data_ptr(),
+    ptrs = (x.data_ptr(), planes_packed.data_ptr(), sign_packed.data_ptr(),
             None if plane_ids is None else plane_ids.data_ptr(),
-            None if tile_nz is None else tile_nz.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            ws.data_ptr(), m, k, n, cols)
+            None if tile_nz is None else tile_nz.data_ptr())
+    tail = (scale.data_ptr(), out.data_ptr(), ws.data_ptr(), m, k, n, cols)
     if tensor_cores:
-        err = _packed_tc_lib()(*args, nwg, int(vec), splits, k_per_split, current_stream())
+        err = _packed_tc_lib()(*ptrs, *tail, nwg, int(vec), splits, k_per_split,
+                               current_stream())
     else:
-        err = _packed_lib()(*args, mt, int(vec), splits, k_per_split, current_stream())
+        gain = None if plane_gain is None else plane_gain.data_ptr()
+        err = _packed_lib()(*ptrs, gain, *tail, mt, int(vec), splits, k_per_split,
+                            current_stream())
     kernel = "B2" if tile_nz is None else "B4"
     check_launch(err, kernel)
     LAUNCHES[kernel] += 1
     LAUNCHES[f"{kernel}_tc"] += int(tensor_cores)
+    LAUNCHES["B2_gain"] += int(plane_gain is not None)
     return out
 
 

@@ -14,7 +14,9 @@ bit-packed planes (B2, B4):
   sign_packed:   uint8[ceil(K/8), N], bit 1 = negative weight
   plane_ids:     optional int32[cols]; stored plane p weighs 2**plane_ids[p]
                  (plane 0 = LSB when absent)
-  y = scale * (x @ (sign * sum_p 2**plane_ids[p] * bits_p))    -> f32[M, N]
+  plane_gain:    optional f32[cols, N] (B2 only): stored plane p at column n
+                 weighs gain[p, n] * 2**plane_ids[p] (drifted conductances)
+  y = scale * (x @ (sign * sum_p gain_p * 2**plane_ids[p] * bits_p)) -> f32[M, N]
 
 Each function counts its calls in ``.calls``, so a run can show that its
 kernels, not these, served it.
@@ -92,13 +94,17 @@ def unpack_weights(
     sign_packed: torch.Tensor,
     k: int,
     plane_ids: torch.Tensor | None = None,
+    plane_gain: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Packed serving operands -> dense unscaled weights f32[..., K, N]
     (sign * magnitude, i.e. ``w_hat / scale``; integers, exact in f32).
 
     ``plane_ids`` int32[..., cols] (the ``col_perm`` serving codec): stored
     plane ``p`` weighs ``2**plane_ids[..., p]``; powers of two are exact, so
-    the permuted sum equals the raw-layout one.
+    the permuted sum equals the raw-layout one.  ``plane_gain`` f32[...,
+    cols, N] (drift) multiplies plane ``p``'s weight at column ``n`` (an
+    exact product: a power of two scales it); the magnitudes are then
+    float sums, in plane order.
     """
     unpack_weights.calls += 1
     cols = planes_packed.shape[-3]
@@ -107,6 +113,8 @@ def unpack_weights(
     else:
         p2 = torch.exp2(plane_ids.to(torch.float32))[..., None, None]  # [..., cols, 1, 1]
         pow2 = [p2[..., b, :, :] for b in range(cols)]
+    if plane_gain is not None:
+        pow2 = [pow2[b] * plane_gain[..., b : b + 1, :] for b in range(cols)]  # [..., 1, N]
     mag = None
     for b in range(cols):
         plane = unpackbits(planes_packed[..., b, :, :], -2, k).to(torch.float32) * pow2[b]
@@ -122,8 +130,9 @@ def cim_matmul_packed(
     sign_packed: torch.Tensor,
     scale: torch.Tensor,
     plane_ids: torch.Tensor | None = None,
+    plane_gain: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """y = scale * (x.float() @ unpack(planes, signs)) -> f32[M, N]."""
     cim_matmul_packed.calls += 1
-    w = unpack_weights(planes_packed, sign_packed, x.shape[-1], plane_ids)
+    w = unpack_weights(planes_packed, sign_packed, x.shape[-1], plane_ids, plane_gain)
     return (x.to(torch.float32) @ w) * scale

@@ -11,10 +11,14 @@ endurance horizon.
 
 ``--codec`` (``core/planes.py``) changes the physical bits the pool
 programs and, with ``--materialize packed``, the serving operand layout
-(plane reorder + zero-tile skipping); tokens do not change.  Fault
-injection and scrubbing are not ported yet (ROADMAP A.13).  Archs: the
-dense decoders gemma-2b, yi-6b, internlm2-1.8b, phi3-medium-14b; prefill
-attention runs kernel B3 on the card.
+(plane reorder + zero-tile skipping); tokens do not change.
+``--fault-rate`` / ``--fault-hotspot`` inject stuck cells into the pool
+before planning (``core/nonideal.py``: the deployment reads through them,
+and ``--pool-leveling fault`` remaps around them); ``--scrub`` enables the
+integrity layer (``core/integrity.py``), and ``--scrub-storm`` corrupts the
+deployed bits, scrubs to convergence and prices the repair against a full
+reprogram.  Archs: the dense decoders gemma-2b, yi-6b, internlm2-1.8b,
+phi3-medium-14b; prefill attention runs kernel B3 on the card.
 
 Decode loop (``--loop``): ``scan`` (default) runs the whole generation as
 one dispatch, a CUDA graph of every decode step replayed once a generation
@@ -27,6 +31,9 @@ Usage (on the card):
       --cim --materialize packed [--codec const_rle --pool-leveling lpt --p-stuck 0.5]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --layers 4 \
       --cim --materialize planes_int8 [--loop python]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b --layers 4 \
+      --cim --fault-rate 2e-3 --fault-hotspot 0.25 --pool-leveling fault \
+      --scrub --scrub-tiles 65536 --scrub-storm 2e-7
 Add ``--reduced --device cpu`` for the small config on the CPU.
 """
 from __future__ import annotations
@@ -39,6 +46,8 @@ import torch
 
 from repro_torch import prng
 from repro_torch.configs import get_arch
+from repro_torch.core import nonideal
+from repro_torch.core.integrity import IntegrityConfig
 from repro_torch.core.planes import CODECS
 from repro_torch.core.planner import (
     MATERIALIZATIONS,
@@ -188,12 +197,46 @@ def main(argv: list[str] | None = None) -> None:
         help="per-cell write endurance budget for the exhaustion horizon",
     )
     ap.add_argument(
+        "--fault-rate", type=float, default=0.0,
+        help="per-cell stuck-at rate (split evenly stuck-at-0/1) injected "
+             "into the pool before deployment; reads go through the masks",
+    )
+    ap.add_argument(
+        "--fault-hotspot", type=float, default=0.0,
+        help="fraction of crossbars with 8x the stuck-at rate (the "
+             "heterogeneous-yield setting 'fault' leveling remaps around)",
+    )
+    ap.add_argument(
+        "--scrub", action="store_true",
+        help="enable the integrity layer (core/integrity.py): tile checksums "
+             "and spare columns registered as each tensor is programmed",
+    )
+    ap.add_argument(
+        "--scrub-tiles", type=int, default=64,
+        help="tile-verification budget per scrub round (bounds scrub latency)",
+    )
+    ap.add_argument(
+        "--spare-cols", type=int, default=2,
+        help="clean spare column planes per section (remap targets for hard "
+             "stuck-at faults found by the scrubber)",
+    )
+    ap.add_argument(
+        "--scrub-storm", type=float, default=0.0,
+        help="after deployment, corrupt stored bits at this rate (plus 1/10th "
+             "of it as new hard stuck cells), scrub to convergence, and report "
+             "repair cost vs a full reprogram of the affected tensors",
+    )
+    ap.add_argument(
         "--loop", choices=LOOPS, default="scan",
         help="decode loop: one dispatch a generation (a CUDA graph on the card) or one a token",
     )
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    if (args.scrub or args.scrub_storm > 0.0) and not args.cim:
+        ap.error("--scrub/--scrub-storm apply to crossbar-deployed weights; add --cim")
+    if args.scrub_storm > 0.0 and not args.scrub:
+        ap.error("--scrub-storm needs the integrity layer; add --scrub")
     if args.codec != "raw":
         if not args.cim:
             ap.error("--codec applies to crossbar-deployed weights; add --cim")
@@ -219,6 +262,19 @@ def main(argv: list[str] | None = None) -> None:
     spec = CrossbarSpec(rows=args.rows, cols=args.cols)
     planner_cfg = PlannerConfig(p_stuck=args.p_stuck, min_size=args.min_size, codec=args.codec)
     pool = CrossbarPool(spec, planner_cfg.crossbars, leveling=args.pool_leveling, device=dev)
+    if args.scrub:
+        pool.enable_integrity(IntegrityConfig(spare_cols=args.spare_cols,
+                                              scrub_tiles=args.scrub_tiles))
+    if args.fault_rate > 0.0:
+        fstate = pool.inject_faults(
+            nonideal.FaultModel(stuck0=args.fault_rate / 2, stuck1=args.fault_rate / 2,
+                                hotspot_fraction=args.fault_hotspot, hotspot_mult=8.0),
+            prng.PRNGKey(args.seed),
+        )
+        cells = fstate.fault_cells()
+        print(f"injected faults: {int(cells.sum())} stuck cells across "
+              f"{pool.n_crossbars} crossbars (worst {int(cells.max())}; "
+              f"{int(fstate.hot.sum())} hotspots)")
     t0 = time.perf_counter()
     plan = build_deployment(params, spec, planner_cfg, pool=pool, device=dev)
     plan_s = time.perf_counter() - t0
@@ -241,6 +297,27 @@ def main(argv: list[str] | None = None) -> None:
           f"over {stats.tensors_seen} tensors")
     print(f"endurance horizon: ~{horizon:.3g} such deployments "
           f"@ {args.endurance:.0e} writes/cell ({args.pool_leveling} leveling)")
+    if not args.scrub:
+        return
+    mgr = pool.integrity
+    s = mgr.summary()
+    print(f"integrity: {s['tensors']} tensors registered, {s['tiles']} "
+          f"checksum tiles, {s['spare_cols']} spare cols/section"
+          + (" + parity" if s["parity_col"] else ""))
+    if args.scrub_storm > 0.0:
+        st = mgr.storm(prng.PRNGKey(args.seed + 1), corrupt_rate=args.scrub_storm,
+                       stuck_rate=args.scrub_storm / 10)
+        rep = mgr.scrub_until_clean()
+        full = mgr.transitions_full_affected()
+        ratio = rep.repair_transitions / max(full, 1)
+        print(f"storm: {st['corrupted_bits']} bits corrupted, "
+              f"{st['new_stuck_cells']} new stuck cells -> "
+              f"{rep.detections} detections, {rep.rewrites} rewrites, "
+              f"{rep.remaps} remaps, {rep.migrations} migrations, "
+              f"{rep.tolerated} tolerated")
+        print(f"repair cost: {rep.repair_transitions} transitions vs "
+              f"{full} full reprogram ({ratio:.4f}x); reads restored: "
+              f"{mgr.verify_all()}")
 
 
 if __name__ == "__main__":

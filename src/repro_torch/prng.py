@@ -13,7 +13,9 @@ the counterpart of the calls the planner makes, under jax's default
   each element's flat index;
 * ``uniform`` puts the top 23 bits in the mantissa of ``[1, 2)`` and
   subtracts 1, then scales to ``[minval, maxval)``; ``bernoulli(key, p)`` is
-  ``uniform < p`` in float32;
+  ``uniform < p`` in float32, ``p`` a float or a float32 tensor that
+  broadcasts to the shape (so a rate below 2**-23 draws at 2**-23: the
+  one uniform value below it is 0);
 * ``normal`` is ``sqrt(2) * erf_inv(uniform(key, shape, nextafter(-1, 0),
   1))`` with XLA:CPU's float32 ``log1p`` and ``erf_inv`` transcribed step
   for step, fused multiply-adds included, so the paper figures' weights
@@ -26,6 +28,8 @@ the counterpart of the calls the planner makes, under jax's default
   XLA:CPU's float32 ``log`` (the ``log`` inside ``log1p``), and
   ``categorical(key, logits)`` the argmax of ``gumbel + logits``, so
   sampled decode (``launch.steps``) picks the reference's tokens;
+* ``xla_exp`` is XLA:CPU's float32 ``exp`` (the fault layer's drift gains
+  ``exp(sigma * normal)``);
 * ``fold_in(key, data)`` is ``threefry(key, (0, data))``; ``randint`` draws
   two 32-bit words per element (keys ``split(key)``) and reduces them with
   the ``2**16 % span`` multiplier identity in uint32, as jax does; the data
@@ -268,6 +272,30 @@ def _log(a: torch.Tensor) -> torch.Tensor:
     return (bad.to(torch.int32) | ok).view(torch.float32)
 
 
+_EXP_P = (0x39506967, 0x3AB743CE, 0x3C088908, 0x3D2AA9C1, 0x3E2AAAAA, 0x3F000000)
+
+
+def xla_exp(x: torch.Tensor) -> torch.Tensor:
+    """XLA:CPU's float32 ``exp``, operation for operation: the Cephes
+    reduction ``x - n * ln2`` in two fused steps (n = floor(x * log2(e) +
+    1/2) clamped to [-127, 127]), a fused Horner chain, then ``(1 + z) *
+    2**n`` (0 for n = -127, and subnormal results flushed to 0);
+    ``torch.exp`` rounds other bits."""
+    dev = x.device
+    c = lambda b: _f32(b, dev)  # noqa: E731
+    f = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
+    x = torch.clamp(x, f(-87.8), f(88.8))
+    n = torch.clamp(torch.floor(_fma(x, f(1.44269504088896341), c(_HALF))), f(-127.0), f(127.0))
+    a = _fma(-f(0.693359375), n, x)
+    a = _fma(-f(-2.12194440e-4), n, a)
+    z = _fma(a, c(_EXP_P[0]), c(_EXP_P[1]))
+    for p in _EXP_P[2:]:
+        z = _fma(z, a, c(p))
+    z = c(_ONE) + _fma(z, a * a, a)
+    y = z * ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+    return torch.where(y < c(_TINY), c(0), y)  # flush-to-zero, as XLA:CPU runs
+
+
 def _log1p(x: torch.Tensor) -> torch.Tensor:
     """XLA:CPU's float32 ``log1p``, operation for operation: for ``|x| <
     sqrt(2) - 1`` a rational in ``x`` (its Horner steps fused), otherwise
@@ -370,11 +398,29 @@ def truncated_normal(
     return _draw(key, shape, transform)
 
 
-def bernoulli(key: torch.Tensor, p: float, shape: tuple[int, ...]) -> torch.Tensor:
-    """bool ``[..., *shape]``: ``uniform < p`` with ``p`` cast to float32."""
-    pf = torch.tensor(p, dtype=torch.float32, device=key.device)
-    return _draw(key, shape, lambda bits: _uniform_from_bits(bits, 0.0, 1.0) < pf,
-                 dtype=torch.bool)
+def bernoulli(key: torch.Tensor, p: float | torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
+    """bool ``[..., *shape]``: ``uniform < p`` with ``p`` cast to float32.
+
+    ``p`` is a float or a float32 tensor that broadcasts to ``shape`` (one
+    key), as ``jax.random.bernoulli(key, p=broadcast_to(p, shape))``; a
+    tensor is compared element by element, one draw chunk at a time."""
+    if not isinstance(p, torch.Tensor):
+        pf = torch.tensor(p, dtype=torch.float32, device=key.device)
+        return _draw(key, shape, lambda bits: _uniform_from_bits(bits, 0.0, 1.0) < pf,
+                     dtype=torch.bool)
+    if key.ndim != 1:
+        raise ValueError("a tensor p takes one key")
+    if p.dtype != torch.float32:
+        raise TypeError(f"p must be float32, got {p.dtype}")
+    shape = tuple(shape)
+    flat = p.to(key.device).broadcast_to(shape).reshape(-1)
+    n = flat.shape[0]
+    out = torch.empty(n, dtype=torch.bool, device=key.device)
+    for lo in range(0, n, CHUNK):
+        hi = min(n, lo + CHUNK)
+        y0, y1 = _hash_range(key, lo, hi)
+        out[lo:hi] = _uniform_from_bits(y0 ^ y1, 0.0, 1.0) < flat[lo:hi]
+    return out.reshape(shape)
 
 
 _TINY_F = 1.1754943508222875e-38  # float32 tiny, the smallest normal

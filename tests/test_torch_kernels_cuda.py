@@ -1,6 +1,7 @@
-"""Kernels B2/B4 (bit-packed matmul), B3 (flash attention), B5 (int8-plane
-matmul) and B6 (bitslice) against their plain versions on the card
-(B3's f32 kernel also at the reduced configs' head dims 16, 20 and 32).
+"""Kernels B2/B4 (bit-packed matmul; B2 also with drift gains), B3 (flash
+attention), B5 (int8-plane matmul) and B6 (bitslice) against their plain
+versions on the card (B3's f32 kernel also at the reduced configs' head
+dims 16, 20 and 32).
 
 Every test here is marked ``cuda`` and skips without a CUDA device (the
 kernels have no CPU mode).  The file imports neither JAX nor the reference
@@ -233,6 +234,39 @@ def test_packed_kernels_match_plain(cuda_device, k, n, cols, dtype):
                 what = f"share {share} ids {ids is not None} M {m}"
                 assert b2.shape == (m, n) and bool(((b2 - want).abs() <= bound).all()), what
                 assert torch.equal(b2, b4), what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(2048, 16384), (16384, 2048), (1001, 333)])
+@pytest.mark.parametrize("cols", [8, 10])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_kernel_with_plane_gain_matches_plain(cuda_device, k, n, cols, dtype):
+    """B2 with drift gains (stored plane p at column n weighs gain[p, n] *
+    2**ids[p]) against the plain version, identity and permuted plane_ids,
+    M from 1 to 128: always the FMA kernel (bf16 x taken as f32), never B4
+    (zero-tile flags are ignored), and no plain-version call."""
+    g = torch.Generator(device=cuda_device).manual_seed(k + n + cols)
+    op, _ = _packed_operands(cuda_device, k, n, cols, 0.5)
+    gain = torch.exp(0.05 * torch.randn(cols, n, device=cuda_device, generator=g))
+    perm = torch.randperm(cols, generator=torch.Generator().manual_seed(cols)).to(torch.int32)
+    for ids in (None, perm.to(cuda_device)):
+        args = (op["planes_packed"], op["sign_packed"], op["scale"])
+        w_abs = cim_ref.unpack_weights(*args[:2], k, ids, gain).abs() * 1e-3
+        for m in (1, 4, 17, 128):
+            x = torch.randn(m, k, device=cuda_device, generator=g).to(dtype)
+            cim_ops.reset_launches()
+            cim_ref.cim_matmul_packed.calls = cim_ref.unpack_weights.calls = 0
+            got = cim_ops.cim_matmul_packed(x, *args, plane_ids=ids, plane_gain=gain)
+            flagged = cim_ops.cim_matmul_packed(x, *args, tile_nz=op["plane_tile_nz"],
+                                                plane_ids=ids, plane_gain=gain)
+            assert {key: v for key, v in cim_ops.LAUNCHES.items() if v} == {"B2": 2, "B2_gain": 2}
+            assert cim_ref.cim_matmul_packed.calls == cim_ref.unpack_weights.calls == 0
+            want = cim_ref.cim_matmul_packed(x, *args, plane_ids=ids, plane_gain=gain)
+            torch.cuda.synchronize()
+            bound = 2 * F32_EPS * k * (x.float().abs() @ w_abs)
+            what = f"ids {ids is not None} M {m}"
+            assert got.shape == (m, n) and bool(((got - want).abs() <= bound).all()), what
+            assert torch.equal(got, flagged), what
 
 
 @pytest.mark.cuda

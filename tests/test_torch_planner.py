@@ -369,10 +369,11 @@ def test_iter_weights_names_and_order(reduced_gemma):
 
 
 def test_unported_options_raise():
-    """What the port still refuses: the bool oracle (planner and pool), fault
-    injection and the integrity layer (ROADMAP A13), and a codec with int8
-    planes (no stored-plane layout to encode: a ValueError, as in the
-    reference)."""
+    """What the port still refuses: the bool oracle (planner and pool) and a
+    codec with int8 planes (no stored-plane layout to encode: a ValueError,
+    as in the reference).  Fault injection and the integrity layer are
+    ported: a plan through a faulty pool with integrity registers its
+    tensor, and ``rebuild`` gives the deployed bytes."""
     from repro_torch.core import pool as tpool
 
     w = _t(_weights((64, 80)))
@@ -383,10 +384,12 @@ def test_unported_options_raise():
     xbars = tpool.CrossbarPool(spec, 16, device="cpu")
     with pytest.raises(NotImplementedError):
         planner.analyze_tensor(w, spec, planner.PlannerConfig(impl="bool"), key, pool=xbars)
-    with pytest.raises(NotImplementedError):
-        xbars.inject_faults(None)
-    with pytest.raises(NotImplementedError):
-        xbars.enable_integrity()
+    from repro_torch.core import nonideal
+
+    xbars.inject_faults(nonideal.FaultModel(stuck0=0.01, stuck1=0.01), prng.PRNGKey(3))
+    mgr = xbars.enable_integrity()
+    _, w_hat = planner.analyze_tensor(w, spec, planner.PlannerConfig(), key, name="w", pool=xbars)
+    assert mgr.verify_all() and mgr.rebuild("w").numpy().tobytes() == w_hat.numpy().tobytes()
     plan = planner.build_deployment({"w": w}, spec, planner.PlannerConfig(), device="cpu")
     with pytest.raises(ValueError):
         planner.deploy_params({"w": w}, plan, materialize="planes_int8", codec="const_rle")

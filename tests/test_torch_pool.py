@@ -177,10 +177,18 @@ def test_pool_validation_and_unported_parts():
                                    prng.PRNGKey(0), **kw)
     with pytest.raises(NotImplementedError):
         tpool.program(packed, schedule.make_chains(6, 2, "stride1"), impl="bool")
-    with pytest.raises(NotImplementedError):
-        tpool.inject_faults(None)
-    with pytest.raises(NotImplementedError):
-        tpool.enable_integrity()
+    # faults and integrity are ported: a drawn fault state and a manager that
+    # registers the next program
+    from repro_torch.core import integrity, nonideal
+
+    state = tpool.inject_faults(nonideal.FaultModel(stuck0=0.01, stuck1=0.01))
+    assert tpool.faults is state and state.stuck0.device == tpool.device
+    assert state.stuck0.shape == tpool.state.shape and int(state.fault_cells().sum()) > 0
+    mgr = tpool.enable_integrity()
+    assert tpool.integrity is mgr and isinstance(mgr.cfg, integrity.IntegrityConfig)
+    rep = tpool.program(packed, schedule.make_chains(6, 2, "stride1"), name="t")
+    assert list(mgr.tensors) == ["t"] and mgr.verify_all()
+    assert torch.equal(mgr.tensors["t"].expected, rep.achieved_read)
 
 
 def test_pool_needs_a_card_unless_cpu_is_asked(monkeypatch):

@@ -4,7 +4,9 @@ Packed matmuls, the model and greedy generation on the reduced gemma-2b
 config (float32), with params converted from the reference's ``api.init``.
 Tolerances: float32 matmuls and attention sum in another order in XLA and
 torch, so logits agree to 2e-5 (absolute + relative; reduced-model logits
-are O(1)); served token streams must be identical.  The package rules
+are O(1)); served token streams must be identical.  The serve CLI with
+faults, fault leveling and a scrubbed storm prints the reference CLI's
+report (golden ``serve_faults``).  The package rules
 (no JAX in the port, no silent CPU fallback) are checked here too, and the
 kernels against their plain versions in tests marked ``cuda`` (skipped
 without a card).
@@ -12,6 +14,8 @@ without a card).
 from __future__ import annotations
 
 import ast
+import json
+import re
 from pathlib import Path
 
 import jax
@@ -43,6 +47,7 @@ from repro_torch.launch import serve
 from repro_torch.models import api, layers
 
 ROOT = Path(__file__).resolve().parents[1]
+GOLDEN = ROOT / "benchmarks_torch" / "golden" / "reference.json"
 LOGIT_TOL = 2e-5
 F32_EPS = float(np.finfo(np.float32).eps)
 
@@ -353,6 +358,32 @@ def test_serve_cli_codec_validation():
     with pytest.raises(SystemExit):
         serve.main(["--arch", "gemma-2b", "--reduced", "--device", "cpu", "--cim",
                     "--codec", "col_perm", "--materialize", "planes_int8"])
+
+
+def _report(lines: list[str]) -> list[str]:
+    """A serve report without its timings (tok/s and the planning wall)."""
+    return [re.sub(r"\s+plan: .*$", "", re.sub(r"\s+[\d.]+ tok/s", " _ tok/s", ln)).rstrip()
+            for ln in lines if ln.strip()]
+
+
+def test_serve_cli_faults_and_scrub_match_reference(capsys):
+    """``--fault-rate --fault-hotspot --pool-leveling fault --scrub
+    --scrub-storm`` on the reduced gemma-2b prints the reference CLI's
+    report: stuck cells and hotspots, tokens, speedups, wear, horizon,
+    registered tiles, storm and scrub counters and the repair cost."""
+    gold = json.loads(GOLDEN.read_text())["serve_faults"]
+    serve.main(gold["args"] + ["--device", "cpu"])
+    got = _report(capsys.readouterr().out.splitlines())
+    want = _report(gold["lines"])
+    assert len(want) == 9 and got == want
+
+
+def test_serve_cli_fault_flag_validation():
+    base = ["--arch", "gemma-2b", "--reduced", "--device", "cpu"]
+    with pytest.raises(SystemExit):
+        serve.main(base + ["--scrub"])  # needs --cim
+    with pytest.raises(SystemExit):
+        serve.main(base + ["--cim", "--scrub-storm", "1e-3"])  # needs --scrub
 
 
 # ---------------------------------------------------------------------------

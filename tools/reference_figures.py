@@ -35,6 +35,14 @@ hex), ``plane_compression`` the served token arrays, and
 ``redeploy_delta`` every ``RedeployReport`` field; the post-step weights
 of the 4 priced tensors go to ``golden/redeploy_delta_seed<seed>.npz``.
 
+The ``fault_tolerance`` and ``integrity_scrub`` entries are the engine-free
+halves of those ``benchmarks/`` runs at their settings (the fault curve and
+endurance horizons; storm and repair and the tolerated-fault KL), each
+logit KL also computed in float64 from the same float32 logits, and each
+fault-curve deployment's pool stats, wear per crossbar and leaf sha256s.
+``serve_faults`` is the printed report of the reference's serve CLI with
+faults, leveling and a scrubbed storm on the reduced gemma-2b (``SERVE_FAULTS_ARGS``).
+
 ``--parts accuracy,trainer`` (any of the entry names) recomputes those
 entries alone and keeps the rest of the file.
 
@@ -326,6 +334,146 @@ def redeploy_delta_record(seed: int = 0, extra_steps: int = 20) -> dict:
             "npz_sha256": hashlib.sha256(npz.read_bytes()).hexdigest()}
 
 
+def _leaf_sha256(tree) -> dict:
+    """sha256 of every leaf's float32 bytes, by '/'-joined name."""
+    import jax
+    import numpy as np
+
+    return {jax.tree_util.keystr(p, simple=True, separator="/"):
+            hashlib.sha256(np.asarray(v, np.float32).tobytes()).hexdigest()
+            for p, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+class _KL64:
+    """While active, every ``repro.core.simulator.logit_kl`` call also
+    records the KL in float64 from the same float32 logits (``kls``, in
+    call order): at the quantization floor (~4e-7) the float32 KL's own
+    rounding is of the KL's size."""
+
+    def __enter__(self):
+        import numpy as np
+
+        from repro.core import simulator
+
+        self.kls, self._orig = [], simulator.logit_kl
+
+        def logit_kl(f, params_a, params_b, batch):
+            la = np.asarray(f(params_a, batch), np.float64)
+            lb = np.asarray(f(params_b, batch), np.float64)
+            pa = la - np.logaddexp.reduce(la, axis=-1, keepdims=True)
+            pb = lb - np.logaddexp.reduce(lb, axis=-1, keepdims=True)
+            self.kls.append(float(np.mean(np.sum(np.exp(pa) * (pa - pb), axis=-1))))
+            return self._orig(f, params_a, params_b, batch)
+
+        simulator.logit_kl = logit_kl
+        return self
+
+    def __exit__(self, *exc):
+        from repro.core import simulator
+
+        simulator.logit_kl = self._orig
+
+
+def fault_tolerance_record(seed: int = 0) -> dict:
+    """The engine-free halves of the reference's ``fault_tolerance.run`` at
+    its settings: the fault curve (naive and fault-aware leveling, each KL
+    also in float64), the recovery at the reference rate and the endurance
+    horizons; beside each curve deployment, its pool's stats, wear per
+    crossbar and deployed leaves' sha256."""
+    import jax
+
+    from benchmarks import fault_tolerance as ft
+    from repro.configs import get_arch
+    from repro.core.planner import PlannerConfig
+    from repro.models import api
+
+    cfg = get_arch("gemma-2b", reduced=True)
+    params = api.init(jax.random.PRNGKey(seed), cfg)
+    pcfg = PlannerConfig(p_stuck=0.5, min_size=1024)
+    rates, ref_rate = (0.0, 5e-4, 2e-3, 8e-3), 2e-3
+    deploys = []
+    deploy = ft._deploy_through
+
+    def recorded(params, pcfg, *, leveling, rate):
+        params_hat, pool = deploy(params, pcfg, leveling=leveling, rate=rate)
+        deploys.append({"rate": rate, "leveling": leveling, **pool.stats().to_dict(),
+                        "wear_totals": pool.wear_totals().tolist(),
+                        "leaf_sha256": _leaf_sha256(params_hat)})
+        return params_hat, pool
+
+    ft._deploy_through = recorded
+    try:
+        with _KL64() as kl64:
+            t0 = time.perf_counter()
+            curve = ft.run_fault_curve(cfg, params, rates=rates, pcfg=pcfg, seed=seed)
+            curve_s = time.perf_counter() - t0
+    finally:
+        ft._deploy_through = deploy
+    for i, row in enumerate(curve):
+        row["kl_none_f64"], row["kl_fault_f64"] = kl64.kls[2 * i : 2 * i + 2]
+    t0 = time.perf_counter()
+    endurance = ft.run_endurance(cfg, pcfg=pcfg, n_deploys=3, seed=seed)
+    return {"arch": "gemma-2b", "reduced": True, "seed": seed, "rates": list(rates),
+            "ref_rate": ref_rate, "fault_curve": curve,
+            "recovery_at_ref": ft.recovery_fraction(curve, ref_rate), "deploys": deploys,
+            "endurance": endurance,
+            "seconds_cpu": {"fault_curve": curve_s, "endurance": time.perf_counter() - t0}}
+
+
+def integrity_scrub_record(seed: int = 0) -> dict:
+    """The engine-free halves of the reference's ``integrity_scrub.run`` at
+    its settings: storm and repair (4 requests) and the tolerated-fault KL
+    at rates 0, 1e-3 and 4e-3 (also in float64)."""
+    import jax
+
+    from benchmarks import integrity_scrub as isc
+    from repro.configs import get_arch
+    from repro.core.planner import PlannerConfig
+    from repro.models import api
+
+    cfg = get_arch("gemma-2b", reduced=True)
+    params = api.init(jax.random.PRNGKey(seed), cfg)
+    pcfg = PlannerConfig(p_stuck=0.5, min_size=1024)
+    t0 = time.perf_counter()
+    storm = isc.run_storm_repair(cfg, params, pcfg=pcfg, corrupt=2e-3, stuck=2e-4,
+                                 n_requests=4, seed=seed)
+    storm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kl_rates = (0.0, 1e-3, 4e-3)
+    with _KL64() as kl64:
+        kl = isc.run_tolerated_kl(cfg, params, pcfg=pcfg, rates=kl_rates, seed=seed)
+    for row, v in zip(kl, kl64.kls):
+        row["kl_f64"] = v
+    return {"arch": "gemma-2b", "reduced": True, "seed": seed, "n_requests": 4,
+            "kl_rates": list(kl_rates), "storm_repair": storm, "tolerated_kl": kl,
+            "seconds_cpu": {"storm_repair": storm_s, "tolerated_kl": time.perf_counter() - t0}}
+
+
+SERVE_FAULTS_ARGS = ["--arch", "gemma-2b", "--reduced", "--batch", "2", "--prompt-len", "8",
+                     "--gen", "4", "--cim", "--materialize", "packed", "--fault-rate", "2e-3",
+                     "--fault-hotspot", "0.25", "--pool-leveling", "fault", "--scrub",
+                     "--scrub-storm", "2e-3"]
+
+
+def serve_faults_record() -> dict:
+    """The reference serve CLI's report with faults and a scrubbed storm:
+    its printed lines (tok/s aside, every number in them is an integer, a
+    ratio of integers or a token)."""
+    import contextlib
+    import io
+
+    from repro.launch import serve
+
+    out = io.StringIO()
+    argv, sys.argv = sys.argv, ["serve"] + SERVE_FAULTS_ARGS
+    try:
+        with contextlib.redirect_stdout(out):
+            serve.main()
+    finally:
+        sys.argv = argv
+    return {"args": SERVE_FAULTS_ARGS, "lines": out.getvalue().splitlines()}
+
+
 def collect(max_elems: int, planner_max_elems: int, planner_layers: int, seed: int = 0,
             only: set | None = None) -> dict:
     import jax
@@ -355,6 +503,9 @@ def collect(max_elems: int, planner_max_elems: int, planner_layers: int, seed: i
         "pool_wear": lambda: pool_wear_record(seed=seed),
         "plane_compression": lambda: plane_compression_record(max_elems, seed=seed),
         "redeploy_delta": lambda: redeploy_delta_record(seed),
+        "fault_tolerance": lambda: fault_tolerance_record(seed),
+        "integrity_scrub": lambda: integrity_scrub_record(seed),
+        "serve_faults": serve_faults_record,
     }
     if only is not None:
         if only - parts.keys():
