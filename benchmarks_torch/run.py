@@ -6,16 +6,14 @@ Runs Fig. 5, Fig. 6, Fig. 7, Fig. 8, Fig. 9 and Fig. 10 (both halves: the
 accuracy halves deploy the reduced LM trained once per process by
 ``trained_lm``), the end-to-end accuracy check, the planner throughput, the
 plane codecs, the pool wear, the serving throughput (both decode loops),
-the redeploy delta, and the engine-free halves of the fault tolerance and
-the integrity scrub, prints each one's summary as ``benchmarks/run.py``
-does, and writes the JSON artifacts and a summary to
+the engine throughput (static, split and fused), the redeploy delta, the
+fault tolerance and the integrity scrub, prints each one's summary as
+``benchmarks/run.py`` does, and writes the JSON artifacts and a summary to
 experiments/bench_torch/.  --full removes the per-tensor element cap.
 
 Left out, with the reason:
 
-* the engine and the fleet benchmarks, the fault tolerance's hot redeploy
-  and the integrity scrub's engine scrub and scrub overhead: they wait for
-  the engine and the fleet (ROADMAP A.14-A.15);
+* the fleet benchmark: it waits for the fleet (ROADMAP A.15);
 * the roofline: it reads the dry run's artifacts (ROADMAP A.18).
 """
 from __future__ import annotations
@@ -25,6 +23,7 @@ import time
 
 from benchmarks_torch import (
     accuracy_e2e,
+    engine_throughput,
     fig5_sws_single,
     fig6_strides,
     fig7_greedy,
@@ -167,6 +166,16 @@ def main() -> None:
     save_json("BENCH_serve", rst)
     summary["serving_throughput"] = rst["tok_s"]
 
+    banner("Engine throughput — fused vs split vs static lockstep")
+    ret = engine_throughput.run(device=dev)
+    for name in ("static", "engine_split", "engine"):
+        r = ret[name]
+        print(f"  {name:12s} {r['tok_s']:9.1f} tok/s   p50 {r['p50_latency_ms']:8.1f} ms   "
+              f"p95 {r['p95_latency_ms']:8.1f} ms")
+    save_json("BENCH_engine", ret)
+    summary["engine_throughput"] = {k: ret[k] for k in ("speedup_tok_s", "fused_vs_split_tok_s",
+                                                        "p50_latency_ratio")}
+
     banner("Redeploy delta (training-time integration, beyond-paper)")
     rd = redeploy_delta.run(device=dev)
     for k, v in rd["tensors"].items():
@@ -178,17 +187,21 @@ def main() -> None:
     banner("Fault tolerance — logit KL vs stuck-cell rate, naive vs fault-aware")
     rft = fault_tolerance.run(device=dev)
     print(f"  remapping recovers {100 * rft['recovery_at_ref']:.1f}% of the KL degradation "
-          f"at rate {rft['ref_rate']}; horizons "
+          f"at rate {rft['ref_rate']}; hot redeploy stream parity "
+          f"{rft['redeploy']['stream_parity']}; horizons "
           + ", ".join(f"{h:.3g}" for h in rft["endurance"]["horizons"]))
     save_json("BENCH_fault", rft)
-    summary["fault_tolerance"] = {"recovery_at_ref": rft["recovery_at_ref"]}
+    summary["fault_tolerance"] = {"recovery_at_ref": rft["recovery_at_ref"],
+                                  "redeploy_stream_parity": rft["redeploy"]["stream_parity"]}
 
     banner("Integrity scrub — storm, detect, repair, restore parity")
     ris = integrity_scrub.run(device=dev)
     sr = ris["storm_repair"]
     print(f"  {sr['detections']} tiles detected, repair cost "
           f"{100 * sr['repair_cost_ratio']:.1f}% of a full reprogram, token parity "
-          f"{sr['post_repair_parity']}")
+          f"{sr['post_repair_parity']}; engine scrub refreshes "
+          f"{ris['engine_scrub']['scrub_refreshes']}, scrub overhead "
+          f"{100 * ris['overhead']['throughput_ratio']:.1f}% of tok/s")
     save_json("BENCH_integrity", ris)
     summary["integrity_scrub"] = {"repair_cost_ratio": sr["repair_cost_ratio"],
                                   "post_repair_parity": sr["post_repair_parity"]}

@@ -15,7 +15,8 @@ gemma-2b planned and served under the offset_binary encoding; the
 pool-wear, plane-codec and redeploy-delta benchmarks, held to the
 reference's numbers; and gemma-2b planned through a pool with stuck cells,
 served from the fault-leveled bits and from drifted operands, and scrubbed
-and repaired after a fault storm — and
+and repaired after a fault storm; and gemma-2b served by the
+continuous-batching engine, every dispatch a CUDA graph — and
 holds each hand-written kernel against its plain PyTorch version on the
 card.
 Phases (one line each, any failed check exits 1):
@@ -136,6 +137,30 @@ Phases (one line each, any failed check exits 1):
      packed deployment serving the pre-storm tokens; fault_tolerance and
      integrity_scrub on the card equal to the golden file (integers; float64
      KLs within 5%);
+  5i. engine: the reduced f32 gemma-2b's parity cell on the card against
+     the golden file (the parity trace through dense and packed, fused and
+     split: streams equal, a departure only at the reference's near ties;
+     stats and shapes equal; run_overcommit's integers, the hot redeploy's
+     and the engine scrub's counters equal); then gemma-2b at full width
+     (4 layers, bf16) planned as phase serve plans it and served by the
+     engine (8 slots, page 16, chunk 32, quantum 8) dense, packed (B2),
+     const_rle through a pool (B4) and planes_int8 (B6 builds, B5 serves),
+     fused and split, on a 32-request chat trace (prompts 8-96, gen 2-64,
+     every fourth request sampled) with every arrival at 0.0: each stream
+     equal to the request's solo generate and fused equal to split, a
+     departure allowed only where the top-2 gap (logits + Gumbel noise for
+     a sampled request) is below 2e-2 of the largest |logit|; every
+     dispatch a replayed CUDA graph whose kernel nodes are 7 x layers
+     CIM launches a decode step and a chunk stage, and B3 x layers a chunk
+     stage (per-row offsets and lengths, tensor cores), the wrappers
+     counting each graph's warm-up and capture, no plain-version call;
+     B2/B4/B5 at every bucketed M and B3 at every (C, pages) bucket within
+     their bounds of the plain versions; run_overcommit at full width in
+     swap and recompute mode (all complete, preemptions >= 1, swap-ins >=
+     1 with swap), its streams equal to a roomy pool's; then
+     engine_throughput.run at full width (static, split, fused, best of 3
+     interleaved; latency and TTFT percentiles; graphs and their memory;
+     the device-busy share of one traced fused and one static pass);
   6. kernels: time, bound (the bf16 tensor-core rate for the tensor-core
      paths, the f32 rate for the FMA kernels), plain-version and library
      times; B2, B3 and B5 on both paths, B2 with plane gains at decode (f32
@@ -143,12 +168,13 @@ Phases (one line each, any failed check exits 1):
 
 The line before the last is the kernels' JSON record (B1's launches are
 those of the gemma-2b plan and the figures, train, accuracy, offset-binary,
-bench-extra and faults phases; B2's, B4's and B5's those of gemma's packed,
-const_rle and planes_int8 generates plus the offset-binary, bench-extra
-and faults phases' (B2's ``launches_gain`` those with plane gains); B3's
-those of yi-6b's generate and the accuracy, offset-binary, bench-extra and
-faults phases; B6's yi-6b's, the offset-binary and the faults
-deployments');
+bench-extra, faults and engine phases; B2's, B4's and B5's those of gemma's packed,
+const_rle and planes_int8 generates plus the offset-binary, bench-extra,
+faults and engine phases' (B2's ``launches_gain`` those with plane gains;
+the engine's from its graphs' nodes x replays plus each capture's warm-up
+run); B3's those of yi-6b's generate and the accuracy, offset-binary,
+bench-extra, faults and engine phases; B6's yi-6b's, the offset-binary, the
+faults and the engine deployments');
 the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
 ``python3 chip_smoke.py`` (needs one CUDA card; fails without one).
@@ -437,6 +463,16 @@ COUNT_NOTES: list[str] = []  # profiler records a serve gate found missing
 NODE_LIST = {"graphs": 0, "nodes": 0, "s": 0.0}  # node lists read by the serve gates
 
 
+def overhead_note(ovh: dict) -> str:
+    """integrity_scrub's scrub overhead as a phase line prints it: the
+    tok/s ratio, each trial's wall time off / on with its scrub rounds, and
+    one round alone."""
+    trials = ", ".join(f"{1e3 * a:.2f}/{1e3 * b:.2f} ms ({r})" for a, b, r in
+                       zip(ovh["walls_off_s"], ovh["walls_on_s"], ovh["rounds_per_trial"]))
+    return (f"scrub overhead {ovh['throughput_ratio']:.4f}x tok/s (trials off/on (rounds): "
+            f"{trials}; a round alone {1e3 * ovh['round_s']:.3f} ms)")
+
+
 def graph_counts(decode) -> dict:
     """The port's kernels in a captured decode graph (``CudaGraphCall``),
     by counter: one per kernel node of the graph's node list, which a
@@ -448,8 +484,11 @@ def graph_counts(decode) -> dict:
     NODE_LIST["graphs"] += 1
     NODE_LIST["nodes"] += len(labels)
     for node in labels:
-        for k in kernel_counters(node):
-            got[k] = got.get(k, 0) + 1
+        # a label holds the kernel's parameters too (kilobytes): a substring
+        # test first keeps the symbol regexes off the other kernels' nodes
+        if any(symbol in node for symbol, _ in KERNEL_SYMBOLS):
+            for k in kernel_counters(node):
+                got[k] = got.get(k, 0) + 1
     if not labels:
         fail("a decode graph's node list holds no node")
     return got
@@ -2119,10 +2158,487 @@ def faults_phase(dev) -> dict:
         f"a full reprogram), post-repair parity {sr['post_repair_parity']}, every counter equal "
         f"to the reference's; streams degraded by the storm {degraded[0]} (reference "
         f"{degraded[1]}, not a gate); float64 KLs within {worst_kl:.2e} of the reference's "
-        f"(bound {ACC_KL_RTOL:g})")
+        f"(bound {ACC_KL_RTOL:g}); {overhead_note(ri['overhead'])}")
     say(f"phase faults: launches {out}; phase {time.perf_counter() - t_phase:.1f} s")
     torch.cuda.empty_cache()
     return out
+
+
+# phase engine: gemma-2b x LAYERS (bf16) served by the continuous-batching
+# engine, and the reduced f32 gemma-2b's parity cell held to the golden file
+ENGINE_CFG = dict(max_slots=8, page_size=16, max_seq_len=160, prefill_chunk=32, decode_quantum=8)
+ENGINE_TRACE = dict(n_requests=32, min_prompt=8, max_prompt=96, min_gen=2, max_gen=64, seed=0,
+                    sample_every=4)
+ENGINE_PASSES = 3
+ENGINE_M = (1, 2, 4, 8, 16, 32, 64, 128, 256)  # the CIM kernels' bucketed row counts
+ENGINE_CHUNKS = (1, 2, 4, 8, 16, 32)  # B3's bucketed query widths (the fused chunk stage)
+ENGINE_PAGES = (1, 2, 4, 8, 13)  # page buckets of ENGINE_CFG (max_pages 13)
+
+
+def engine_expect(name, layers, kernel) -> dict:
+    """The port's kernels one replay of an engine graph ``name`` runs: 7
+    planned matmuls a layer for each decode step and for the chunk stage
+    (``kernel`` each, on its tensor-core kernel in bf16; none for dense),
+    B3 once a layer for the chunk stage, on the tensor-core kernel."""
+    kind, q = name[0], name[1] if name[0] != "prefill" else 0
+    steps_ = {"decode": q, "prefill": 1, "fused": q + 1}[kind]
+    out = {}
+    if kernel:
+        out = {kernel: 7 * layers * steps_, f"{kernel}_tc": 7 * layers * steps_}
+    if kind != "decode":
+        out.update(B3=layers, B3_tc=layers)
+    return out
+
+
+class PerRowB3:
+    """While active, counts B3 wrapper calls with per-row (tensor)
+    ``q_offset`` and ``kv_valid_len`` and those without."""
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.kernels.flash_attention import ops as fa_ops
+
+        self.rows = self.other = 0
+        self._fa, self._orig = fa_ops, fa_ops.flash_attention
+
+        def wrapped(q, k, v, kv_valid_len=None, **kw):
+            if (isinstance(kw.get("q_offset"), torch.Tensor)
+                    and isinstance(kv_valid_len, torch.Tensor)):
+                self.rows += 1
+            else:
+                self.other += 1
+            return self._orig(q, k, v, kv_valid_len, **kw)
+
+        fa_ops.flash_attention = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self._fa.flash_attention = self._orig
+
+
+def engine_serve(label, cfg, params, reqs, kernel, fused, gates, **ecfg):
+    """Serve ``reqs`` (arrivals at 0, synthetic clock) through a new engine
+    on the card and hold its launches: every dispatch a replayed CUDA graph
+    whose kernel nodes are ``engine_expect``'s (from the graph's node
+    list), the wrappers' counts those of each capture's warm-up and capture
+    (twice a graph's), every B3 call with per-row offsets and lengths, no
+    plain-version call.  Returns (streams, engine, launches: node counts x
+    replays + the warm-up runs)."""
+    import torch
+
+    from benchmarks_torch import engine_throughput as et
+    from repro_torch.launch.engine import Engine, EngineConfig
+
+    eng = Engine(cfg, params, EngineConfig(fused=fused, **{**ENGINE_CFG, **ecfg}))
+    reset_counts()
+    t0 = time.perf_counter()
+    with PerRowB3() as rows:
+        streams = et.serve_parity(eng, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    t_count = time.perf_counter()
+    c = counts()
+    nonzero = lambda d: {k: v for k, v in d.items() if k != "plain" and v}  # noqa: E731
+    graphs, from_nodes, once = 0, {}, {}
+    dispatches = sum(eng.stats[k] for k in ("decode_dispatches", "prefill_dispatches",
+                                            "fused_dispatches"))
+    replays = 0
+    for (name, _), g in eng._graphs.items():
+        want = engine_expect(name, cfg.n_layers, kernel)
+        got = graph_counts(g)
+        if nonzero(got) != want:
+            fail(f"engine {label} graph {name} holds {nonzero(got)} of the port's kernels "
+                 f"(want {want})")
+        graphs += 1
+        replays += g.replays
+        for k, v in want.items():
+            from_nodes[k] = from_nodes.get(k, 0) + v * g.replays
+            once[k] = once.get(k, 0) + v
+    if replays != dispatches or graphs != eng.graph_stats["captured"]:
+        fail(f"engine {label}: {dispatches} dispatches but {replays} graph replays of "
+             f"{graphs} graphs ({eng.graph_stats['captured']} captured)")
+    if nonzero(c) != {k: 2 * v for k, v in once.items() if v} or c["plain"]:
+        fail(f"engine {label}: the wrappers counted {c} during the captures (want twice "
+             f"{once}: warm-up and capture; no plain-version call)")
+    if rows.other or rows.rows != 2 * once.get("B3", 0):
+        fail(f"engine {label}: B3 called {rows.rows} times with per-row offsets and lengths, "
+             f"{rows.other} times without")
+    launches = {k: from_nodes[k] + once[k] for k in from_nodes}
+    gs = eng.graph_stats
+    gates.append(f"{label}: {len(reqs)} requests, {eng.stats['tokens_emitted']} tokens in "
+                 f"{wall:.2f} s ({dispatches} dispatches, {graphs} graphs captured in "
+                 f"{gs['capture_s']:.2f} s, graph pool {gs['pool_bytes'] / 1e9:.3f} GB; launch "
+                 f"counting {time.perf_counter() - t_count:.2f} s)")
+    return streams, eng, launches
+
+
+def engine_gaps(cfg, params, reqs, streams):
+    """rid -> the steps of that request's stream where a departure is
+    allowed (computed at first use, i.e. only for a stream that departs):
+    the top-2 gap of the teacher-forced logits (plus the step's Gumbel
+    noise, the solo key schedule, for a sampled request) below
+    BF16_LOGIT_RTOL of the largest |logit|."""
+    import functools
+
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.models import api
+
+    by_rid, dev = {r.rid: r for r in reqs}, params["embed"]["table"].device
+
+    @functools.cache
+    def near(rid) -> list[bool]:
+        r, toks = by_rid[rid], streams[rid]
+        with torch.inference_mode():
+            seq = torch.tensor([list(r.prompt) + toks[:-1]], dtype=torch.int64, device=dev)
+            rows = api.forward(params, cfg, {"tokens": seq})[0][0][r.prompt.size - 1:].float()
+            bound = BF16_LOGIT_RTOL * rows.abs().amax(-1)
+            if not r.greedy:
+                key, noise = prng.PRNGKey(r.seed, device=dev), []
+                for _ in toks:
+                    key, sub = prng.split(key).unbind(-2)
+                    noise.append(prng.gumbel(sub, (rows.shape[-1],)))
+                rows = rows + torch.stack(noise)
+            top = rows.topk(2, dim=-1).values
+            return ((top[:, 0] - top[:, 1]) < bound).cpu().tolist()
+
+    return near
+
+
+def same_streams(got, want, near, what) -> int:
+    """``got`` == ``want`` per request, or the first difference at a step
+    ``near(rid)`` allows (then the rest is not compared); the departures."""
+    departures = 0
+    for rid, w in want.items():
+        g = got[rid]
+        if g == w:
+            continue
+        d = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), min(len(g), len(w)))
+        if len(g) != len(w) or d >= len(w) or not near(rid)[d]:
+            fail(f"engine {what}: request {rid} departs at step {d} of {len(w)} outside a near "
+                 f"tie ({g[:d + 3]} vs {w[:d + 3]})")
+        departures += 1
+    return departures
+
+
+def check_engine_kernels(dev, p_packed, p_rle, p_int8) -> float:
+    """B2, B4 and B5 on layer 0's planned wi_gate at every bucketed row count
+    of the engine (bf16 x, the tensor-core kernels), B3 at every chunk
+    width against every page bucket's view with per-row offsets and
+    lengths: each within its bound of its plain version.  Returns max |d|
+    by kernel."""
+    import torch
+
+    from repro_torch.kernels.cim_matmul import ops as cim_ops
+    from repro_torch.kernels.cim_matmul import ref as cim_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.core import simulator
+
+    eps = torch.finfo(torch.float32).eps
+    g = torch.Generator(device=dev).manual_seed(23)
+    layer0 = lambda p: {k: v[0] for k, v in p["segments"][0]["mlp"]["wi_gate"].items()}  # noqa
+    ops = {"B2": layer0(p_packed), "B4": layer0(p_rle), "B5": layer0(p_int8)}
+    w_abs = {"B2": simulator.densify_operands(ops["B2"]).abs(),
+             "B4": simulator.densify_operands(ops["B4"]).abs()}
+    sp = ops["B5"]["splanes"].float()
+    pw = (2.0 ** torch.arange(sp.shape[0], device=dev))[:, None, None]
+    w_abs["B5"] = (sp * pw).sum(0).abs() * ops["B5"]["scale"]
+    del sp
+    worst, lines = {}, []
+    k = ops["B2"]["kdim"].shape[-2]
+    for kern, op in ops.items():
+        errs = []
+        for m in ENGINE_M:
+            x = torch.randn(m, k, device=dev, generator=g).to(torch.bfloat16)
+            cim_ops.reset_launches()
+            if kern == "B5":
+                got = cim_ops.cim_matmul(x, op["splanes"], op["scale"], mode="fused_dequant")
+                want = cim_ref.cim_matmul(x, op["splanes"], op["scale"], "fused_dequant")
+            else:
+                args = (x, op["planes_packed"], op["sign_packed"], op["scale"])
+                kw = {"plane_ids": op.get("plane_ids")}
+                if kern == "B4":
+                    kw["tile_nz"] = op["plane_tile_nz"]
+                got = cim_ops.cim_matmul_packed(*args, **kw)
+                want = cim_ref.cim_matmul_packed(*args, plane_ids=op.get("plane_ids"))
+            path = {key: v for key, v in cim_ops.LAUNCHES.items() if v}
+            if path != {kern: 1, f"{kern}_tc": 1}:
+                fail(f"{kern} at M={m} took the wrong kernel: {path}")
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            bnd = B2_BOUND_C * eps * k * (x.float().abs() @ w_abs[kern])
+            if not bool((err <= bnd).all()):
+                fail(f"{kern} outside its bound at the engine's M={m}: max |d| "
+                     f"{err.max().item():.3e}")
+            errs.append(err.max().item())
+        worst[kern] = max(errs)
+        lines.append(f"{kern} max |d| {max(errs):.3e}")
+    del w_abs
+    errs = []
+    for c in ENGINE_CHUNKS:
+        for pages in ENGINE_PAGES:
+            sk = pages * ENGINE_CFG["page_size"]
+            if sk < c:
+                continue
+            b = ENGINE_CFG["max_slots"]
+            q = torch.randn(b, 8, c, 256, device=dev, generator=g).to(torch.bfloat16)
+            kk = torch.randn(b, 1, sk, 256, device=dev, generator=g).to(torch.bfloat16)
+            vv = torch.randn(b, 1, sk, 256, device=dev, generator=g).to(torch.bfloat16)
+            start = torch.randint(0, sk - c + 1, (b,), device=dev, generator=g, dtype=torch.int32)
+            ct = torch.randint(1, c + 1, (b,), device=dev, generator=g, dtype=torch.int32)
+            kvl = start + ct
+            fa_ops.reset_launches()
+            got = fa_ops.flash_attention(q, kk, vv, kvl, kind="causal", q_offset=start)
+            if dict(fa_ops.LAUNCHES) != {"B3": 1, "B3_tc": 1}:
+                fail(f"B3 at C={c} Sk={sk} took the wrong kernel: {fa_ops.LAUNCHES}")
+            want = fa_ref.flash_attention(q, kk, vv, kvl, kind="causal", q_offset=start)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs()
+            if not bool((err <= fa_ref.attention_bound(want)).all()):
+                fail(f"B3 outside its tolerance at the engine's C={c} Sk={sk} (per-row "
+                     f"offsets and lengths): max |d| {err.max().item():.3e}")
+            errs.append(err.max().item())
+    worst["B3"] = max(errs)
+    say(f"phase engine-kernels: B2/B4/B5 on layer 0's wi_gate at M in {ENGINE_M} (bf16, "
+        f"tensor cores) within {B2_BOUND_C}*eps*K*(|x|@|w|): " + ", ".join(lines)
+        + f"; B3 at C in {ENGINE_CHUNKS} x Sk in pages {ENGINE_PAGES} x "
+        f"{ENGINE_CFG['page_size']} (B {ENGINE_CFG['max_slots']}, per-row offsets and "
+        f"lengths, bf16 tensor cores) within {fa_ref.TOL:g}: max |d| {max(errs):.3e}")
+    torch.cuda.empty_cache()
+    return worst
+
+
+def engine_golden_phase(dev) -> dict:
+    """The reduced f32 gemma-2b on the card against the golden file: the
+    parity trace through dense and packed, fused and split (streams equal,
+    a departure only at the reference's near ties; every stat and shape
+    equal), run_overcommit's integers, and the hot redeploy's and the
+    engine scrub's counters.  Returns the wrappers' counts (eager launches
+    and graph captures; no plain-version call)."""
+    import torch
+
+    from benchmarks_torch import engine_throughput as et
+    from benchmarks_torch import fault_tolerance as ft
+    from benchmarks_torch import integrity_scrub as isc
+    from repro_torch import prng
+    from repro_torch.configs import get_arch
+    from repro_torch.core import planner
+    from repro_torch.launch.engine import Engine, EngineConfig
+    from repro_torch.models import api
+
+    t0 = time.perf_counter()
+    gold = json.loads((ROOT / "benchmarks_torch" / "golden" / "reference.json").read_text())
+    ge = gold["engine"]
+    cfg = get_arch("gemma-2b", reduced=True)
+    params = api.init(prng.PRNGKey(ge["seed"]), cfg, device=dev)
+    plan = planner.build_deployment(params, planner.CrossbarSpec(),
+                                    planner.PlannerConfig(**et.PARITY_PLAN), device=dev)
+    reset_counts()
+    trace = et.make_trace(cfg, **et.PARITY_TRACE)
+    departures = 0
+    for mat, fused in et.PARITY_VARIANTS:
+        key = f"{mat}/{'fused' if fused else 'split'}"
+        want = ge["variants"][key]
+        eng = Engine(cfg, planner.deploy_params(params, plan, materialize=mat),
+                     EngineConfig(fused=fused, **et.PARITY_ENGINE))
+        streams = et.serve_parity(eng, et.parity_requests(trace))
+        ties = want["near_ties"]
+        departures += same_streams(streams, {int(r): t for r, t in want["tokens"].items()},
+                                   lambda rid: [i in ties[str(rid)]
+                                                for i in range(len(want["tokens"][str(rid)]))],
+                                   f"reduced {key} vs the golden file")
+        stats = {k: v for k, v in eng.stats.items() if k != "compiled_variants"}
+        if stats != want["stats"] or sorted(map(list, eng._shapes_seen)) != want["shapes"]:
+            fail(f"engine reduced {key}: stats {stats} / shapes differ from the golden file's "
+                 f"{want['stats']}")
+    for mode, want in ge["overcommit"].items():
+        oc = et.run_overcommit(cfg, params, preempt=mode)
+        got = {k: oc[k] for k in et.OVERCOMMIT_INTS}
+        if got != want:
+            fail(f"engine reduced overcommit {mode}: {got} (golden {want})")
+    pcfg = planner.PlannerConfig(p_stuck=0.5, min_size=1024)
+    rd = ft.run_hot_redeploy(cfg, params, api.init(prng.PRNGKey(1), cfg, device=dev), pcfg=pcfg,
+                             device=dev)
+    want = {k: gold["fault_tolerance"]["redeploy"][k] for k in ft.REDEPLOY_KEYS}
+    if {k: rd[k] for k in ft.REDEPLOY_KEYS} != want or not rd["stream_parity"]:
+        fail(f"hot redeploy on the card {rd} (golden {want}; stream parity by admission epoch)")
+    esc = isc.run_engine_scrub(cfg, params, pcfg=pcfg, device=dev)
+    want = {k: gold["integrity_scrub"]["engine_scrub"][k] for k in isc.ENGINE_SCRUB_KEYS}
+    if {k: esc[k] for k in isc.ENGINE_SCRUB_KEYS} != want:
+        fail(f"engine scrub on the card {esc} (golden {want})")
+    ovh = isc.run_scrub_overhead(cfg, params, pcfg=pcfg, device=dev)
+    want = {k: gold["integrity_scrub"]["overhead"][k] for k in isc.OVERHEAD_KEYS}
+    if {k: ovh[k] for k in isc.OVERHEAD_KEYS} != want:
+        fail(f"scrub overhead on the card {ovh} (golden {want})")
+    c = counts()
+    if c["plain"]:
+        fail(f"engine reduced phase called a plain version: {c}")
+    say(f"phase engine-golden: reduced gemma-2b f32: {len(et.PARITY_VARIANTS)} variants x "
+        f"{len(trace)} requests equal to the golden streams ({departures} departures at near "
+        f"ties), stats and shapes equal; overcommit swap/recompute integers equal; hot redeploy "
+        f"{ {k: rd[k] for k in ('completed', 'hot_swaps', 'epochs_retired')} } equal, stream "
+        f"parity by admission epoch True (the reference's rule gives False: ROADMAP C.8); "
+        f"engine scrub {esc['scrub_rounds']} rounds, {esc['scrub_detections']} detections, "
+        f"{esc['scrub_repairs']} repairs, {esc['scrub_refreshes']} refreshes equal; "
+        f"{overhead_note(ovh)}; launches {c}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    del params, plan
+    torch.cuda.empty_cache()
+    return c
+
+
+def engine_phase(dev) -> dict:
+    """gemma-2b at full width (LAYERS layers, bf16), planned as phase serve
+    plans it, served by the continuous-batching engine four ways (dense,
+    packed on B2, const_rle through a pool on B4, planes_int8 built by B6 and
+    served by B5), fused and split, on ENGINE_TRACE with every arrival at
+    0.0: streams equal to solo generation and fused equal to split (a
+    departure only where the top-2 gap is below the bf16 serve bound),
+    every dispatch a replayed CUDA graph with exact launches; the packed
+    deployment over-committed (swap and recompute) against a roomy pool;
+    the reduced f32 parity cell against the golden file; then
+    ``engine_throughput.run`` at full width.  Returns the phase's launches."""
+    import torch
+
+    from benchmarks_torch import engine_throughput as et
+    from repro_torch import prng
+    from repro_torch.configs import get_arch
+    from repro_torch.core import planner, pool
+    from repro_torch.launch import serve
+    from repro_torch.launch.engine import Engine, EngineConfig
+    from repro_torch.models import api
+
+    t_phase = time.perf_counter()
+    totals = {}
+
+    def add(c):
+        for k, v in c.items():
+            if k != "plain":
+                totals[k] = totals.get(k, 0) + v
+
+    add({"B1": engine_golden_phase(dev)["B1"]})  # its plans' and repairs' pricing
+    cfg = dataclasses.replace(get_arch("gemma-2b"), n_layers=LAYERS)
+    params = api.init(prng.PRNGKey(0), cfg, device=dev)
+    spec = planner.CrossbarSpec()
+    reset_counts()
+    plan = planner.build_deployment(params, spec, planner.PlannerConfig(p_stuck=P_STUCK),
+                                    device=dev)
+    pcfg_pool = planner.PlannerConfig(p_stuck=P_STUCK, codec=CODEC)
+    pool_plan = planner.build_deployment(params, spec, pcfg_pool,
+                                         pool=pool.CrossbarPool(spec, pcfg_pool.crossbars,
+                                                                device=dev), device=dev)
+    add(counts())
+    p_int8, c6 = deploy_int8(params, plan)
+    add(c6)
+    deployments = {
+        "dense": (planner.deploy_params(params, plan, materialize="dense"), None),
+        "packed": (planner.deploy_params(params, plan, materialize="packed"), "B2"),
+        f"packed {CODEC}": (planner.deploy_params(params, pool_plan, materialize="packed",
+                                                  codec=CODEC), "B4"),
+        "planes_int8": (p_int8, "B5"),
+    }
+    del plan, pool_plan
+    kern_err = check_engine_kernels(dev, deployments["packed"][0],
+                                    deployments[f"packed {CODEC}"][0], p_int8)
+    requests = et.parity_requests(et.make_trace(cfg, **ENGINE_TRACE))
+    gates, departures, stats, secs = [], {}, {}, {}
+    say(f"phase engine: plans, deployments and kernel checks "
+        f"{time.perf_counter() - t_phase:.1f} s after the phase started")
+    for label, (p, kernel) in deployments.items():
+        runs, t_dep, nodes0 = {}, time.perf_counter(), NODE_LIST["s"]
+        for fused in (True, False):
+            mode = "fused" if fused else "split"
+            runs[mode], eng, launches = engine_serve(f"{label} {mode}", cfg, p, requests, kernel,
+                                                     fused, gates)
+            add(launches)
+            if label == "packed" and fused:  # the same trace again on the warm engine, traced
+                again = [dataclasses.replace(r, rid=r.rid + 1000) for r in requests]
+                say(f"phase trace: engine {mode} pass (packed, {len(again)} requests): "
+                    f"{trace(lambda: et.serve_parity(eng, again), top=8)}")
+            stats[f"{label} {mode}"] = {k: eng.stats[k] for k in (
+                "fused_dispatches", "prefill_dispatches", "decode_dispatches", "tokens_overrun",
+                "decode_rows_padded")}
+            del eng
+        solo, t_solo = {}, time.perf_counter()
+        for r in requests:
+            prompt = torch.tensor(r.prompt[None].astype("int64"), device=dev)
+            toks, _ = serve.generate(cfg, p, {"tokens": prompt}, gen_len=r.max_new_tokens,
+                                     greedy=r.greedy, seed=r.seed, loop="python")
+            solo[r.rid] = toks[0].tolist()
+        t_solo = time.perf_counter() - t_solo
+        near = engine_gaps(cfg, p, requests, solo)
+        departures[label] = (same_streams(runs["fused"], solo, near, f"{label} fused vs solo"),
+                             same_streams(runs["split"], solo, near, f"{label} split vs solo"),
+                             same_streams(runs["split"], runs["fused"],
+                                          engine_gaps(cfg, p, requests, runs["fused"]),
+                                          f"{label} split vs fused"))
+        secs[label] = (f"{time.perf_counter() - t_dep:.1f} s (node lists "
+                       f"{NODE_LIST['s'] - nodes0:.1f} s, solo generates {t_solo:.1f} s)")
+        torch.cuda.empty_cache()
+    for line in gates:
+        say(f"phase engine: {line}")
+    say("phase engine: departures at near ties (fused vs solo, split vs solo, split vs fused): "
+        + "; ".join(f"{k} {v}" for k, v in departures.items())
+        + f"; dispatch counts {stats}; seconds {secs}")
+
+    # the packed deployment over-committed, against the same burst on a roomy pool
+    t_part = time.perf_counter()
+    p_packed = deployments["packed"][0]
+    for label in ("dense", f"packed {CODEC}", "planes_int8"):
+        deployments.pop(label)
+    del p_int8
+    torch.cuda.empty_cache()
+    ocs = {mode: et.run_overcommit(cfg, p_packed, preempt=mode) for mode in ("swap", "recompute")}
+    roomy = Engine(cfg, p_packed, EngineConfig(max_slots=4, page_size=16, max_seq_len=81,
+                                               prefill_chunk=16, decode_quantum=16))
+    reqs = et.overcommit_requests(cfg)
+    want = et.serve_parity(roomy, reqs)
+    near = engine_gaps(cfg, p_packed, reqs, want)
+    for mode, oc in ocs.items():
+        if oc["completed"] != oc["n_requests"] or oc["preemptions"] < 1 or (
+                mode == "swap" and oc["swap_ins"] < 1):
+            fail(f"engine overcommit {mode}: {oc}")
+        d = same_streams({int(k): v for k, v in oc["tokens"].items()}, want, near,
+                         f"overcommit {mode} vs a roomy pool")
+        say(f"phase engine-overcommit: {mode}: {oc['completed']}/{oc['n_requests']} completed on "
+            f"{oc['usable_blocks']} blocks ({oc['blocks_per_request_true']} a request), "
+            f"{oc['preemptions']} preemptions, {oc['swap_ins']} swap-ins, {oc['readmissions']} "
+            f"readmissions, {oc['tok_s']:.1f} tok/s; streams equal to the roomy pool's "
+            f"({d} departures at near ties)")
+    del roomy
+    say(f"phase engine-overcommit: {time.perf_counter() - t_part:.1f} s")
+
+    t_part = time.perf_counter()
+    res = et.run("gemma-2b", reduced=False, layers=LAYERS, params=p_packed, passes=ENGINE_PASSES,
+                 overcommit=False, device=dev, rate=500.0, page_size=ENGINE_CFG["page_size"],
+                 prefill_chunk=ENGINE_CFG["prefill_chunk"],
+                 decode_quantum=ENGINE_CFG["decode_quantum"], max_slots=ENGINE_CFG["max_slots"],
+                 **ENGINE_TRACE)
+    for name in ("static", "engine_split", "engine"):
+        r = res[name]
+        say(f"phase engine-throughput: gemma-2b x{LAYERS} packed {name}: {r['tok_s']:.1f} tok/s, "
+            f"latency p50 {r['p50_latency_ms']:.1f} / p95 {r['p95_latency_ms']:.1f} ms, TTFT p50 "
+            f"{r['p50_ttft_ms']:.1f} / p95 {r['p95_ttft_ms']:.1f} ms"
+            + (f"; dispatches fused {r['fused_dispatches']}, prefill {r['prefill_dispatches']}, "
+               f"decode {r['decode_dispatches']}, overrun {r['tokens_overrun']}; graphs "
+               f"{r['graphs']['captured']} captured in {r['graphs']['capture_s']:.2f} s, graph pool "
+               f"{r['graphs']['pool_bytes'] / 1e9:.3f} GB"
+               if name != "static" else ""))
+    for name, b in res["device_busy"].items():
+        say(f"phase engine-throughput: one traced {name} pass: wall {b['wall_ms']:.2f} ms, device "
+            f"{b['device_ms']:.2f} ms ({100 * b['busy']:.1f}% busy)")
+    say(f"phase engine-throughput: fused / static {res['speedup_tok_s']:.2f}x tok/s, fused / "
+        f"split {res['fused_vs_split_tok_s']:.2f}x, static / fused p50 latency "
+        f"{res['p50_latency_ratio']:.2f}x (best of {ENGINE_PASSES}, interleaved); "
+        f"{time.perf_counter() - t_part:.1f} s")
+    del p_packed, deployments, params
+    torch.cuda.empty_cache()
+    say(f"phase engine: {time.perf_counter() - t_phase:.1f} s; launches {totals}; max |d| at the "
+        f"engine's shapes {kern_err}")
+    return {**totals, "err": kern_err}
 
 
 def main() -> None:
@@ -2543,6 +3059,10 @@ def main() -> None:
     # --- 5h. faults and integrity at gemma-2b's full width ---------------------
     fl = faults_phase(dev)
 
+    # --- 5i. the continuous-batching engine at gemma-2b's full width ---------
+    en = engine_phase(dev)
+    ee = en.pop("err")
+
     # --- 6. kernels: time, bound, plain, library -------------------------------
     t = 1 << 20
     pairs = [tuple(torch.randint(0, 256, (t, 16, 10), dtype=torch.uint8, device=dev, generator=g)
@@ -2697,29 +3217,33 @@ def main() -> None:
     kernels = [
         row("hamming_pairs", "src/repro_torch/csrc/hamming.cu",
             "src/repro/kernels/hamming/kernel.py:32",
-            b1_plan + figs["B1"] + trained["B1"] + acc["B1"] + ob["B1"] + bx["B1"] + fl["B1"],
-            b1_err,
+            b1_plan + figs["B1"] + trained["B1"] + acc["B1"] + ob["B1"] + bx["B1"] + fl["B1"]
+            + en.get("B1", 0), b1_err,
             dict(ms=b1_ms, plain_ms=b1_plain, bound_ms=b1_bound, bound_by="bytes",
                  library_ms=None)),
         {**row("cim_matmul_packed", "src/repro_torch/csrc/cim_matmul.cu",
                "src/repro/kernels/cim_matmul/kernel.py:242",
-               b2_launches + ob["B2"] + bx["B2"] + fl["B2"], b2_err, records["decode"],
-               b2_tc + ob["B2_tc"] + bx["B2_tc"] + fl["B2_tc"]),
+               b2_launches + ob["B2"] + bx["B2"] + fl["B2"] + en.get("B2", 0),
+               max(b2_err, ee["B2"]), records["decode"],
+               b2_tc + ob["B2_tc"] + bx["B2_tc"] + fl["B2_tc"] + en.get("B2_tc", 0)),
          "launches_gain": fl["B2_gain"],
          **{k: v for k, v in records["decode"].items() if k.startswith("gain_")}},
         row("cim_matmul_packed_skip", "src/repro_torch/csrc/cim_matmul.cu",
-            "src/repro/kernels/cim_matmul/kernel.py:193", b4_launches + ob["B4"] + bx["B4"],
-            b4_err, records["B4 decode"], b4_tc + ob["B4_tc"] + bx["B4_tc"]),
+            "src/repro/kernels/cim_matmul/kernel.py:193",
+            b4_launches + ob["B4"] + bx["B4"] + en.get("B4", 0), max(b4_err, ee["B4"]),
+            records["B4 decode"], b4_tc + ob["B4_tc"] + bx["B4_tc"] + en.get("B4_tc", 0)),
         row("cim_matmul_planes", "src/repro_torch/csrc/cim_planes.cu",
-            "src/repro/kernels/cim_matmul/kernel.py:74", b5_launches + ob["B5"] + fl["B5"], b5_err,
-            records["B5 decode"], b5_tc + ob["B5_tc"] + fl["B5_tc"]),
+            "src/repro/kernels/cim_matmul/kernel.py:74",
+            b5_launches + ob["B5"] + fl["B5"] + en.get("B5", 0), max(b5_err, ee["B5"]),
+            records["B5 decode"], b5_tc + ob["B5_tc"] + fl["B5_tc"] + en.get("B5_tc", 0)),
         row("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/kernel.py:109",
-            yi["B3"] + acc["B3"] + ob["B3"] + bx["B3"] + fl["B3"], b3_err, rec_b3,
-            yi["B3_tc"] + ob["B3_tc"] + bx["B3_tc"] + fl["B3_tc"]),
+            yi["B3"] + acc["B3"] + ob["B3"] + bx["B3"] + fl["B3"] + en.get("B3", 0),
+            max(b3_err, ee["B3"]), rec_b3,
+            yi["B3_tc"] + ob["B3_tc"] + bx["B3_tc"] + fl["B3_tc"] + en.get("B3_tc", 0)),
         row("bitslice", "src/repro_torch/csrc/bitslice.cu",
-            "src/repro/kernels/bitslice/kernel.py:35", yi["B6"] + ob["B6"] + fl["B6"], 0.0,
-            rec_b6),
+            "src/repro/kernels/bitslice/kernel.py:35",
+            yi["B6"] + ob["B6"] + fl["B6"] + en.get("B6", 0), 0.0, rec_b6),
     ]
     say("kernels: " + ", ".join(
         f"{r['name']} launches={r['launches']}"

@@ -19,6 +19,14 @@ exempts too.  With a bf16 compute dtype it also casts the dense matmul
 weights once, the cast ``layers.linear`` would make at every call (XLA
 hoists it out of the reference's scan).
 
+The engine's ragged dispatches (``make_paged_decode_loop``,
+``make_prefill_chunk_step``, ``make_fused_step``) are the reference's:
+per-row positions, keys and greedy flags against the paged KV pools, which
+they write in place (the counterpart of donation), every row's pick through
+:func:`_row_pick`.  Nothing in them reads a value on the host, so the
+engine captures each bucket of each as one :class:`CudaGraphCall` on the
+card.
+
 ``make_decode_loop`` is the reference's whole-generation decode: one
 ``lax.scan`` there, here one ``torch.cuda.CUDAGraph`` of all its steps on
 the card (:class:`CudaGraphCall`, replayed once a generation over static
@@ -167,6 +175,151 @@ def make_decode_loop(cfg: ArchConfig, n_steps: int, *, greedy: bool = True):
     return decode_loop
 
 
+def _row_pick(logits: torch.Tensor, keys: torch.Tensor, greedy: torch.Tensor,
+              consume: torch.Tensor | None = None):
+    """Per-row token pick — the sampling path and key schedule shared by
+    every ragged dispatch, so their streams stay those of the solo
+    :func:`pick`.
+
+    logits (B, S, V) f32 — the last position samples; keys (B, 2); greedy
+    (B,) bool — greedy rows take the argmax and keep their key; ``consume``
+    optionally masks which sampled rows' keys really advance (rows whose
+    pick the caller discards must not burn a split).  Each row's draw is
+    ``jax.random.categorical`` of its own subkey (the reference vmaps it).
+    Returns (tok (B,) int64, keys_out (B, 2)).
+    """
+    last = logits[:, -1]
+    if last.dtype != torch.float32:
+        raise TypeError(f"sampling takes float32 logits, got {last.dtype}")
+    greedy_tok = torch.argmax(last, dim=-1)
+    keys_new, subs = prng.split(keys).unbind(-2)  # (B, 2) each
+    sampled = torch.argmax(prng.gumbel(subs, (last.shape[-1],)) + last, dim=-1)
+    tok = torch.where(greedy, greedy_tok, sampled)
+    advance = ~greedy if consume is None else consume & ~greedy
+    return tok, torch.where(advance[:, None], keys_new, keys)
+
+
+def _ragged_scan_body(params, cfg: ArchConfig, greedy: torch.Tensor):
+    """The one decode-quantum step: ``make_paged_decode_loop`` and the fused
+    step's decode sub-batch run this exact closure, so fused-vs-split is
+    purely a scheduling difference.  Carry: (caches, tok (B, 1), keys, pos
+    (B,)); emits each step's (B,) tokens."""
+
+    def body(carry):
+        caches, tok, keys, pos = carry
+        logits, caches = api.decode_step(params, cfg, caches, tok, pos)
+        nxt, keys = _row_pick(logits, keys, greedy)
+        return (caches, nxt[:, None], keys, pos + 1), nxt
+
+    return body
+
+
+def _scan(body, carry, n_steps: int):
+    """``lax.scan`` of ``body`` for ``n_steps`` steps, unrolled: (carry, the
+    emitted (B,) values stacked to (B, n_steps))."""
+    out = []
+    for _ in range(n_steps):
+        carry, y = body(carry)
+        out.append(y)
+    return carry, torch.stack(out, dim=1)
+
+
+def make_paged_decode_loop(cfg: ArchConfig, n_steps: int, page_size: int):
+    """Ragged continuous-batching decode quantum as one dispatch.
+
+    Returns decode_loop(params, pools, table (B, P) int, state (B, 3) int
+    rows = [tok, pos, greedy], keys (B, 2)) -> (tokens (B, n_steps), pools,
+    keys (B, 2)).  Every slot carries its own position, key and greedy
+    flag: the KV write and attention mask are per slot (paged pool + block
+    table), and sampling splits each slot's key on its own — so each row's
+    stream is that of a solo ``serve.generate`` of the request.  The table
+    must cover positions up to ``pos + n_steps`` for every live row; padded
+    rows point at the dummy page.  The view is gathered once, the quantum
+    runs the ordinary decode step against it, and only the quantum's new
+    cells are written back (in place).
+    """
+
+    def decode_loop(params, pools, table, state, keys):
+        tok0 = state[:, 0:1].long()
+        pos0 = state[:, 1].long()
+        greedy = state[:, 2] != 0
+        caches = api.paged_view(cfg, pools, table, page_size)
+        (caches, _, keys, _), toks = _scan(
+            _ragged_scan_body(params, cfg, greedy), (caches, tok0, keys, pos0), n_steps)
+        pools = api.paged_writeback(cfg, pools, caches, table, pos0, n_steps, page_size)
+        return toks, pools, keys
+
+    return decode_loop
+
+
+def make_fused_step(cfg: ArchConfig, n_steps: int, page_size: int):
+    """Fused prefill+decode dispatch: one bucketed dispatch per engine cycle
+    in which some rows are prefill chunks and others decode quanta.
+
+    Returns fused_step(params, pools,
+        pf_table (Bp, P), pf_tokens (Bp, C), pf_meta (Bp, 5), pf_keys (Bp, 2),
+        table (B, P), state (B, 5), keys (B, 2), join (B,))
+    -> (pf_tok (Bp,), toks (B, n_steps), keys_out (B, 2), pools).
+
+    * Chunk sub-batch (prefill rows only): the ``make_prefill_chunk_step``
+      compute; ``pf_meta`` rows are [start, kv_len, last_idx, greedy,
+      consume], ``pf_tok`` each row's next token picked in-graph
+      (``consume`` marks rows whose key this pick really advances).
+    * Decode sub-batch (decode rows + rows whose prompt finishes in this
+      dispatch): the ``make_paged_decode_loop`` quantum; ``state`` rows are
+      [tok, pos, greedy, tok_override, use_override].  ``join`` maps each
+      decode row to its chunk row (-1 for plain decode rows): a finishing
+      row seeds from its in-graph first token and continuation key;
+      ``use_override`` rows (recompute re-admissions) seed from
+      ``tok_override`` without consuming randomness.
+
+    The decode view is gathered after the chunk write-back, so a finishing
+    row's prompt KV is visible to its own decode steps.
+    """
+
+    def fused_step(params, pools, pf_table, pf_tokens, pf_meta, pf_keys,
+                   table, state, keys, join):
+        start, kv_len, last_idx = pf_meta[:, 0], pf_meta[:, 1], pf_meta[:, 2]
+        caches = api.paged_view(cfg, pools, pf_table, page_size)
+        logits, caches = api.chunk_on_views(params, cfg, caches, pf_tokens.long(), start,
+                                            kv_len, last_idx)
+        pf_tok, pf_keys_out = _row_pick(logits, pf_keys, pf_meta[:, 3] != 0,
+                                        consume=pf_meta[:, 4] != 0)
+        pools = api.paged_writeback(cfg, pools, caches, pf_table, start, pf_tokens.shape[1],
+                                    page_size)
+
+        use_join = join >= 0
+        jidx = join.clamp(min=0).long()
+        tok0 = torch.where(use_join, pf_tok[jidx], state[:, 0].long())
+        tok0 = torch.where(state[:, 4] != 0, state[:, 3].long(), tok0)[:, None]
+        keys0 = torch.where(use_join[:, None], pf_keys_out[jidx], keys)
+        pos0 = state[:, 1].long()
+        caches = api.paged_view(cfg, pools, table, page_size)
+        (caches, _, keys_out, _), toks = _scan(
+            _ragged_scan_body(params, cfg, state[:, 2] != 0), (caches, tok0, keys0, pos0),
+            n_steps)
+        pools = api.paged_writeback(cfg, pools, caches, table, pos0, n_steps, page_size)
+        return pf_tok, toks, keys_out, pools
+
+    return fused_step
+
+
+def make_prefill_chunk_step(cfg: ArchConfig, page_size: int):
+    """One chunked-prefill dispatch, B requests wide, first-token pick fused
+    in: (params, pools, table (B, P), tokens (B, C), meta (B, 4) rows =
+    [start, kv_len, last_idx, greedy], keys (B, 2)) -> (tok (B,), keys_out
+    (B, 2), pools).  ``tok[r]`` only means something on row r's final chunk;
+    the caller adopts a row's key only when it accepts the token."""
+
+    def chunk_step(params, pools, table, tokens, meta, keys):
+        logits, pools = api.prefill_chunk(params, cfg, pools, table, tokens.long(), meta[:, 0],
+                                          meta[:, 1], meta[:, 2], page_size)
+        tok, keys_out = _row_pick(logits, keys, meta[:, 3] != 0)
+        return tok, keys_out, pools
+
+    return chunk_step
+
+
 def dot_node_labels(text: str) -> list[str]:
     """The node statements of a DOT graph (``"name"[attributes];``), one
     string each, DOT's escapes of ``<>{}|`` undone and a kernel's launch
@@ -192,12 +345,15 @@ class CudaGraphCall:
     back to eager execution.
 
     With the class attribute ``keep_nodes`` set, graphs captured from then
-    on keep their node list, which :meth:`node_labels` reads.
+    on keep their node list, which :meth:`node_labels` reads.  ``pool``
+    (``torch.cuda.graph_pool_handle()``) shares one memory pool among
+    graphs that never replay concurrently and whose outputs the caller
+    copies out before another of them replays.
     """
 
     keep_nodes = False
 
-    def __init__(self, fn, *static):
+    def __init__(self, fn, *static, pool=None):
         self.static = static
         stream = torch.cuda.Stream()
         stream.wait_stream(torch.cuda.current_stream())
@@ -209,7 +365,7 @@ class CudaGraphCall:
             self.graph.enable_debug_mode()
         else:
             self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, stream=stream):
+        with torch.cuda.graph(self.graph, pool=pool, stream=stream):
             self.out = fn(*static)
         if self.keep_nodes:
             self.graph.instantiate()  # a kept graph instantiates on demand

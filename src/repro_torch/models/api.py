@@ -1,4 +1,5 @@
-"""Model API used by ``launch/`` (port of ``repro.models.api``, decoder-only)."""
+"""Model API used by ``launch/`` (port of ``repro.models.api``, decoder-only),
+with the paged-KV half the continuous-batching engine serves through."""
 from __future__ import annotations
 
 from typing import Any
@@ -9,11 +10,27 @@ from repro_torch import prng
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels._util import resolve_device
 from repro_torch.models import transformer
-from repro_torch.models.transformer import decode_step, forward, init, prefill  # noqa: F401
+from repro_torch.models.transformer import (  # noqa: F401
+    chunk_on_views,
+    decode_step,
+    decode_step_paged,
+    forward,
+    init,
+    paged_view,
+    paged_writeback,
+    prefill,
+    prefill_chunk,
+    supports_paged,
+)
 
 
 def init_cache(cfg: ArchConfig, batch: int, seq_len: int, dtype=None, *, device=None):
     return transformer.init_cache(cfg, batch, seq_len, dtype, device=device)
+
+
+def init_paged_pools(cfg: ArchConfig, num_tokens: int, dtype=None, *, device=None) -> list:
+    """Token-major physical KV pools (``num_tokens`` = num_blocks * page)."""
+    return transformer.init_paged_pools(cfg, num_tokens, dtype, device=device)
 
 
 def merge_prefill_cache(cfg: ArchConfig, full_cache: list, pf_cache: list) -> list:

@@ -35,16 +35,20 @@ def attention(
     kind: str = "causal",
     window: Optional[int] = None,
     q_offset: Union[int, torch.Tensor] = 0,
+    kv_valid_len: Union[int, torch.Tensor, None] = None,
     block_k: int = 1024,
     train: bool = False,
 ) -> torch.Tensor:
     """Attention entry point used by the blocks: kernel B3 on CUDA tensors,
     ``blockwise_attention`` on CPU tensors (same contract) and wherever
-    ``train`` asks for the differentiable path."""
+    ``train`` asks for the differentiable path.  ``q_offset`` and
+    ``kv_valid_len`` may be (B,) device tensors (the engine's chunk step):
+    B3 reads them per row on the card, nothing is read on the host."""
     if use_kernel(q) and not train:
-        return fa_ops.flash_attention(q, k, v, kind=kind, window=window, q_offset=q_offset)
+        return fa_ops.flash_attention(q, k, v, kv_valid_len, kind=kind, window=window,
+                                      q_offset=q_offset)
     return blockwise_attention(q, k, v, kind=kind, window=window, q_offset=q_offset,
-                               block_k=block_k)
+                               block_k=block_k, kv_valid_len=kv_valid_len)
 
 
 def _block_mask(

@@ -1,9 +1,19 @@
 """Dense transformer block: pre-norm attention + pre-norm gated MLP.
 
 Port of the attention block of ``repro.models.blocks`` (no tensor
-parallelism, no paged KV).  Layer params are one layer's slice of the
-segment stack.  The decode step writes its K/V into the cache in place (the
-counterpart of the reference's donated, functionally updated cache).
+parallelism).  Layer params are one layer's slice of the segment stack.
+The decode step writes its K/V into the cache in place (the counterpart of
+the reference's donated, functionally updated cache), at one position for
+the batch or, for the engine's ragged decode, at a (B,) position per row.
+
+Paged KV (the continuous-batching engine): the physical cache is a
+token-major pool shared by every slot, k/v (T, Hkv, hd) with T = num_blocks
+* page_size.  A dispatch gathers each slot's pages once into a contiguous
+(B, Hkv, L, hd) view (:func:`gather_pool_view`), runs the ordinary steps
+against it (``attention_step`` with per-row positions,
+:func:`attention_chunk_step`), and scatters only the newly written cells
+back (:func:`scatter_pool_view`).  View positions past a row's valid length
+hold stale pool bytes; the attention masks them.
 """
 from __future__ import annotations
 
@@ -49,7 +59,8 @@ def _qkv(p: Params, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor):
     q = layers.linear(p["wq"], x, x.dtype).reshape(b, s, cfg.n_heads, hd)
     k = layers.linear(p["wk"], x, x.dtype).reshape(b, s, cfg.n_kv_heads, hd)
     v = layers.linear(p["wv"], x, x.dtype).reshape(b, s, cfg.n_kv_heads, hd)
-    pos = positions[None, None, :]
+    # positions: (S,) shared by the batch, or (B, S) per row (ragged slots)
+    pos = positions[None, None, :] if positions.ndim == 1 else positions[:, None, :]
     q = layers.apply_rope(q.transpose(1, 2), pos, cfg.rope_theta)
     k = layers.apply_rope(k.transpose(1, 2), pos, cfg.rope_theta)
     return q, k, v.transpose(1, 2)  # (B, H, S, hd)
@@ -83,6 +94,16 @@ def _position_index(pos: int | torch.Tensor, device) -> torch.Tensor:
     return torch.tensor([pos], device=device)
 
 
+def _write_rows(cache: torch.Tensor, new: torch.Tensor, start: torch.Tensor) -> None:
+    """cache (B, Hkv, L, hd)[r, :, start_r + j] = new (B, Hkv, n, hd)[r, :, j],
+    in place: the reference's vmapped ``dynamic_update_slice`` (the engine
+    keeps every slice inside the view, so nothing is clamped)."""
+    b, _, n, _ = new.shape
+    rows = torch.arange(b, device=cache.device)[:, None]
+    cols = start.to(torch.int64)[:, None] + torch.arange(n, device=cache.device)
+    cache[rows, :, cols] = new.permute(0, 2, 1, 3).to(cache.dtype)
+
+
 def attention_step(
     p: Params,
     cfg: ArchConfig,
@@ -91,14 +112,25 @@ def attention_step(
     pos: int | torch.Tensor,
 ) -> torch.Tensor:
     """x: (B, 1, d); cache k/v: (B, Hkv, S, hd), written in place at ``pos``
-    (a Python int or a 0-d int tensor) by a device-indexed copy, the
-    counterpart of the reference's ``dynamic_update_slice``."""
+    by a device-indexed copy, the counterpart of the reference's
+    ``dynamic_update_slice``.  ``pos``: a Python int or a 0-d int tensor
+    (one position for the batch), or a (B,) int tensor of per-row positions
+    (ragged continuous-batching decode), masked through ``decode_attention``'s
+    (B,) valid length."""
     b = x.shape[0]
-    idx = _position_index(pos, x.device)
-    q, k, v = _qkv(p, cfg, x, idx)
-    cache["k"].index_copy_(2, idx, k.to(cache["k"].dtype))
-    cache["v"].index_copy_(2, idx, v.to(cache["v"].dtype))
-    out = decode_attention(q, cache["k"], cache["v"], idx + 1)
+    if isinstance(pos, torch.Tensor) and pos.ndim == 1:
+        pos = pos.to(device=x.device, dtype=torch.int64)
+        q, k, v = _qkv(p, cfg, x, pos[:, None])
+        _write_rows(cache["k"], k, pos)
+        _write_rows(cache["v"], v, pos)
+        valid = pos + 1
+    else:
+        idx = _position_index(pos, x.device)
+        q, k, v = _qkv(p, cfg, x, idx)
+        cache["k"].index_copy_(2, idx, k.to(cache["k"].dtype))
+        cache["v"].index_copy_(2, idx, v.to(cache["v"].dtype))
+        valid = idx + 1
+    out = decode_attention(q, cache["k"], cache["v"], valid)
     return layers.linear(p["wo"], out.transpose(1, 2).reshape(b, 1, -1), x.dtype)
 
 
@@ -108,6 +140,91 @@ def init_attn_cache(
     shape = lead + (batch, cfg.n_kv_heads, seq_len, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# Paged KV attention (continuous-batching engine)
+# ---------------------------------------------------------------------------
+
+def init_attn_pool(cfg: ArchConfig, num_tokens: int, dtype, device,
+                   lead: tuple[int, ...] = ()) -> dict[str, Any]:
+    """Token-major physical KV pool: k/v (*lead, T, Hkv, hd)."""
+    shape = lead + (num_tokens, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def gather_pool_view(pool_arr: torch.Tensor, table: torch.Tensor, page_size: int) -> torch.Tensor:
+    """(..., T, Hkv, hd) pool + (B, P) block table -> (..., B, Hkv, L, hd)
+    contiguous per-slot cache view, L = P * page_size (a new tensor)."""
+    *lead, t, hkv, hd = pool_arr.shape
+    b, p = table.shape
+    paged = pool_arr.reshape(*lead, t // page_size, page_size, hkv, hd)
+    view = paged.index_select(len(lead), table.reshape(-1).to(torch.int64))
+    view = view.reshape(*lead, b, p * page_size, hkv, hd)
+    return view.movedim(-2, -3).contiguous()
+
+
+def scatter_pool_view(
+    pool_arr: torch.Tensor,
+    view: torch.Tensor,
+    table: torch.Tensor,
+    pos0: torch.Tensor,
+    n_tokens: int,
+    page_size: int,
+) -> torch.Tensor:
+    """Write back the cells a dispatch filled, in place: view positions
+    [pos0_r, pos0_r + n_tokens) of each row r land in their physical pool
+    cells (dummy-page rows absorb padded writes).  view: (..., B, Hkv, L,
+    hd); returns the updated (..., T, Hkv, hd) pool (the same tensor)."""
+    *lead, b, hkv, _, hd = view.shape
+    dev = pool_arr.device
+    idx = pos0.to(torch.int64)[:, None] + torch.arange(n_tokens, device=dev)  # (B, n)
+    blk = torch.gather(table.to(torch.int64), 1, idx // page_size)
+    flat = (blk * page_size + idx % page_size).reshape(-1)  # (B*n,) pool cells
+    sel = idx.reshape((1,) * len(lead) + (b, 1, n_tokens, 1)).expand(*lead, b, hkv, n_tokens, hd)
+    got = torch.gather(view, -2, sel).movedim(-3, -2).reshape(*lead, b * n_tokens, hkv, hd)
+    pool_arr.index_copy_(len(lead), flat, got.to(pool_arr.dtype))
+    return pool_arr
+
+
+def attention_chunk_step(
+    p: Params,
+    cfg: ArchConfig,
+    x: torch.Tensor,
+    cache: dict[str, torch.Tensor],
+    start: torch.Tensor,
+    kv_len: torch.Tensor,
+) -> torch.Tensor:
+    """Multi-token continuation against a contiguous cache view, B rows wide.
+
+    x: (B, C, d) — row r holds chunk positions [start_r, start_r + C) of its
+    own request (tail columns past a row's true chunk length are padding —
+    causality plus ``kv_len`` masking keep them invisible, and the caller's
+    write-back routes them to cells no read sees first); cache k/v:
+    (B, Hkv, L, hd), written in place; start / kv_len: 0-d or (B,) int
+    tensors, ``kv_len`` the valid cache length after this chunk.  The
+    attention is ``attention(..., q_offset=start, kv_valid_len=kv_len)``:
+    kernel B3 with per-row offsets on the card, ``blockwise_attention`` on
+    the CPU (the reference calls ``blockwise_attention`` here on every
+    backend).  Returns the block's attention output (B, C, d).
+    """
+    b, c, _ = x.shape
+    start = torch.as_tensor(start, device=x.device)
+    positions = (start[:, None] if start.ndim else start) + torch.arange(c, device=x.device)
+    q, k, v = _qkv(p, cfg, x, positions)  # (B, H, C, hd)
+    start_b = start.reshape(-1).expand(b)
+    _write_rows(cache["k"], k, start_b)
+    _write_rows(cache["v"], v, start_b)
+    out = attention(q, cache["k"], cache["v"], kind="causal", q_offset=start,
+                    kv_valid_len=kv_len)
+    return layers.linear(p["wo"], out.transpose(1, 2).reshape(b, c, -1), x.dtype)
+
+
+def attn_block_chunk_step(p: Params, cfg: ArchConfig, x, cache, start, kv_len):
+    x = x + attention_chunk_step(p["attn"], cfg, layers.rmsnorm(p["ln1"], x), cache, start,
+                                 kv_len)
+    return x + layers.glu_mlp(p["mlp"], layers.rmsnorm(p["ln2"], x), cfg.act, x.dtype)
 
 
 def attn_block_fwd(

@@ -10,8 +10,12 @@ Interface:
   init(key, cfg, device=)                          -> params (device: cuda default)
   forward(params, cfg, batch, remat=, train=)      -> (logits, aux)
   prefill(params, cfg, batch)                      -> (logits, cache)
-  decode_step(params, cfg, cache, token, pos)      -> (logits, cache); pos int or 0-d tensor
+  decode_step(params, cfg, cache, token, pos)      -> (logits, cache); pos int, 0-d or (B,) tensor
   init_cache(cfg, batch, seq_len, dtype=, device=) -> cache
+
+Paged KV (the continuous-batching engine): ``init_paged_pools``,
+``paged_view`` / ``paged_writeback``, ``decode_step_paged``,
+``chunk_on_views`` and ``prefill_chunk`` (the reference's paged half).
 """
 from __future__ import annotations
 
@@ -182,7 +186,8 @@ def decode_step(
     params: Params, cfg: ArchConfig, caches: list, token: torch.Tensor, pos: int | torch.Tensor
 ) -> tuple[torch.Tensor, list]:
     """token: (B, 1) int; pos: absolute position, a Python int or a 0-d int
-    tensor on the device (no host sync: a CUDA graph can capture the step).
+    tensor on the device (no host sync: a CUDA graph can capture the step),
+    or a (B,) int tensor of per-row positions (the engine's ragged decode).
     Writes the caches in place and returns (logits (B, 1, V), caches)."""
     x = _embed_inputs(params, cfg, token)
     for (_, count), p_stack, c_stack in zip(segments_of(cfg), params["segments"], caches):
@@ -191,3 +196,87 @@ def decode_step(
                 layer_slice(p_stack, i), cfg, x, layer_slice(c_stack, i), pos
             )
     return _logits(params, cfg, x), caches
+
+
+# ---------------------------------------------------------------------------
+# Paged decode / chunked prefill (continuous-batching engine)
+# ---------------------------------------------------------------------------
+
+def supports_paged(cfg: ArchConfig) -> bool:
+    """Paged KV serving covers pure-attention decoder stacks (every dense
+    config the port has; another block kind raises in ``segments_of``)."""
+    return {k for k, _ in segments_of(cfg)} <= {"attn"}
+
+
+def init_paged_pools(cfg: ArchConfig, num_tokens: int, dtype=None, *, device=None) -> list:
+    """Token-major physical KV pools, one stacked pool per segment: k/v
+    (count, T, Hkv, hd) with T = num_blocks * page_size (CUDA unless
+    ``device="cpu"``)."""
+    device = resolve_device(device)
+    dtype = compute_dtype(cfg) if dtype is None else dtype
+    return [blocks.init_attn_pool(cfg, num_tokens, dtype, device, lead=(count,))
+            for _, count in segments_of(cfg)]
+
+
+def paged_view(cfg: ArchConfig, pools: list, table: torch.Tensor, page_size: int) -> list:
+    """Gather each slot's pages into contiguous per-slot caches — the same
+    (count, B, Hkv, L, hd) layout ``init_cache`` builds, so the ordinary
+    ``decode_step`` runs against it unchanged."""
+    return [{k: blocks.gather_pool_view(a, table, page_size) for k, a in pool.items()}
+            for pool in pools]
+
+
+def paged_writeback(cfg: ArchConfig, pools: list, caches: list, table: torch.Tensor,
+                    pos0: torch.Tensor, n_tokens: int, page_size: int) -> list:
+    """Scatter the cells a dispatch wrote — view positions [pos0_r, pos0_r +
+    n_tokens) per row — back into the physical pools, in place."""
+    for pool, cache in zip(pools, caches):
+        for k in pool:
+            blocks.scatter_pool_view(pool[k], cache[k], table, pos0, n_tokens, page_size)
+    return pools
+
+
+def decode_step_paged(params: Params, cfg: ArchConfig, pools: list, table: torch.Tensor,
+                      token: torch.Tensor, pos: torch.Tensor, page_size: int):
+    """token: (B, 1) int; pos: (B,) per-slot absolute positions; table
+    (B, P) block-table rows.  Gather view -> ordinary ``decode_step``
+    (vector positions) -> write the one new cell per row back.  Returns
+    (logits (B, 1, V), pools)."""
+    caches = paged_view(cfg, pools, table, page_size)
+    logits, caches = decode_step(params, cfg, caches, token, pos)
+    return logits, paged_writeback(cfg, pools, caches, table, pos, 1, page_size)
+
+
+def chunk_on_views(params: Params, cfg: ArchConfig, caches: list, tokens: torch.Tensor,
+                   start, kv_len, last_idx) -> tuple[torch.Tensor, list]:
+    """Chunk continuation against contiguous cache views (written in place).
+
+    tokens: (B, C) int — row r holds chunk positions [start_r, start_r + C)
+    of its own request; columns past a row's true extent are padding.
+    start / kv_len / last_idx: (B,) int tensors (0-d or Python ints also
+    accepted) — chunk start, valid cache length after the writes, and the
+    chunk column whose logits each row emits.  Returns (logits (B, 1, V) —
+    row r's column ``last_idx_r`` — and the views).
+    """
+    x = _embed_inputs(params, cfg, tokens)
+    start = torch.as_tensor(start, device=x.device)
+    kv_len = torch.as_tensor(kv_len, device=x.device)
+    for (_, count), p_stack, c_stack in zip(segments_of(cfg), params["segments"], caches):
+        for i in range(count):
+            x = blocks.attn_block_chunk_step(layer_slice(p_stack, i), cfg, x,
+                                             layer_slice(c_stack, i), start, kv_len)
+    last = torch.as_tensor(last_idx, device=x.device).to(torch.int64).reshape(-1, 1, 1)
+    x_last = torch.gather(x, 1, last.expand(x.shape[0], 1, x.shape[-1]))
+    return _logits(params, cfg, x_last), caches
+
+
+def prefill_chunk(params: Params, cfg: ArchConfig, pools: list, table: torch.Tensor,
+                  tokens: torch.Tensor, start, kv_len, last_idx, page_size: int):
+    """One prompt-chunk dispatch, B requests wide, through the paged pools
+    (see :func:`chunk_on_views`); start/kv_len/last_idx also accept scalars.
+    Returns (logits (B, 1, V), pools)."""
+    b, c = tokens.shape
+    start_b = torch.as_tensor(start, device=tokens.device).reshape(-1).expand(b)
+    caches = paged_view(cfg, pools, table, page_size)
+    logits, caches = chunk_on_views(params, cfg, caches, tokens, start, kv_len, last_idx)
+    return logits, paged_writeback(cfg, pools, caches, table, start_b, c, page_size)

@@ -35,13 +35,28 @@ hex), ``plane_compression`` the served token arrays, and
 ``redeploy_delta`` every ``RedeployReport`` field; the post-step weights
 of the 4 priced tensors go to ``golden/redeploy_delta_seed<seed>.npz``.
 
-The ``fault_tolerance`` and ``integrity_scrub`` entries are the engine-free
-halves of those ``benchmarks/`` runs at their settings (the fault curve and
+The ``fault_tolerance`` and ``integrity_scrub`` entries are those
+``benchmarks/`` runs at their settings (the fault curve and
 endurance horizons; storm and repair and the tolerated-fault KL), each
 logit KL also computed in float64 from the same float32 logits, and each
 fault-curve deployment's pool stats, wear per crossbar and leaf sha256s.
+Their engine halves are the reference's ``run_hot_redeploy`` (its counters
+and horizons), ``run_engine_scrub`` (its counters and parities) and the
+integers of ``run_scrub_overhead`` at the port's 32 requests and 5
+trials (``OVERHEAD_REQUESTS``, ``OVERHEAD_TRIALS``; the reference
+benchmark's own 4 requests give trials with no scrub round).
 ``serve_faults`` is the printed report of the reference's serve CLI with
 faults, leveling and a scrubbed storm on the reduced gemma-2b (``SERVE_FAULTS_ARGS``).
+
+The ``engine`` entry is the reference's continuous-batching engine on the
+reduced gemma-2b: ``benchmarks_torch.engine_throughput``'s parity trace
+(``PARITY_TRACE``, every arrival at 0.0, ``submit`` + ``step(now)``)
+served ``PARITY_VARIANTS`` (dense and packed, fused and split) with
+``PARITY_ENGINE``: every request's tokens, the engine's stats and shapes,
+and for each request the steps whose top-2 gap (of the logits, plus the
+step's Gumbel noise for a sampled request, from a teacher-forced forward of
+the stream) is below ``NEAR_TIE``; and ``run_overcommit``'s integers in swap
+and recompute mode.
 
 ``--parts accuracy,trainer`` (any of the entry names) recomputes those
 entries alone and keeps the rest of the file.
@@ -74,6 +89,8 @@ sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
 OUT = ROOT / "benchmarks_torch" / "golden" / "reference.json"
 NEAR_TIE = 1e-4  # top-2 logit gap below which the port's argmax may differ
+OVERHEAD_REQUESTS = 32  # benchmarks_torch.integrity_scrub.OVERHEAD_REQUESTS
+OVERHEAD_TRIALS = 5  # benchmarks_torch.integrity_scrub.OVERHEAD_TRIALS
 
 
 def planner_plan(max_elems: int, layers: int, p_stuck: float = 0.5) -> dict:
@@ -375,9 +392,9 @@ class _KL64:
 
 
 def fault_tolerance_record(seed: int = 0) -> dict:
-    """The engine-free halves of the reference's ``fault_tolerance.run`` at
-    its settings: the fault curve (naive and fault-aware leveling, each KL
-    also in float64), the recovery at the reference rate and the endurance
+    """The reference's ``fault_tolerance.run`` at its settings: the fault
+    curve (naive and fault-aware leveling, each KL also in float64), the
+    recovery at the reference rate, the hot redeploy and the endurance
     horizons; beside each curve deployment, its pool's stats, wear per
     crossbar and deployed leaves' sha256."""
     import jax
@@ -412,18 +429,24 @@ def fault_tolerance_record(seed: int = 0) -> dict:
     for i, row in enumerate(curve):
         row["kl_none_f64"], row["kl_fault_f64"] = kl64.kls[2 * i : 2 * i + 2]
     t0 = time.perf_counter()
+    redeploy = ft.run_hot_redeploy(cfg, params, api.init(jax.random.PRNGKey(seed + 1), cfg),
+                                   pcfg=pcfg, n_requests=6, seed=seed)
+    redeploy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     endurance = ft.run_endurance(cfg, pcfg=pcfg, n_deploys=3, seed=seed)
     return {"arch": "gemma-2b", "reduced": True, "seed": seed, "rates": list(rates),
             "ref_rate": ref_rate, "fault_curve": curve,
             "recovery_at_ref": ft.recovery_fraction(curve, ref_rate), "deploys": deploys,
-            "endurance": endurance,
-            "seconds_cpu": {"fault_curve": curve_s, "endurance": time.perf_counter() - t0}}
+            "redeploy": redeploy, "endurance": endurance,
+            "seconds_cpu": {"fault_curve": curve_s, "redeploy": redeploy_s,
+                            "endurance": time.perf_counter() - t0}}
 
 
 def integrity_scrub_record(seed: int = 0) -> dict:
-    """The engine-free halves of the reference's ``integrity_scrub.run`` at
-    its settings: storm and repair (4 requests) and the tolerated-fault KL
-    at rates 0, 1e-3 and 4e-3 (also in float64)."""
+    """The reference's ``integrity_scrub.run`` at its settings: storm and
+    repair (4 requests), the tolerated-fault KL at rates 0, 1e-3 and 4e-3
+    (also in float64), the engine scrub and the scrub overhead (on
+    ``OVERHEAD_REQUESTS`` requests, ``OVERHEAD_TRIALS`` trials)."""
     import jax
 
     from benchmarks import integrity_scrub as isc
@@ -444,9 +467,87 @@ def integrity_scrub_record(seed: int = 0) -> dict:
         kl = isc.run_tolerated_kl(cfg, params, pcfg=pcfg, rates=kl_rates, seed=seed)
     for row, v in zip(kl, kl64.kls):
         row["kl_f64"] = v
+    kl_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    esc = isc.run_engine_scrub(cfg, params, pcfg=pcfg, corrupt=2e-3, stuck=2e-4,
+                               n_requests=4, seed=seed)
+    esc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ovh = isc.run_scrub_overhead(cfg, params, pcfg=pcfg, n_requests=OVERHEAD_REQUESTS,
+                                 trials=OVERHEAD_TRIALS, seed=seed)
     return {"arch": "gemma-2b", "reduced": True, "seed": seed, "n_requests": 4,
             "kl_rates": list(kl_rates), "storm_repair": storm, "tolerated_kl": kl,
-            "seconds_cpu": {"storm_repair": storm_s, "tolerated_kl": time.perf_counter() - t0}}
+            "engine_scrub": esc, "overhead": ovh,
+            "seconds_cpu": {"storm_repair": storm_s, "tolerated_kl": kl_s, "engine_scrub": esc_s,
+                            "overhead": time.perf_counter() - t0}}
+
+
+def _near_ties(cfg, params, req, tokens) -> list[int]:
+    """Steps of ``tokens`` (req's stream) whose top-2 gap is below NEAR_TIE:
+    of the teacher-forced logits, plus the step's Gumbel noise (the solo
+    key schedule) for a sampled request."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from repro.models import api
+
+    if not tokens:
+        return []
+    seq = np.concatenate([req.prompt, np.asarray(tokens[:-1], np.int32)])[None]
+    logits = np.asarray(api.forward(params, cfg, {"tokens": jnp.asarray(seq)})[0][0])
+    key, near = jax.random.PRNGKey(req.seed), []
+    for i in range(len(tokens)):
+        row = logits[req.prompt.size - 1 + i]
+        if not req.greedy:
+            key, sub = jax.random.split(key)
+            row = row + np.asarray(jax.random.gumbel(sub, row.shape, row.dtype))
+        top = np.sort(row)[-2:]
+        if float(top[1] - top[0]) < NEAR_TIE:
+            near.append(i)
+    return near
+
+
+def engine_record(seed: int = 0) -> dict:
+    """The reference engine on the reduced gemma-2b: the parity trace through
+    each of ``PARITY_VARIANTS`` (streams, stats, shapes, near ties), then
+    ``run_overcommit`` in swap and recompute mode."""
+    import jax
+    import numpy as np
+
+    from benchmarks import engine_throughput as et
+    from benchmarks_torch import engine_throughput as tet
+    from repro.configs import get_arch
+    from repro.core.planner import CrossbarSpec, PlannerConfig, build_deployment, deploy_params
+    from repro.launch.engine import Engine, EngineConfig, Request
+    from repro.models import api
+
+    cfg = get_arch("gemma-2b", reduced=True)
+    params = api.init(jax.random.PRNGKey(seed), cfg)
+    plan = build_deployment(params, CrossbarSpec(), PlannerConfig(**tet.PARITY_PLAN))
+    trace = tet.make_trace(cfg, **tet.PARITY_TRACE)
+    variants = {}
+    for mat, fused in tet.PARITY_VARIANTS:
+        served = deploy_params(params, plan, materialize=mat)
+        reqs = tet.parity_requests(trace, Request)
+        eng = Engine(cfg, served, EngineConfig(fused=fused, **tet.PARITY_ENGINE))
+        t0 = time.perf_counter()
+        streams = tet.serve_parity(eng, reqs)
+        variants[f"{mat}/{'fused' if fused else 'split'}"] = {
+            "tokens": {str(rid): t for rid, t in streams.items()},
+            "status": {str(r.rid): eng.results[r.rid].status for r in reqs},
+            "stats": dict(eng.stats),
+            "shapes": sorted(map(list, eng._shapes_seen)),
+            "near_ties": {str(r.rid): _near_ties(cfg, served, r, streams[r.rid]) for r in reqs},
+            "seconds_cpu": time.perf_counter() - t0,
+        }
+    overcommit = {}
+    for mode in ("swap", "recompute"):
+        oc = et.run_overcommit(cfg, params, preempt=mode)
+        overcommit[mode] = {k: oc[k] for k in tet.OVERCOMMIT_INTS}
+    return {"arch": "gemma-2b", "reduced": True, "seed": seed, "near_tie": NEAR_TIE,
+            "trace": tet.PARITY_TRACE, "engine": tet.PARITY_ENGINE, "plan": tet.PARITY_PLAN,
+            "variants": variants, "overcommit": overcommit}
 
 
 SERVE_FAULTS_ARGS = ["--arch", "gemma-2b", "--reduced", "--batch", "2", "--prompt-len", "8",
@@ -506,6 +607,7 @@ def collect(max_elems: int, planner_max_elems: int, planner_layers: int, seed: i
         "fault_tolerance": lambda: fault_tolerance_record(seed),
         "integrity_scrub": lambda: integrity_scrub_record(seed),
         "serve_faults": serve_faults_record,
+        "engine": lambda: engine_record(seed),
     }
     if only is not None:
         if only - parts.keys():
