@@ -7,14 +7,13 @@ accuracy halves deploy the reduced LM trained once per process by
 ``trained_lm``), the end-to-end accuracy check, the planner throughput, the
 plane codecs, the pool wear, the serving throughput (both decode loops),
 the engine throughput (static, split and fused), the redeploy delta, the
-fault tolerance and the integrity scrub, prints each one's summary as
+fault tolerance, the integrity scrub and the fleet tolerance, prints each
+one's summary as
 ``benchmarks/run.py`` does, and writes the JSON artifacts and a summary to
 experiments/bench_torch/.  --full removes the per-tensor element cap.
 
-Left out, with the reason:
-
-* the fleet benchmark: it waits for the fleet (ROADMAP A.15);
-* the roofline: it reads the dry run's artifacts (ROADMAP A.18).
+Left out, with the reason: the roofline, which reads the dry run's
+artifacts (ROADMAP A.18).
 """
 from __future__ import annotations
 
@@ -31,6 +30,7 @@ from benchmarks_torch import (
     fig9_p_sweep,
     fig10_columns,
     fault_tolerance,
+    fleet_tolerance,
     integrity_scrub,
     plane_compression,
     planner_throughput,
@@ -205,6 +205,23 @@ def main() -> None:
     save_json("BENCH_integrity", ris)
     summary["integrity_scrub"] = {"repair_cost_ratio": sr["repair_cost_ratio"],
                                   "post_repair_parity": sr["post_repair_parity"]}
+
+    banner("Fleet tolerance — replica router under chaos")
+    rfl = fleet_tolerance.run(counts=(1, 2) if not args.full else (1, 2, 4),
+                              n_requests=8 if not args.full else 16, device=dev)
+    kt, st = rfl["kill_trace"], rfl["stall_trace"]
+    print(f"  kill trace: {kt['completed']}/{kt['admitted']} completed, "
+          f"parity {kt['stream_parity']}, {kt['surviving_replicas']} survivors")
+    print(f"  stall trace: {st['completed']}/{st['admitted']} completed, "
+          f"parity {st['stream_parity']}, {st['hedges']} hedges")
+    save_json("BENCH_fleet", rfl)
+    summary["fleet"] = {
+        "tok_s_by_replicas": {str(r["n_replicas"]): r["tok_s"] for r in rfl["scaling"]},
+        "kill_completed": kt["completed"],
+        "stall_completed": st["completed"],
+        "stream_parity": kt["stream_parity"] and st["stream_parity"],
+        "shed": rfl["admission"]["shed"],
+    }
 
     banner(f"benchmarks_torch.run complete in {time.time() - t0:.0f}s")
     save_json("summary", summary)

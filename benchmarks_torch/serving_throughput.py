@@ -53,6 +53,7 @@ from repro_torch.models import api
 
 VARIANTS = ("fp", "cim_dense", "cim_planes_int8", "cim_packed")
 TRACED = ("cim_packed", "cim_planes_int8")
+TOP = 8  # kernels a traced pass lists by device time
 
 
 def cim_weight_bytes(
@@ -109,7 +110,7 @@ def weight_traffic(plan) -> dict:
 def busy_share(timed_run) -> dict:
     """Wall and device time of one ``timed_run()`` under torch.profiler
     (CUPTI): the device time is the sum of every kernel's; the busy share
-    their ratio."""
+    their ratio; ``top`` the kernels with the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -117,9 +118,12 @@ def busy_share(timed_run) -> dict:
         timed_run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    dev_ms = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
-                 if str(getattr(e, "device_type", "")).endswith("CUDA")) / 1e3
-    return {"wall_ms": wall_ms, "device_ms": dev_ms, "busy": dev_ms / wall_ms}
+    rows = sorted(((getattr(e, "self_device_time_total", 0) / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")), reverse=True)
+    dev_ms = sum(r[0] for r in rows)
+    return {"wall_ms": wall_ms, "device_ms": dev_ms, "busy": dev_ms / wall_ms,
+            "top": [{"kernel": key, "count": n, "ms": ms} for ms, n, key in rows[:TOP] if ms > 0]}
 
 
 def run(

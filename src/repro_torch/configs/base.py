@@ -2,7 +2,7 @@
 
 Only the fields the ported decoder path reads are kept: the attention +
 gated-MLP (SwiGLU or GeGLU) decoder stack of ``block_pattern=(("attn", 1),)``
-families.
+families, and the tensor-parallel flags of ``parallel/tp.py``.
 """
 from __future__ import annotations
 
@@ -28,6 +28,18 @@ class ArchConfig:
     dtype: str = "bfloat16"
     # sequence of (block_kind, repeat), expanded cyclically to n_layers
     block_pattern: tuple[tuple[str, int], ...] = (("attn", 1),)
+    # --- tensor parallelism (parallel/tp.py) ---
+    # When tp_axis is set, model code runs the shards of a tensor-parallel
+    # group: tp_attn means q/k/v are column-parallel and wo row-parallel
+    # (reduced over the shards after wo), tp_mlp means wi_gate/wi_up
+    # column-parallel and mlp wo row-parallel (reduced after the MLP).  The
+    # *local* head/ff counts are already divided down in this config (see
+    # tp.local_config); the flags gate where the cross-shard reductions are
+    # (models/blocks.py), and the sharded sublayers' leaves carry a shard
+    # axis after the layer axis.
+    tp_axis: Optional[str] = None
+    tp_attn: bool = False
+    tp_mlp: bool = False
 
     @property
     def resolved_head_dim(self) -> int:

@@ -144,6 +144,70 @@ def is_cim_operands(w) -> bool:
     return isinstance(w, dict) and ("planes_packed" in w or "splanes" in w)
 
 
+def shard_operands(op: dict[str, torch.Tensor], *, axis: int, index: int,
+                   n: int) -> dict[str, torch.Tensor]:
+    """Slice a crossbar operand dict along one logical weight axis: shard
+    ``index`` of ``n`` of a tensor-parallel layout (column-parallel slices
+    ``axis=-1``/N, row-parallel slices ``axis=-2``/K).  Views, no copy.
+
+    Exactness contract: ``densify_operands(shard_operands(op, ...)) ==
+    densify_operands(op)[..., slice]`` byte for byte — no repacking, no
+    requantization.  The planes store K packed 8 per byte, so a K slice must
+    land on byte boundaries (``(K // n) % 8 == 0``; ``parallel.tp.plan_tp``
+    replicates otherwise).  Per field:
+
+    * ``planes_packed`` / ``stuck0_packed`` / ``stuck1_packed``
+      uint8[..., cols, K8, N] and ``sign_packed`` uint8[..., K8, N]: N on
+      the last axis, or bytes ``k0//8:k1//8`` of the packed-K axis;
+    * ``kdim`` [..., K, 0]: its K axis sliced on K shards;
+    * ``plane_ids``, ``scale``, ``offset``: passed through;
+    * ``plane_gain`` f32[..., cols, N]: sliced on N shards, passed through
+      on K shards (the reference passes it through on both, which leaves an
+      N shard's gains at the full width: ROADMAP C.9);
+    * ``plane_tile_nz`` [..., cols, ceil(K/128)]: kept on N shards (flags
+      reduced over N stay honest: a missed skip, never a wrong read),
+      dropped on K shards (the tile grid moves; B2 then runs in place of B4);
+    * ``row_atten`` [..., K]: sliced on K shards;
+    * ``splanes`` int8[..., cols, K, N]: either axis, no byte rule.
+    """
+    if axis not in (-1, -2):
+        raise ValueError(f"axis must be -1 (N) or -2 (K), got {axis}")
+    if not 0 <= index < n:
+        raise ValueError(f"shard index {index} outside [0, {n})")
+    packed = "planes_packed" in op
+    planes = op["planes_packed"] if packed else op["splanes"]
+    if axis == -1:
+        dim = planes.shape[-1]
+    else:
+        dim = op["kdim"].shape[-2] if packed else planes.shape[-2]
+    if dim % n:
+        raise ValueError(f"axis {axis} extent {dim} not divisible by {n} shards")
+    lo, hi = index * (dim // n), (index + 1) * (dim // n)
+    if packed and axis == -2 and (lo % 8 or hi % 8):
+        raise ValueError(f"packed K shard [{lo}:{hi}) not byte-aligned (K//n must be % 8)")
+    out = {}
+    for name, arr in op.items():
+        if name in ("scale", "offset", "plane_ids"):
+            out[name] = arr
+        elif name == "plane_gain":
+            out[name] = arr[..., lo:hi] if axis == -1 else arr
+        elif name == "plane_tile_nz":
+            if axis == -1:
+                out[name] = arr
+        elif name == "row_atten":
+            out[name] = arr[..., lo:hi] if axis == -2 else arr
+        elif name == "kdim":
+            out[name] = arr[..., lo:hi, :] if axis == -2 else arr
+        elif axis == -1:
+            out[name] = arr[..., lo:hi]
+        elif name == "sign_packed":
+            out[name] = arr[..., lo // 8: hi // 8, :]
+        else:  # planes_packed / stuck0_packed / stuck1_packed / splanes
+            k0, k1 = (lo // 8, hi // 8) if packed else (lo, hi)
+            out[name] = arr[..., k0:k1, :]
+    return out
+
+
 def read_planes(op: dict[str, torch.Tensor]) -> torch.Tensor:
     """The stored planes of a packed operand dict as a read returns them:
     through the stuck masks ``nonideal.perturb_operands`` adds, if any."""

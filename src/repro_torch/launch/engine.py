@@ -41,8 +41,15 @@ Token parity: each request's stream is that of a solo
 ``launch.serve.generate`` run with the same seed, through fused and split
 dispatches, mid-flight admission and preemption, for every
 materialization; the scheduling (and so every ``stats`` counter) is the
-reference's.  Tensor-parallel replicas (``tp > 1``) are ported with the
-fleet (ROADMAP A.15).
+reference's.
+
+Tensor parallelism (``tp > 1``, ``parallel/tp.py``): the params are sharded
+with sharded leaves on a shard axis and replicated ones once, the paged KV
+pools of a sharded attention carry a shard axis behind the one block table
+and slot schedule, and every dispatch runs the step functions of the local
+config with all shards in process (``parallel.collective.ShardLoop`` at the
+gates of ``models.blocks``) — on the card still one CUDA graph a bucket and
+epoch.  The host scheduler is untouched.
 """
 from __future__ import annotations
 
@@ -61,6 +68,7 @@ from repro_torch.launch import paged_cache, steps
 from repro_torch.launch.paged_cache import PagedCacheConfig, PagedKVCache
 from repro_torch.models import api
 from repro_torch.models.transformer import compute_dtype
+from repro_torch.parallel import tp as tp_mod
 
 
 @dataclasses.dataclass
@@ -299,12 +307,7 @@ class Engine:
     """
 
     def __init__(self, cfg: ArchConfig, params: Any, ecfg: EngineConfig = EngineConfig(),
-                 *, dispatch_from: Optional["Engine"] = None, tp: int = 1,
-                 tp_devices: Optional[list] = None):
-        if tp > 1 or tp_devices is not None:
-            raise NotImplementedError(
-                "tensor-parallel engine replicas are ported with the fleet (ROADMAP A.15)"
-            )
+                 *, dispatch_from: Optional["Engine"] = None, tp: int = 1):
         if not api.supports_paged(cfg):
             raise NotImplementedError(
                 f"{cfg.name}: the paged engine serves pure-attention decoder stacks"
@@ -313,11 +316,29 @@ class Engine:
         self.ecfg = ecfg
         dev = steps._params_device(params)
         self.device = resolve_device(None) if dev is None else dev
+        # tensor parallelism: tp > 1 splits this replica over a "model" axis,
+        # every shard in turn on the params' device at the gates of
+        # models.blocks (the reference's one-device vmap emulation)
+        if tp > 1:
+            # plan against packed constraints even for dense trees: a hot
+            # redeploy may swap a packed materialization in later, and the
+            # shard layout must not change across epochs
+            self._tp = tp_mod.plan_tp(cfg, tp, packed=True)
+            self.cfg_local = tp_mod.local_config(cfg, self._tp)
+        else:
+            self._tp = None
+            self.cfg_local = cfg
         # serving params are versioned by *epoch*: a hot redeploy swaps in a
         # new tree between dispatches while every in-flight request keeps
-        # computing on the tree it was admitted under
+        # computing on the tree it was admitted under.  Replicas built from
+        # one tree (dispatch_from, the fleet) share its prepared copy.
         self.params_epoch = 0
-        self._params: dict[int, Any] = {0: self._prepare(params)}
+        src = dispatch_from
+        if src is not None and src._source[0] is params and src._tp == self._tp:
+            self._source = src._source
+        else:
+            self._source = (params, self._prepare(params))
+        self._params: dict[int, Any] = {0: self._source[1]}
 
         # a slot's dispatches may address up to a fused window (one padded
         # prefill chunk + one decode quantum) past max_seq_len; writes beyond
@@ -334,7 +355,9 @@ class Engine:
         self.kv = PagedKVCache(self.pcfg)
         # written in place by every dispatch; never rebound (graphs hold the
         # leaves by address)
-        self.pools = api.init_paged_pools(cfg, self.pcfg.num_tokens, device=self.device)
+        self.pools = api.init_paged_pools(
+            self.cfg_local, self.pcfg.num_tokens, device=self.device,
+            shards=tp_mod.local_shards(self._tp) if self._tp is not None else 0)
 
         # two quantum lengths: the full quantum for steady decoding and a
         # short one for when most live rows sit near retirement
@@ -347,7 +370,8 @@ class Engine:
                     or src.ecfg.page_size != ecfg.page_size
                     or src.ecfg.decode_quantum != ecfg.decode_quantum
                     or src.ecfg.prefill_chunk != ecfg.prefill_chunk
-                    or bool(src._fused_steps) != ecfg.fused):
+                    or bool(src._fused_steps) != ecfg.fused
+                    or src._tp != self._tp):
                 raise ValueError(
                     "dispatch_from requires an engine with the same model "
                     "config, dispatch shapes (page_size, decode_quantum, "
@@ -357,12 +381,13 @@ class Engine:
             self._prefill_step = src._prefill_step
             self._fused_steps = src._fused_steps
         else:
+            cl = self.cfg_local
             self._decode_loops = {
-                q: steps.make_paged_decode_loop(cfg, q, ecfg.page_size) for q in self._quanta
+                q: steps.make_paged_decode_loop(cl, q, ecfg.page_size) for q in self._quanta
             }
-            self._prefill_step = steps.make_prefill_chunk_step(cfg, ecfg.page_size)
+            self._prefill_step = steps.make_prefill_chunk_step(cl, ecfg.page_size)
             self._fused_steps = {
-                q: steps.make_fused_step(cfg, q, ecfg.page_size) for q in self._quanta
+                q: steps.make_fused_step(cl, q, ecfg.page_size) for q in self._quanta
             } if ecfg.fused else {}
 
         self._graphs: dict[tuple, steps.CudaGraphCall] = {}
@@ -403,8 +428,11 @@ class Engine:
         self._scrub_cycles = 0
 
     def _prepare(self, params: Any) -> Any:
-        """Serving-ready tree on the engine's device."""
-        return steps.prepare_serving_params(params, compute_dtype(self.cfg))
+        """Serving-ready tree on the engine's device: prepared solo, or
+        sharded (shards on an axis after the layer axis) under TP."""
+        if self._tp is None:
+            return steps.prepare_serving_params(params, compute_dtype(self.cfg))
+        return tp_mod.prepare_tp_params(params, self._tp, compute_dtype(self.cfg))
 
     # -- dispatch: eager on the CPU, one CUDA graph per bucket on the card ---
 
@@ -523,6 +551,8 @@ class Engine:
         )
         for ep in [e for e in self._params if e not in live]:
             del self._params[ep]
+            if ep == 0:  # nothing may share the first tree any more
+                self._source = (None, None)
             for key in [k for k in self._graphs if k[1] == ep]:
                 del self._graphs[key]
                 self.graph_stats["dropped"] += 1

@@ -91,24 +91,36 @@ def make_generator(
     same key.  The prefill is one eager call.  ``timed_run.decode`` is the
     graph (``CudaGraphCall``, with its replay count) where there is one.
     """
+    params = prepare_serving_params(params, compute_dtype(cfg))
+    return generator_on_prepared(cfg, params, batch, gen_len=gen_len, greedy=greedy,
+                                 seed=seed, loop=loop)
+
+
+def generator_on_prepared(
+    cfg, params, batch, *, gen_len: int, greedy: bool = True, seed: int = 0,
+    loop: str = "scan", cache_shards: int = 0, wrap=None,
+):
+    """:func:`make_generator` on a prepared param tree: ``cache_shards`` is
+    the decode cache's shard axis (``init_cache``) and ``wrap`` wraps each
+    step function (a tensor-parallel plan's gate, ``parallel.tp.tp_step``)."""
     if loop not in LOOPS:
         raise ValueError(f"unknown decode loop {loop!r}; choose from {LOOPS}")
+    wrap = wrap or (lambda fn: fn)
     tokens_in = batch["tokens"]
     dev = tokens_in.device
     b, prompt_len = tokens_in.shape
-    params = prepare_serving_params(params, compute_dtype(cfg))
-    prefill = make_prefill_step(cfg)
-    cache = api.init_cache(cfg, b, prompt_len + gen_len, device=dev)
+    prefill = wrap(make_prefill_step(cfg))
+    cache = api.init_cache(cfg, b, prompt_len + gen_len, device=dev, shards=cache_shards)
     key = prng.PRNGKey(seed, device=dev)
     pos0 = torch.full((), prompt_len, dtype=torch.int64, device=dev)
     if loop == "scan":
-        decode = make_decode_loop(cfg, gen_len - 1, greedy=greedy)
+        decode = wrap(make_decode_loop(cfg, gen_len - 1, greedy=greedy))
         if dev.type == "cuda":
             with torch.inference_mode():
                 decode = CudaGraphCall(decode, params, cache, torch.zeros_like(tokens_in[:, :1]),
                                        torch.zeros_like(key), torch.zeros_like(pos0))
     else:
-        serve_step = make_serve_step(cfg)
+        serve_step = wrap(make_serve_step(cfg))
 
     @torch.inference_mode()
     def run():

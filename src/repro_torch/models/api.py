@@ -24,13 +24,15 @@ from repro_torch.models.transformer import (  # noqa: F401
 )
 
 
-def init_cache(cfg: ArchConfig, batch: int, seq_len: int, dtype=None, *, device=None):
-    return transformer.init_cache(cfg, batch, seq_len, dtype, device=device)
+def init_cache(cfg: ArchConfig, batch: int, seq_len: int, dtype=None, *, device=None,
+               shards: int = 0):
+    return transformer.init_cache(cfg, batch, seq_len, dtype, device=device, shards=shards)
 
 
-def init_paged_pools(cfg: ArchConfig, num_tokens: int, dtype=None, *, device=None) -> list:
+def init_paged_pools(cfg: ArchConfig, num_tokens: int, dtype=None, *, device=None,
+                     shards: int = 0) -> list:
     """Token-major physical KV pools (``num_tokens`` = num_blocks * page)."""
-    return transformer.init_paged_pools(cfg, num_tokens, dtype, device=device)
+    return transformer.init_paged_pools(cfg, num_tokens, dtype, device=device, shards=shards)
 
 
 def merge_prefill_cache(cfg: ArchConfig, full_cache: list, pf_cache: list) -> list:

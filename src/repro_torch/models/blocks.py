@@ -1,7 +1,7 @@
 """Dense transformer block: pre-norm attention + pre-norm gated MLP.
 
-Port of the attention block of ``repro.models.blocks`` (no tensor
-parallelism).  Layer params are one layer's slice of the segment stack.
+Port of the attention block of ``repro.models.blocks``.  Layer params are
+one layer's slice of the segment stack.
 The decode step writes its K/V into the cache in place (the counterpart of
 the reference's donated, functionally updated cache), at one position for
 the batch or, for the engine's ragged decode, at a (B,) position per row.
@@ -14,6 +14,18 @@ against it (``attention_step`` with per-row positions,
 :func:`attention_chunk_step`), and scatters only the newly written cells
 back (:func:`scatter_pool_view`).  View positions past a row's valid length
 hold stale pool bytes; the attention masks them.
+
+Tensor parallelism (``parallel/tp.py``): under a TP plan ``cfg`` is the
+local config (shard-local head and d_ff counts, ``tp_attn`` / ``tp_mlp``
+set) and a sharded sublayer's leaves, and the attention's cache or pool,
+carry a shard axis in front of their own dims.  The reduction points are
+the reference's ``_tp_reduce`` call sites: after attention's ``wo`` in
+:func:`attention_fwd`, :func:`attention_step` and
+:func:`attention_chunk_step`, and after the MLP in the three block
+functions.  There :func:`_tp_reduce` runs the sublayer once per local shard
+at its local shapes (the replicated prefix, the norm, is computed once by
+the block) and the active gate (``parallel.collective``) sums the partial
+outputs: in process over every shard, or across ranks.
 """
 from __future__ import annotations
 
@@ -26,6 +38,49 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers
 from repro_torch.models.attention import attention, decode_attention
 from repro_torch.models.layers import Params
+from repro_torch.parallel import collective
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: cross-shard reduction points
+# ---------------------------------------------------------------------------
+
+def _shard(tree: Any, s: int) -> Any:
+    """Shard ``s`` of a tree whose leaves lead with the shard axis."""
+    if isinstance(tree, dict):
+        return {k: _shard(v, s) for k, v in tree.items()}
+    return tree[s]
+
+
+def _n_shards(tree: Any) -> int:
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree.shape[0]
+
+
+def _tp_reduce(cfg: ArchConfig, enabled: bool, fn, p: Params, cache=None):
+    """``fn(p, cache)``, untagged; under a TP plan with this component
+    sharded, ``fn`` once per shard of ``p`` (and ``cache``) and the partial
+    outputs summed by the active gate — the reference's psum of the
+    row-parallel output.  A tuple output's first element is summed and its
+    second (a per-shard prompt cache, or None) stacked on the shard axis."""
+    if not (enabled and cfg.tp_axis is not None):
+        return fn(p, cache)
+    outs = [fn(_shard(p, s), None if cache is None else _shard(cache, s))
+            for s in range(_n_shards(p))]
+    gate = collective.current()
+    if not isinstance(outs[0], tuple):
+        return gate.reduce(outs)
+    extra = outs[0][1]
+    if extra is not None:
+        extra = {k: torch.stack([o[1][k] for o in outs]) for k in extra}
+    return gate.reduce([o[0] for o in outs]), extra
+
+
+def _mlp(p: Params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
+    """The gated MLP on the normed ``h``, reduced over its shards."""
+    return _tp_reduce(cfg, cfg.tp_mlp,
+                      lambda ps, _: layers.glu_mlp(ps, h, cfg.act, h.dtype), p)
 
 
 def init_attention(key: torch.Tensor, cfg: ArchConfig) -> Params:
@@ -77,6 +132,12 @@ def attention_fwd(
     """Causal self-attention over the whole of ``x`` (positions from 0):
     kernel B3 on the card, ``blockwise_attention`` on the CPU and, with
     ``train=True``, on every device (the differentiable path)."""
+    return _tp_reduce(cfg, cfg.tp_attn, lambda ps, _: _attention_fwd(
+        ps, cfg, x, return_cache=return_cache, train=train), p)
+
+
+def _attention_fwd(p: Params, cfg: ArchConfig, x: torch.Tensor, *, return_cache: bool,
+                   train: bool):
     b, s, _ = x.shape
     q, k, v = _qkv(p, cfg, x, torch.arange(s, device=x.device))
     out = attention(q, k, v, kind="causal", train=train)
@@ -117,6 +178,12 @@ def attention_step(
     (one position for the batch), or a (B,) int tensor of per-row positions
     (ragged continuous-batching decode), masked through ``decode_attention``'s
     (B,) valid length."""
+    return _tp_reduce(cfg, cfg.tp_attn,
+                      lambda ps, cs: _attention_step(ps, cfg, x, cs, pos), p, cache)
+
+
+def _attention_step(p: Params, cfg: ArchConfig, x: torch.Tensor,
+                    cache: dict[str, torch.Tensor], pos: int | torch.Tensor) -> torch.Tensor:
     b = x.shape[0]
     if isinstance(pos, torch.Tensor) and pos.ndim == 1:
         pos = pos.to(device=x.device, dtype=torch.int64)
@@ -137,6 +204,8 @@ def attention_step(
 def init_attn_cache(
     cfg: ArchConfig, batch: int, seq_len: int, dtype, device, lead: tuple[int, ...] = ()
 ) -> dict[str, Any]:
+    """Zero k/v (*lead, B, Hkv, S, hd); a TP cache's ``lead`` ends with the
+    shard count."""
     shape = lead + (batch, cfg.n_kv_heads, seq_len, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -209,6 +278,13 @@ def attention_chunk_step(
     the CPU (the reference calls ``blockwise_attention`` here on every
     backend).  Returns the block's attention output (B, C, d).
     """
+    return _tp_reduce(cfg, cfg.tp_attn,
+                      lambda ps, cs: _attention_chunk_step(ps, cfg, x, cs, start, kv_len),
+                      p, cache)
+
+
+def _attention_chunk_step(p: Params, cfg: ArchConfig, x: torch.Tensor,
+                          cache: dict[str, torch.Tensor], start, kv_len) -> torch.Tensor:
     b, c, _ = x.shape
     start = torch.as_tensor(start, device=x.device)
     positions = (start[:, None] if start.ndim else start) + torch.arange(c, device=x.device)
@@ -224,7 +300,7 @@ def attention_chunk_step(
 def attn_block_chunk_step(p: Params, cfg: ArchConfig, x, cache, start, kv_len):
     x = x + attention_chunk_step(p["attn"], cfg, layers.rmsnorm(p["ln1"], x), cache, start,
                                  kv_len)
-    return x + layers.glu_mlp(p["mlp"], layers.rmsnorm(p["ln2"], x), cfg.act, x.dtype)
+    return x + _mlp(p["mlp"], cfg, layers.rmsnorm(p["ln2"], x))
 
 
 def attn_block_fwd(
@@ -238,10 +314,9 @@ def attn_block_fwd(
     a, cache = attention_fwd(p["attn"], cfg, layers.rmsnorm(p["ln1"], x),
                              return_cache=return_cache, train=train)
     x = x + a
-    x = x + layers.glu_mlp(p["mlp"], layers.rmsnorm(p["ln2"], x), cfg.act, x.dtype)
-    return x, cache
+    return x + _mlp(p["mlp"], cfg, layers.rmsnorm(p["ln2"], x)), cache
 
 
 def attn_block_step(p: Params, cfg: ArchConfig, x, cache, pos: int | torch.Tensor):
     x = x + attention_step(p["attn"], cfg, layers.rmsnorm(p["ln1"], x), cache, pos)
-    return x + layers.glu_mlp(p["mlp"], layers.rmsnorm(p["ln2"], x), cfg.act, x.dtype)
+    return x + _mlp(p["mlp"], cfg, layers.rmsnorm(p["ln2"], x))

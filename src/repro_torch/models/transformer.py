@@ -171,13 +171,16 @@ def prefill(params: Params, cfg: ArchConfig, batch: dict) -> tuple[torch.Tensor,
     return _logits(params, cfg, x[:, -1:]), caches
 
 
-def init_cache(cfg: ArchConfig, batch: int, seq_len: int, dtype=None, *, device=None) -> list:
+def init_cache(cfg: ArchConfig, batch: int, seq_len: int, dtype=None, *, device=None,
+               shards: int = 0) -> list:
     """Zero decode cache, one stacked {"k", "v"} per segment (CUDA unless
-    ``device="cpu"``)."""
+    ``device="cpu"``); ``shards`` > 0 adds a shard axis after the layer axis
+    (a TP plan's sharded attention: one cache per shard)."""
     device = resolve_device(device)
     dtype = compute_dtype(cfg) if dtype is None else dtype
+    extra = (shards,) if shards else ()
     return [
-        blocks.init_attn_cache(cfg, batch, seq_len, dtype, device, lead=(count,))
+        blocks.init_attn_cache(cfg, batch, seq_len, dtype, device, lead=(count, *extra))
         for _, count in segments_of(cfg)
     ]
 
@@ -208,13 +211,17 @@ def supports_paged(cfg: ArchConfig) -> bool:
     return {k for k, _ in segments_of(cfg)} <= {"attn"}
 
 
-def init_paged_pools(cfg: ArchConfig, num_tokens: int, dtype=None, *, device=None) -> list:
+def init_paged_pools(cfg: ArchConfig, num_tokens: int, dtype=None, *, device=None,
+                     shards: int = 0) -> list:
     """Token-major physical KV pools, one stacked pool per segment: k/v
     (count, T, Hkv, hd) with T = num_blocks * page_size (CUDA unless
-    ``device="cpu"``)."""
+    ``device="cpu"``); ``shards`` > 0 gives (count, shards, T, Hkv, hd), one
+    pool per shard of a TP plan's sharded attention, all behind one block
+    table."""
     device = resolve_device(device)
     dtype = compute_dtype(cfg) if dtype is None else dtype
-    return [blocks.init_attn_pool(cfg, num_tokens, dtype, device, lead=(count,))
+    extra = (shards,) if shards else ()
+    return [blocks.init_attn_pool(cfg, num_tokens, dtype, device, lead=(count, *extra))
             for _, count in segments_of(cfg)]
 
 

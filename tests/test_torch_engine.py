@@ -349,10 +349,10 @@ def test_engine_prewarm_and_run(sides):
 def test_engine_validation(sides):
     side = sides["port"]
     cfg, params = side.cfg, side.params
-    with pytest.raises(NotImplementedError, match="A.15"):
-        teng.Engine(cfg, params, teng.EngineConfig(), tp=2)
-    with pytest.raises(NotImplementedError, match="A.15"):
-        teng.Engine(cfg, params, teng.EngineConfig(), tp_devices=["cuda:0", "cuda:1"])
+    # tensor parallelism (A.15): tp = 2 shards the MLP (gemma's one KV head
+    # keeps attention whole)
+    tp_eng = teng.Engine(cfg, params, teng.EngineConfig(), tp=2)
+    assert tp_eng._tp.mlp and not tp_eng._tp.attn and tp_eng.cfg_local.d_ff == cfg.d_ff // 2
     eng = side.engine(num_blocks=3)
     with pytest.raises(ValueError, match="max_seq_len"):
         eng.submit(teng.Request(rid=0, prompt=np.arange(20), max_new_tokens=20))

@@ -58,6 +58,14 @@ step's Gumbel noise for a sampled request, from a teacher-forced forward of
 the stream) is below ``NEAR_TIE``; and ``run_overcommit``'s integers in swap
 and recompute mode.
 
+The ``fleet_tolerance`` entry is the reference's
+``benchmarks/fleet_tolerance.run()`` at its settings: the fields of each
+section that do not depend on the wall clock
+(``benchmarks_torch.fleet_tolerance.WALL_FREE``), every request's status
+and tokens, and the TP rows' tokens.  The reference's ``launch/fleet.py``
+does not import on Python 3.11+ (ROADMAP C.1): the tool gives
+``FaultPolicy`` a hash while importing it, then takes it away again.
+
 ``--parts accuracy,trainer`` (any of the entry names) recomputes those
 entries alone and keeps the rest of the file.
 
@@ -575,6 +583,56 @@ def serve_faults_record() -> dict:
     return {"args": SERVE_FAULTS_ARGS, "lines": out.getvalue().splitlines()}
 
 
+def import_reference_fleet():
+    """``repro.launch.fleet``, imported with ``FaultPolicy.__hash__`` set
+    for the import alone: the frozen ``FleetConfig``'s class default
+    ``FaultPolicy(...)`` is a mutable default to dataclasses, which refuse
+    it unless it is hashable (C.1).  ``__hash__`` is None again after."""
+    import importlib
+
+    from repro.runtime import fault
+
+    fault.FaultPolicy.__hash__ = object.__hash__
+    try:
+        return importlib.import_module("repro.launch.fleet")
+    finally:
+        fault.FaultPolicy.__hash__ = None
+
+
+def fleet_tolerance_record(seed: int = 0) -> dict:
+    """The reference's fleet benchmark, its wall-clock-free fields."""
+    import numpy as np
+
+    import repro.parallel.tp as jtp
+    from benchmarks_torch import fleet_tolerance as tft
+
+    import_reference_fleet()
+    from benchmarks import fleet_tolerance as ft
+
+    summarize, tp_generate = ft._summarize, jtp.tp_generate
+    tp_tokens = []
+
+    def summarize_with_results(cfg, params, fleet, reqs, results, wall_s):
+        row = summarize(cfg, params, fleet, reqs, results, wall_s)
+        row["results"] = {str(r.rid): [r.status, [int(t) for t in r.tokens]] for r in results}
+        return row
+
+    def tp_generate_recorded(*args, **kw):
+        toks, tok_s = tp_generate(*args, **kw)
+        tp_tokens.append(np.asarray(toks).tolist())
+        return toks, tok_s
+
+    ft._summarize, jtp.tp_generate = summarize_with_results, tp_generate_recorded
+    try:
+        res = ft.run(seed=seed)
+    finally:
+        ft._summarize, jtp.tp_generate = summarize, tp_generate
+    for row, toks in zip(res["tp_scaling"], tp_tokens):
+        row["tokens"] = toks
+    return {"arch": res["arch"], "reduced": res["reduced"], "seed": seed,
+            **tft.wall_free(res)}
+
+
 def collect(max_elems: int, planner_max_elems: int, planner_layers: int, seed: int = 0,
             only: set | None = None) -> dict:
     import jax
@@ -608,6 +666,7 @@ def collect(max_elems: int, planner_max_elems: int, planner_layers: int, seed: i
         "integrity_scrub": lambda: integrity_scrub_record(seed),
         "serve_faults": serve_faults_record,
         "engine": lambda: engine_record(seed),
+        "fleet_tolerance": lambda: fleet_tolerance_record(seed),
     }
     if only is not None:
         if only - parts.keys():
