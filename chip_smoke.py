@@ -18,8 +18,10 @@ served from the fault-leveled bits and from drifted operands, and scrubbed
 and repaired after a fault storm; gemma-2b served by the
 continuous-batching engine, every dispatch a CUDA graph; and yi-6b and
 gemma-2b split over tensor-parallel shards, deployed over per-shard pools
-and served by fleets of engine replicas under chaos — and holds each
-hand-written kernel against its plain PyTorch version on the card.
+and served by fleets of engine replicas under chaos; and qwen2-moe-a2.7b
+(2 layers) planned and served from its bits with every expert stack one
+grouped kernel launch — and holds each hand-written kernel against its
+plain PyTorch version on the card.
 Phases (one line each, any failed check exits 1):
 
   1. card + build: name and power limit, the kernels built from csrc/;
@@ -143,8 +145,8 @@ Phases (one line each, any failed check exits 1):
      split: streams equal, a departure only at the reference's near ties;
      stats and shapes equal; run_overcommit's integers, the hot redeploy's
      and the engine scrub's counters equal); then gemma-2b at full width
-     (4 layers, bf16) planned as phase serve plans it and served by the
-     engine (8 slots, page 16, chunk 32, quantum 8) dense, packed (B2),
+     (ENGINE_LAYERS = 2 layers, bf16) planned as phase serve plans it and
+     served by the engine (8 slots, page 16, chunk 32, quantum 8) dense, packed (B2),
      const_rle through a pool (B4) and planes_int8 (B6 builds, B5 serves),
      fused and split, on a 32-request chat trace (prompts 8-96, gen 2-64,
      every fourth request sampled) with every arrival at 0.0: each stream
@@ -162,30 +164,48 @@ Phases (one line each, any failed check exits 1):
      engine_throughput.run at full width (static, split, fused, best of 3
      interleaved; latency and TTFT percentiles; graphs and their memory;
      the device-busy share of one traced fused and one static pass);
-  5j. tp-fleet: tensor parallelism and the fleet.  tp_generate of yi-6b at
-     full width (4 layers, bf16, packed) at n = 1, 2, 4 (plan_tp shards
+  5j. tp-fleet: tensor parallelism and the fleet, yi-6b and gemma-2b at
+     full width with the depth cut to TP_LAYERS = 2.  tp_generate of yi-6b
+     (bf16, packed) at n = 1, 2, 4 (plan_tp shards
      attention and MLP at each: 8 q / 1 KV head and K slices 1024 / 2752 at
-     4) and planes_int8 at n = 2, gemma-2b x4 packed and const_rle at n = 2
+     4) and planes_int8 at n = 2, gemma-2b packed and const_rle at n = 2
      (MQA attention replicated, its reason printed; the MLP's column shards
      on B4, its row shards on B2), each through the serve gates (graph ==
      eager loop, launches exact: a matmul once a shard of its component a
      step) and equal to solo generation, departures only at near ties;
      B2 / B5 on K- and N-sliced yi operands, B4 on an N-sliced const_rle
      one, B3 at yi's local heads, each within its bound of its plain
-     version; Engine(tp=2) on yi-6b x4 packed, fused and split, a 16-request
+     version; Engine(tp=2) on yi-6b packed, fused and split, a 16-request
      trace: streams equal to solo, fused equal to split, every dispatch a
-     graph replay with exact node counts; gemma-2b x4 planned over 2
+     graph replay with exact node counts; gemma-2b planned over 2
      per-shard pools (build_sharded_deployment) with every report and w_hat
      equal to the unsharded plan's and the summed wear equal to the
      unsharded pool's, then a ShardedScrub storm on two integrity pools
      scrubbed and repaired with the pre-storm tp=2 tokens; fleets of
-     gemma-2b x4 packed replicas on the card (kill 1 of 4 with and without
+     gemma-2b packed replicas on the card (kill 1 of 4 with and without
      host state, a 2 s stall hedged, admission past a 4-deep queue, 2
      replicas x 2 shards with a crash): every admitted request completed,
      streams equal to solo (near ties aside), a replica alive, launches
      from each engine's graph nodes x replays; fleet_tolerance at the
      reference's reduced settings, every wall-clock-free field equal to
      the golden file;
+  5k. moe: qwen2-moe-a2.7b at published width (d_model 2048, 16 heads, 60
+     routed experts allocated as 64 + 4 shared, top-4, d_expert 1408, vocab
+     151936, untied head), depth cut 24 -> 2: one stateless plan (the
+     [2, 64, 2048, 1408] expert stacks and the [2, 2048, 60] router planned
+     whole; the router re-planned on the CPU, report and w_hat equal)
+     served fp, dense, packed (B2) and planes_int8 (B6 builds, B5 serves),
+     then a const_rle plan through one pool served raw-packed (B2) and
+     const_rle (B4, tokens == raw-packed), each through the serve gates:
+     (11 x layers + 1) x gen CIM launches a generate (each expert stack's
+     three matmuls ONE grouped launch each), 10 x layers x gen on the
+     tensor cores, B3 = layers, prefill logits within dense's bound; peak
+     memory printed.  Then the grouped B2, B4 (~50% zero tiles) and B5 at
+     the expert shapes (G 64, M 8 and 11, K x N 2048 x 1408 and 1408 x
+     2048, bf16 and f32 x): one launch each, within the bound of the plain
+     version, bit-equal to 64 single launches on the same launch plan, B4
+     == B2; timed (bf16, wi_gate's shape) beside 64 single launches,
+     torch.bmm on dense bf16 weights and the byte bound;
   6. kernels: time, bound (the bf16 tensor-core rate for the tensor-core
      paths, the f32 rate for the FMA kernels), plain-version and library
      times; B2, B3 and B5 on both paths, B2 with plane gains at decode (f32
@@ -193,14 +213,16 @@ Phases (one line each, any failed check exits 1):
 
 The line before the last is the kernels' JSON record (B1's launches are
 those of the gemma-2b plan and the figures, train, accuracy, offset-binary,
-bench-extra, faults, engine and tp-fleet phases; B2's, B4's and B5's those
+bench-extra, faults, engine, tp-fleet and moe phases; B2's, B4's and B5's those
 of gemma's packed, const_rle and planes_int8 generates plus the
-offset-binary, bench-extra, faults, engine and tp-fleet phases' (B2's
+offset-binary, bench-extra, faults, engine and tp-fleet and moe phases' (B2's
 ``launches_gain`` those with plane gains; the engines' from their graphs'
-nodes x replays plus each capture's warm-up run); B3's those of yi-6b's
-generate and the accuracy, offset-binary, bench-extra, faults, engine and
-tp-fleet phases; B6's yi-6b's, the offset-binary, the faults, the engine
-and the tp-fleet deployments');
+nodes x replays plus each capture's warm-up run; ``launches_moe`` the moe
+phase's, and ``grouped_m8`` / ``grouped_m11`` the grouped launch's times
+at the expert shapes); B3's those of yi-6b's generate and the accuracy,
+offset-binary, bench-extra, faults, engine, tp-fleet and moe phases; B6's
+yi-6b's, the offset-binary, the faults, the engine, the tp-fleet and the
+moe deployments');
 the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
 ``python3 chip_smoke.py`` (needs one CUDA card; fails without one).
@@ -2206,6 +2228,7 @@ ENGINE_CFG = dict(max_slots=8, page_size=16, max_seq_len=160, prefill_chunk=32, 
 ENGINE_TRACE = dict(n_requests=32, min_prompt=8, max_prompt=96, min_gen=2, max_gen=64, seed=0,
                     sample_every=4)
 ENGINE_PASSES = 3
+ENGINE_LAYERS = 2  # depth of phase engine's gemma-2b: the run's time limit bounds it
 ENGINE_M = (1, 2, 4, 8, 16, 32, 64, 128, 256)  # the CIM kernels' bucketed row counts
 ENGINE_CHUNKS = (1, 2, 4, 8, 16, 32)  # B3's bucketed query widths (the fused chunk stage)
 ENGINE_PAGES = (1, 2, 4, 8, 13)  # page buckets of ENGINE_CFG (max_pages 13)
@@ -2547,8 +2570,8 @@ def engine_golden_phase(dev) -> dict:
 
 
 def engine_phase(dev) -> dict:
-    """gemma-2b at full width (LAYERS layers, bf16), planned as phase serve
-    plans it, served by the continuous-batching engine four ways (dense,
+    """gemma-2b at full width (ENGINE_LAYERS layers, bf16), planned as phase
+    serve plans it, served by the continuous-batching engine four ways (dense,
     packed on B2, const_rle through a pool on B4, planes_int8 built by B6 and
     served by B5), fused and split, on ENGINE_TRACE with every arrival at
     0.0: streams equal to solo generation and fused equal to split (a
@@ -2576,7 +2599,7 @@ def engine_phase(dev) -> dict:
                 totals[k] = totals.get(k, 0) + v
 
     add({"B1": engine_golden_phase(dev)["B1"]})  # its plans' and repairs' pricing
-    cfg = dataclasses.replace(get_arch("gemma-2b"), n_layers=LAYERS)
+    cfg = dataclasses.replace(get_arch("gemma-2b"), n_layers=ENGINE_LAYERS)
     params = api.init(prng.PRNGKey(0), cfg, device=dev)
     spec = planner.CrossbarSpec()
     reset_counts()
@@ -2664,14 +2687,16 @@ def engine_phase(dev) -> dict:
     say(f"phase engine-overcommit: {time.perf_counter() - t_part:.1f} s")
 
     t_part = time.perf_counter()
-    res = et.run("gemma-2b", reduced=False, layers=LAYERS, params=p_packed, passes=ENGINE_PASSES,
+    res = et.run("gemma-2b", reduced=False, layers=ENGINE_LAYERS, params=p_packed,
+                 passes=ENGINE_PASSES,
                  overcommit=False, device=dev, rate=500.0, page_size=ENGINE_CFG["page_size"],
                  prefill_chunk=ENGINE_CFG["prefill_chunk"],
                  decode_quantum=ENGINE_CFG["decode_quantum"], max_slots=ENGINE_CFG["max_slots"],
                  **ENGINE_TRACE)
     for name in ("static", "engine_split", "engine"):
         r = res[name]
-        say(f"phase engine-throughput: gemma-2b x{LAYERS} packed {name}: {r['tok_s']:.1f} tok/s, "
+        say(f"phase engine-throughput: gemma-2b x{ENGINE_LAYERS} packed {name}: "
+            f"{r['tok_s']:.1f} tok/s, "
             f"latency p50 {r['p50_latency_ms']:.1f} / p95 {r['p95_latency_ms']:.1f} ms, TTFT p50 "
             f"{r['p50_ttft_ms']:.1f} / p95 {r['p95_ttft_ms']:.1f} ms"
             + (f"; dispatches fused {r['fused_dispatches']}, prefill {r['prefill_dispatches']}, "
@@ -2695,6 +2720,7 @@ def engine_phase(dev) -> dict:
 
 
 TP_COUNTS = (1, 2, 4)  # yi-6b's tp_generate shard counts
+TP_LAYERS = 2  # depth of phase tp-fleet's yi-6b and gemma-2b: the run's time limit bounds it
 TP_ENGINE_TRACE = dict(n_requests=16, min_prompt=8, max_prompt=96, min_gen=2, max_gen=64, seed=0,
                        sample_every=4)
 TP_STORM = dict(corrupt_rate=5e-6, stuck_rate=1e-7)  # on two tensors of each shard pool
@@ -2871,11 +2897,12 @@ def check_tp_kernels(dev, ycfg, plan4, y_packed, y_int8) -> dict:
 
 def tp_fleet_phase(dev) -> dict:
     """Tensor-parallel replicas and the fleet on the card: tp_generate of
-    yi-6b x4 (bf16, packed) at n = 1, 2, 4 and planes_int8 at n = 2, gemma-2b
-    x4 packed and const_rle at n = 2 (attention replicated, MLP sharded),
+    yi-6b (TP_LAYERS layers, bf16, packed) at n = 1, 2, 4 and planes_int8 at
+    n = 2, gemma-2b (TP_LAYERS) packed and const_rle at n = 2 (attention
+    replicated, MLP sharded),
     each through the serve gates and equal to solo generation (near ties
-    aside); the kernels at shard shapes; Engine(tp=2) on yi-6b x4 packed;
-    fleets of gemma-2b x4 packed replicas on the card (kill one of 4 both
+    aside); the kernels at shard shapes; Engine(tp=2) on yi-6b packed;
+    fleets of gemma-2b packed replicas on the card (kill one of 4 both
     ways, a hedged stall, admission, 2 replicas of 2 shards); the sharded
     deployment over 2 pools against the unsharded one and a ShardedScrub
     storm; fleet_tolerance at the reference's reduced settings against the
@@ -2903,8 +2930,8 @@ def tp_fleet_phase(dev) -> dict:
             if k != "plain":
                 totals[k] = totals.get(k, 0) + v
 
-    # --- yi-6b x4: tp_generate at n = 1, 2, 4 (packed), planes_int8 at n = 2
-    ycfg = dataclasses.replace(get_arch("yi-6b"), n_layers=YI_LAYERS)
+    # --- yi-6b: tp_generate at n = 1, 2, 4 (packed), planes_int8 at n = 2
+    ycfg = dataclasses.replace(get_arch("yi-6b"), n_layers=TP_LAYERS)
     yparams = api.init(prng.PRNGKey(0), ycfg, device=dev)
     spec, pcfg = planner.CrossbarSpec(), planner.PlannerConfig(p_stuck=P_STUCK)
     reset_counts()
@@ -2943,7 +2970,7 @@ def tp_fleet_phase(dev) -> dict:
     say(f"phase tp-fleet: yi-6b tp_generate and shard-shape kernels "
         f"{time.perf_counter() - t_phase:.1f} s after the phase started")
 
-    # --- Engine(tp=2) on yi-6b x4 packed -------------------------------------
+    # --- Engine(tp=2) on yi-6b packed -------------------------------------
     t_part = time.perf_counter()
     requests = et.parity_requests(et.make_trace(ycfg, **TP_ENGINE_TRACE))
     gates, runs, mem = [], {}, {}
@@ -2974,9 +3001,9 @@ def tp_fleet_phase(dev) -> dict:
     del y_packed
     torch.cuda.empty_cache()
 
-    # --- gemma-2b x4: the sharded deployment, tp_generate at n = 2 ------------
+    # --- gemma-2b: the sharded deployment, tp_generate at n = 2 ------------
     t_part = time.perf_counter()
-    gcfg = dataclasses.replace(get_arch("gemma-2b"), n_layers=LAYERS)
+    gcfg = dataclasses.replace(get_arch("gemma-2b"), n_layers=TP_LAYERS)
     gparams = api.init(prng.PRNGKey(0), gcfg, device=dev)
 
     class Pristine(CrossbarPool):
@@ -3003,7 +3030,7 @@ def tp_fleet_phase(dev) -> dict:
     if sum(wear) != int(solo_pool.wear.sum()) or c["plain"] or not c["B1"]:
         fail(f"sharded deployment: shard pools' wear {wear} against the unsharded pool's "
              f"{int(solo_pool.wear.sum())} (launches {c})")
-    say(f"phase tp-deploy: gemma-2b x{LAYERS} over 2 pools: {len(owner)} tensors "
+    say(f"phase tp-deploy: gemma-2b x{TP_LAYERS} over 2 pools: {len(owner)} tensors "
         f"({sum(1 for v in owner.values() if v == 0)} / {sum(1 for v in owner.values() if v)}), "
         f"every report and w_hat equal to the unsharded plan's; summed wear {sum(wear)} = "
         f"{wear} = the unsharded pool's; B1 {c['B1']}; {time.perf_counter() - t_part:.1f} s")
@@ -3064,7 +3091,7 @@ def tp_fleet_phase(dev) -> dict:
     del mgrs, ipools, iplan, p_clean, p_rep, scrub
     torch.cuda.empty_cache()
 
-    # --- fleets of gemma-2b x4 packed replicas on the one card -----------------
+    # --- fleets of gemma-2b packed replicas on the one card -----------------
     t_part = time.perf_counter()
     solo_cache = {}
 
@@ -3184,6 +3211,392 @@ def tp_fleet_phase(dev) -> dict:
     say(f"phase tp-fleet: {time.perf_counter() - t_phase:.1f} s; launches {totals}; max |d| at "
         f"shard shapes {errs}")
     return {**totals, "err": errs}
+
+
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_LAYERS = 2  # depth cut 24 -> 2, the only cut
+MOE_M = (8, 11)  # expert-buffer rows: decode capacity (t = 4) and prefill capacity (t = 128)
+MOE_SHAPES = ((2048, 1408), (1408, 2048))  # K x N of wi_gate / wi_up, and of wo
+MOE_ROUTER = "segments/0/moe/router"  # the tensor re-planned on the CPU
+
+
+def moe_prefill(cfg, params, batch) -> dict:
+    """bf16 and f32 prefill logits of ``params`` and the experts every MoE
+    layer routed each prompt token to (``moe._route``'s top-k, recorded)."""
+    import torch
+
+    from repro_torch.models import api, moe
+
+    out = {}
+    real = moe._route
+    for dtype_name in ("bfloat16", "float32"):
+        picks = []
+
+        def record(*args):
+            got = real(*args)
+            picks.append(torch.sort(got[1], dim=-1).values)
+            return got
+
+        moe._route = record
+        try:
+            with torch.inference_mode():
+                logits, _ = api.prefill(params, dataclasses.replace(cfg, dtype=dtype_name), batch)
+        finally:
+            moe._route = real
+        if not torch.isfinite(logits).all():
+            fail(f"non-finite {dtype_name} prefill logits")
+        out[dtype_name] = (logits, picks)
+    return out
+
+
+def moe_logit_check(got: dict, want: dict, label: str, gate: tuple) -> None:
+    """Prefill logits of two deployments (``moe_prefill``), with the tokens
+    whose expert set differs in any layer.  ``gate`` names the compute
+    dtypes held to the bound (F32_LOGIT_RTOL / BF16_LOGIT_RTOL of the
+    largest |logit|); the others are printed.  A MoE layer's routing is
+    discrete: dense rounds w_hat to bf16 in bf16 compute, and a token whose
+    top-k set flips takes other experts' outputs, so bf16 against dense is
+    printed with its flips, and the bf16 gate compares two deployments that
+    both compute on the exact w_hat."""
+    for dtype_name, rtol in (("bfloat16", BF16_LOGIT_RTOL), ("float32", F32_LOGIT_RTOL)):
+        (lg, pg), (lw, pw) = got[dtype_name], want[dtype_name]
+        d = (lg - lw).abs().max().item()
+        lim = rtol * lw.abs().max().item()
+        flips = sum(int((a != b).any(dim=-1).sum()) for a, b in zip(pg, pw))
+        held = dtype_name in gate
+        say(f"phase logits: {MOE_ARCH} {dtype_name} prefill {label} max |d| {d:.4e} (bound "
+            f"{rtol:g} * max|logit| = {lim:.4e}{'' if held else ', printed'}); tokens whose "
+            f"expert set differs, summed over layers: {flips} of {sum(len(a) for a in pw)}")
+        if held and d > lim:
+            fail(f"{dtype_name} prefill logits of {label} differ by {d:.4e}")
+
+
+def moe_stacks(dev, k, n, seed):
+    """qwen2-moe-a2.7b-sized expert stacks of one matmul (G = n_alloc = 64):
+    packed operands with every tile live, the same with about half of the
+    (plane, 128-row) tiles zero (const_rle flags), int8 planes, and the
+    dense bf16 weights of the first (``torch.bmm``'s operand)."""
+    import torch
+
+    from repro_torch.core import planes, simulator
+
+    g_ = 64
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randint(0, 1024, (g_, k, n), dtype=torch.int32, device=dev, generator=gen)
+    s = torch.where(torch.rand(g_, k, n, device=dev, generator=gen) < 0.5, -1, 1).to(torch.int8)
+    scale = 0.02 / 1023 * (1 + torch.arange(g_, dtype=torch.float32, device=dev) / g_)
+    zero = torch.zeros(g_, device=dev)
+    packed = simulator.packed_operands(q, s, scale, zero, 10)
+    rle = dict(packed)
+    dead = torch.rand(g_, 10, -(-k // 128), device=dev, generator=gen) < 0.5
+    rows = dead.repeat_interleave(16, dim=-1)[..., : packed["planes_packed"].shape[-2]]
+    rle["planes_packed"] = packed["planes_packed"] * (~rows)[..., None]
+    rle = planes.encode_operands(rle, "const_rle")
+    int8 = simulator.int8_plane_operands(q, s, scale, 0.0, 10)
+    dense = (q.float() * s.float() * scale[:, None, None]).to(torch.bfloat16)
+    return packed, rle, int8, dense
+
+
+def check_moe_kernels(dev) -> dict:
+    """The grouped launches at qwen2-moe-a2.7b's expert shapes (G 64, M in
+    MOE_M, K x N in MOE_SHAPES, bf16 and f32 x): B2, B4 (about 50% zero
+    tiles) and B5 each ONE launch, within 2 * eps * K * (|x| @ |w|) of its
+    plain version, equal to 64 single launches bit for bit where both take
+    the same launch plan (else within twice the bound), B4 == B2 on the same
+    bits.  Then, bf16 x at M in MOE_M on wi_gate's shape: the grouped
+    launch, the same work as 64 single launches, the plain version and
+    ``torch.bmm`` on dense bf16 [64, K, N] weights, timed, beside the byte
+    bound.  Returns max |d| by kernel and the timing records."""
+    import torch
+
+    from repro_torch.core import planes
+    from repro_torch.kernels.cim_matmul import ops as cim_ops
+    from repro_torch.kernels.cim_matmul import ref as cim_ref
+
+    t0 = time.perf_counter()
+    eps = torch.finfo(torch.float32).eps
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(5)
+    err = {"B2": 0.0, "B4": 0.0, "B5": 0.0}
+    n_cases, n_same = 0, 0
+    records = {}
+
+    def packed_call(op, flags):
+        def call(x, i=None):
+            pick = (lambda v: v) if i is None else (lambda v: v[i])
+            return cim_ops.cim_matmul_packed(
+                x if i is None else x[i], pick(op["planes_packed"]), pick(op["sign_packed"]),
+                pick(op["scale"]), tile_nz=pick(op["plane_tile_nz"]) if flags else None)
+        return call
+
+    def planes_call(op):
+        def call(x, i=None):
+            if i is None:
+                return cim_ops.cim_matmul(x, op["splanes"], op["scale"])
+            return cim_ops.cim_matmul(x[i], op["splanes"][i], op["scale"][i])
+        return call
+
+    for k, n in MOE_SHAPES:
+        packed, rle, int8, dense = moe_stacks(dev, k, n, k + n)
+        w_abs = {"B2": cim_ref.unpack_weights(packed["planes_packed"], packed["sign_packed"], k)
+                 .abs() * packed["scale"][:, None, None],
+                 "B4": cim_ref.unpack_weights(rle["planes_packed"], rle["sign_packed"], k)
+                 .abs() * rle["scale"][:, None, None]}
+        w_abs["B5"] = w_abs["B2"]
+        kernels = {"B2": (packed_call(packed, False), lambda x: cim_ref.cim_matmul_packed(
+                       x, packed["planes_packed"], packed["sign_packed"], packed["scale"])),
+                   "B4": (packed_call(rle, True), lambda x: cim_ref.cim_matmul_packed(
+                       x, rle["planes_packed"], rle["sign_packed"], rle["scale"])),
+                   "B5": (planes_call(int8), lambda x: cim_ref.cim_matmul(
+                       x, int8["splanes"], int8["scale"]))}
+        for m in MOE_M:
+            for dtype in (torch.bfloat16, torch.float32):
+                x = torch.randn(64, m, k, device=dev, generator=gen).to(dtype)
+                tc = dtype == torch.bfloat16
+                for name, (call, plain) in kernels.items():
+                    reset_counts()
+                    got = call(x)
+                    c = counts()
+                    want_c = {name: 1, **({f"{name}_tc": 1} if tc else {})}
+                    if {k_: v for k_, v in c.items() if v} != want_c:
+                        fail(f"grouped {name} {dtype} M={m} K={k} N={n} launched {c} "
+                             f"(want {want_c}: one launch for 64 experts)")
+                    single = torch.stack([call(x, i) for i in range(64)])
+                    want = plain(x)
+                    torch.cuda.synchronize()
+                    lim = B2_BOUND_C * eps * k * (x.float().abs() @ w_abs[name])
+                    d = (got - want).abs()
+                    if got.shape != (64, m, n) or not bool((d <= lim).all()):
+                        fail(f"grouped {name} {dtype} M={m} K={k} N={n} outside the bound of its "
+                             f"plain version: max |d| {d.max().item():.3e}")
+                    if name == "B5":
+                        plan = (lambda gr: cim_ops.tc_launch_plan(m, k, n, 10, sms, gr)) if tc \
+                            else (lambda gr: cim_ops.launch_plan(m, k, n, sms, 4, gr))
+                    else:
+                        plan = (lambda gr: cim_ops.tc_packed_launch_plan(m, k, n, sms, gr)) if tc \
+                            else (lambda gr: cim_ops.launch_plan(m, k, n, sms, groups=gr))
+                    same = plan(1) == plan(64)
+                    if same and not torch.equal(got, single):
+                        fail(f"grouped {name} {dtype} M={m} K={k} N={n} differs from 64 single "
+                             f"launches on the same plan {plan(1)}")
+                    if not same and not bool(((got - single).abs() <= 2 * lim).all()):
+                        fail(f"grouped {name} {dtype} M={m} K={k} N={n} outside twice the bound "
+                             f"of 64 single launches (plans {plan(64)} / {plan(1)})")
+                    if name == "B4":
+                        b2 = cim_ops.cim_matmul_packed(x, rle["planes_packed"],
+                                                       rle["sign_packed"], rle["scale"])
+                        if not torch.equal(got, b2):
+                            fail(f"grouped B4 differs from grouped B2 on the same bits at M={m}")
+                        del b2
+                    err[name] = max(err[name], d.max().item())
+                    n_cases += 1
+                    n_same += int(same)
+                del x
+        if (k, n) == MOE_SHAPES[0]:
+            # timings: bf16 x, the main path's dtype
+            for m in MOE_M:
+                x = torch.randn(64, m, k, device=dev, generator=gen).to(torch.bfloat16)
+                x_bytes, out_bytes, flops = 64 * m * k * 2, 64 * m * n * 4, 2 * 64 * m * k * n
+                library = cuda_ms(lambda: torch.bmm(x, dense))
+                for name, (call, plain) in kernels.items():
+                    ms = cuda_ms(lambda: call(x))
+                    singles = cuda_ms(lambda: [call(x, i) for i in range(64)], reps=5)
+                    plain_ms = cuda_ms(lambda: plain(x), reps=2, warmup=1)
+                    if name == "B2":
+                        w_bytes = 64 * 11 * (k // 8) * n
+                    elif name == "B4":
+                        w_bytes = sum(planes.operand_payload_bytes(
+                            {f: rle[f][i] for f in ("planes_packed", "sign_packed",
+                                                    "plane_tile_nz")})["total_bytes"]
+                            for i in range(64))
+                    else:
+                        w_bytes = 64 * 10 * k * n
+                    b, by = bound(x_bytes + w_bytes + out_bytes, flops, BF16_TC_FLOPS)
+                    records[f"{name} M={m}"] = dict(ms=ms, single_ms=singles, plain_ms=plain_ms,
+                                                    library_ms=library, bound_ms=b, bound_by=by,
+                                                    weight_bytes=w_bytes)
+                    say(f"phase moe-kernels: grouped {name} bf16 G=64 M={m} K={k} N={n}: "
+                        f"{ms:.4f} ms (bound {b:.4f} by {by}, weight bytes {w_bytes:,}); 64 "
+                        f"single launches {singles:.4f} ms; plain {plain_ms:.4f} ms; torch.bmm on "
+                        f"dense bf16 {library:.4f} ms")
+                del x
+        del packed, rle, int8, dense, w_abs, kernels
+        torch.cuda.empty_cache()
+    say(f"phase moe-kernels: {n_cases} grouped cases (B2, B4 at ~50% zero tiles, B5; G 64, M in "
+        f"{MOE_M}, K x N in {MOE_SHAPES}, bf16 and f32 x), each one launch, within "
+        f"{B2_BOUND_C}*eps*K*(|x|@|w|) of its plain version, bit-equal to 64 single launches in "
+        f"the {n_same} cases on the same launch plan (the rest within twice the bound), B4 == B2; "
+        f"max |d| {err}; {time.perf_counter() - t0:.1f} s")
+    return {"err": err, "records": records}
+
+
+def moe_phase(dev) -> dict:
+    """qwen2-moe-a2.7b at its published width with the depth cut to
+    MOE_LAYERS: one stateless plan (the router re-planned on the CPU) served
+    fp, dense, packed (B2) and planes_int8 (B6 builds, B5 serves), then a
+    const_rle plan through one pool served raw-packed (B2) and const_rle
+    (B4), every variant through the serve gates: the routed experts' three
+    matmuls ONE grouped launch each, (11 x layers + 1) x gen CIM launches a
+    generate, 10 x layers x gen of them on the tensor cores (the router's and
+    the head's f32 x take the FMA kernels).  Then the grouped kernels at the
+    expert shapes (check_moe_kernels).  Returns the phase's launches, max
+    |d| and the grouped timings."""
+    import torch
+
+    from repro_torch import prng, tree
+    from repro_torch.configs import get_arch
+    from repro_torch.core import planner, pool
+    from repro_torch.models import api
+
+    t_phase = time.perf_counter()
+    totals = {}
+
+    def add(c):
+        for k_, v in c.items():
+            if k_ != "plain":
+                totals[k_] = totals.get(k_, 0) + v
+
+    full = get_arch(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    m = cfg.moe
+    say(f"phase moe-plan: {MOE_ARCH} d_model={cfg.d_model} heads={cfg.n_heads} "
+        f"kv={cfg.n_kv_heads} head_dim={cfg.resolved_head_dim} vocab={cfg.vocab_size} "
+        f"{m.n_routed} routed experts (allocated {m.n_alloc}) + {m.n_shared} shared, "
+        f"top-{m.top_k}, "
+        f"d_expert={m.d_expert}, capacity factor {m.capacity_factor}, untied head; depth cut "
+        f"{full.n_layers} -> {MOE_LAYERS} layers (the only cut), p_stuck={P_STUCK}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init(prng.PRNGKey(0), cfg, device=dev)
+    torch.cuda.synchronize()
+    say(f"phase init: {MOE_ARCH} x{MOE_LAYERS} {api.param_count(params) / 1e6:.1f}M params "
+        f"({api.active_param_count(params, cfg) / 1e6:.1f}M active a token: top-{m.top_k} of "
+        f"{m.n_alloc} routed) from "
+        f"the reference's key in {time.perf_counter() - t0:.2f} s")
+    spec, pcfg = planner.CrossbarSpec(), planner.PlannerConfig(p_stuck=P_STUCK)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan = planner.build_deployment(params, spec, pcfg, device=dev)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    c = counts()
+    add(c)
+    for name, r in plan.reports.items():
+        say(f"  {name} {list(r.shape)}: sws {r.sws_speedup:.3f}x total {r.total_speedup:.3f}x "
+            f"({r.transitions_baseline} -> {r.transitions_sws} -> {r.transitions_final})")
+    tot = plan.totals()
+    n_planned = sum(r.n_weights for r in plan.reports.values())
+    say(f"phase moe-plan: {len(plan.reports)} tensors ({n_planned / 1e9:.3f}G weights) in "
+        f"{plan_s:.2f} s; sws {tot['sws_speedup']:.4f}x total "
+        f"{tot['total_speedup']:.4f}x; B1 launches {c['B1']}; peak CUDA memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if c["B1"] <= 0 or any(c[k_] for k_ in c if k_ not in ("B1", "plain")) or c["plain"]:
+        fail(f"{MOE_ARCH} plan launched {c}")
+    stacks = [f"segments/0/moe/{w}" for w in ("router", "wi_gate", "wi_up", "wo")]
+    if not set(stacks) <= set(plan.reports) or "head/w" not in plan.reports:
+        fail(f"{MOE_ARCH}: the router, the expert stacks or the head were not planned")
+    key = planner.tensor_keys(params, pcfg)[MOE_ROUTER]
+    w_cpu = dict(planner.iter_weights(params, pcfg))[MOE_ROUTER].cpu()
+    r_cpu, w_hat_cpu = planner.analyze_tensor(w_cpu, spec, pcfg, key, name=MOE_ROUTER)
+    same_report(plan.reports[MOE_ROUTER], r_cpu, f"{MOE_ARCH} {MOE_ROUTER}")
+    if plan.deployed[MOE_ROUTER].cpu().numpy().tobytes() != w_hat_cpu.numpy().tobytes():
+        fail(f"CPU plan of {MOE_ARCH} {MOE_ROUTER} deploys other w_hat bytes")
+    say(f"phase moe-plan-cpu: {MOE_ROUTER} {list(w_cpu.shape)} planned on the CPU: report "
+        f"equal, w_hat bytes identical")
+
+    batch = api.make_batch(cfg, prng.PRNGKey(0), BATCH, PROMPT, device=dev)
+    # per forward: q, k, v, o, the router, the shared GLU's 3 and the routed
+    # experts' 3 (one grouped launch each) a layer, and the planned head
+    want = (11 * MOE_LAYERS + 1) * GEN
+    want_tc = 10 * MOE_LAYERS * GEN  # the router's and the head's f32 x take the FMA kernels
+    say(f"phase moe-serve: launch formula per generate: (11 x {MOE_LAYERS} + 1) x {GEN} = {want} "
+        f"CIM launches (q, k, v, o, router, shared wi_gate / wi_up / wo, and the expert stacks' "
+        f"wi_gate / wi_up / wo as one grouped launch each, a layer; the head), 10 x {MOE_LAYERS} "
+        f"x {GEN} = {want_tc} on the tensor cores; B3 = {MOE_LAYERS} a prefill")
+    tps, toks = {}, {}
+    toks["fp"], tps["fp"], _, c = served(f"{MOE_ARCH} fp", cfg, params, batch, GEN, None, 0)
+    add(c)
+    p_dense = planner.deploy_params(params, plan, materialize="dense")
+    toks["dense"], tps["dense"], _, c = served(f"{MOE_ARCH} dense", cfg, p_dense, batch, GEN,
+                                               None, 0)
+    add(c)
+    p_packed = planner.deploy_params(params, plan, materialize="packed")
+    op = p_packed["segments"][0]["moe"]["wi_gate"]
+    say(f"phase moe-deploy: segments/0/moe/wi_gate operands: planes "
+        f"{list(op['planes_packed'].shape)}, scale {list(op['scale'].shape)} (layer, expert)")
+    toks["packed"], tps["packed"], timed, c = served(f"{MOE_ARCH} packed", cfg, p_packed, batch,
+                                                     GEN, "B2", want, want_tc=want_tc)
+    add(c)
+    say(f"phase trace: {MOE_ARCH} cim-packed generate: {trace(timed)}")
+    pf = {"dense": moe_prefill(cfg, p_dense, batch), "packed": moe_prefill(cfg, p_packed, batch)}
+    moe_logit_check(pf["packed"], pf["dense"], "packed vs dense", ("float32",))
+    del timed, p_packed, op
+    torch.cuda.empty_cache()
+    p_int8, c6 = deploy_int8(params, plan)
+    add(c6)
+    int8_gb = sum(v["splanes"].numel() for v in _operand_dicts(p_int8)) / 1e9
+    toks["planes_int8"], tps["planes_int8"], timed, c = served(
+        f"{MOE_ARCH} planes_int8", cfg, p_int8, batch, GEN, "B5", want, want_tc=want_tc)
+    add(c)
+    say(f"phase trace: {MOE_ARCH} cim-planes_int8 generate: {trace(timed)}")
+    pf["planes_int8"] = moe_prefill(cfg, p_int8, batch)
+    moe_logit_check(pf["planes_int8"], pf["dense"], "planes_int8 vs dense", ("float32",))
+    moe_logit_check(pf["planes_int8"], pf["packed"], "planes_int8 vs packed (both exact w_hat)",
+                    ("bfloat16", "float32"))
+    del pf
+    say(f"phase moe-serve: {int8_gb:.2f} GB of int8 planes built by {c6['B6']} B6 launches; peak "
+        f"CUDA memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del timed, p_int8, p_dense, plan
+    torch.cuda.empty_cache()
+
+    # const_rle through one persistent pool: the same bits served raw (B2) and flagged (B4)
+    pcfg_pool = planner.PlannerConfig(p_stuck=P_STUCK, codec=CODEC)
+    xbars = pool.CrossbarPool(spec, pcfg_pool.crossbars, device=dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    pool_plan = planner.build_deployment(params, spec, pcfg_pool, pool=xbars, device=dev)
+    torch.cuda.synchronize()
+    pool_s = time.perf_counter() - t0
+    c = counts()
+    add(c)
+    stats = xbars.stats()
+    ptot = pool_plan.totals()
+    say(f"phase moe-plan-pool: {len(pool_plan.reports)} tensors through a "
+        f"{xbars.n_crossbars}-crossbar pool, codec {CODEC}, in {pool_s:.2f} s; sws "
+        f"{ptot['sws_speedup']:.4f}x total {ptot['total_speedup']:.4f}x; B1 launches {c['B1']}; "
+        f"pool wear max cell {stats.max_cell_writes}, total {stats.total_writes}")
+    if c["B1"] <= 0 or any(c[k_] for k_ in c if k_ not in ("B1", "plain")) or c["plain"]:
+        fail(f"{MOE_ARCH} pool plan launched {c}")
+    if stats.total_writes != sum(r.transitions_final for r in pool_plan.reports.values()):
+        fail("pool wear does not sum to the programmed transitions")
+    p_raw = planner.deploy_params(params, pool_plan, materialize="packed", codec="raw")
+    p_rle = planner.deploy_params(params, pool_plan, materialize="packed", codec=CODEC)
+    experts = p_rle["segments"][0]["moe"]["wi_gate"]
+    live = int(experts["plane_tile_nz"].sum())
+    flags = experts["plane_tile_nz"]
+    say(f"phase moe-deploy: {CODEC} expert stack segments/0/moe/wi_gate: per-expert tile flags "
+        f"{list(flags.shape)}, live tiles {live}/{flags.numel()}")
+    toks["raw_pool"], tps["packed (pool plan)"], _, c = served(
+        f"{MOE_ARCH} packed (pool plan)", cfg, p_raw, batch, GEN, "B2", want, want_tc=want_tc)
+    add(c)
+    toks["rle"], tps[f"packed {CODEC}"], _, c = served(
+        f"{MOE_ARCH} packed {CODEC}", cfg, p_rle, batch, GEN, "B4", want, want_tc=want_tc)
+    add(c)
+    if not torch.equal(toks["rle"], toks["raw_pool"]):
+        fail(f"{MOE_ARCH} {CODEC} tokens differ from raw-packed tokens of the same plan")
+    agree = {k_: (toks[k_] == toks["dense"]).float().mean().item()
+             for k_ in ("fp", "packed", "planes_int8")}
+    say(f"phase moe-serve: batch {BATCH} prompt {PROMPT} gen {GEN} greedy bf16, graph tok/s "
+        + ", ".join(f"{k_} {v:.1f}" for k_, v in tps.items())
+        + f"; {CODEC} tokens == raw-packed tokens; token agreement with dense {agree}; peak CUDA "
+        f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del p_raw, p_rle, experts, flags, pool_plan, params, xbars
+    torch.cuda.empty_cache()
+
+    kern = check_moe_kernels(dev)
+    say(f"phase moe: {time.perf_counter() - t_phase:.1f} s; launches {totals}")
+    return {**totals, "err": kern["err"], "records": kern["records"]}
 
 
 def main() -> None:
@@ -3612,6 +4025,10 @@ def main() -> None:
     tf = tp_fleet_phase(dev)
     te = tf.pop("err")
 
+    # --- 5k. the MoE family: qwen2-moe-a2.7b, grouped expert launches -----------
+    mo = moe_phase(dev)
+    me, moe_rec = mo.pop("err"), mo.pop("records")
+
     # --- 6. kernels: time, bound, plain, library -------------------------------
     t = 1 << 20
     pairs = [tuple(torch.randint(0, 256, (t, 16, 10), dtype=torch.uint8, device=dev, generator=g)
@@ -3752,57 +4169,77 @@ def main() -> None:
 
     rec_b3, rec_b6 = time_attention(dev), time_bitslice(dev)
 
-    def row(name, source, replaces, launches, err, rec, launches_tc=None):
+    def row(name, source, replaces, launches, err, rec, launches_tc=None, grouped=None):
         """One kernel's record; ``launches_tc``: how many of the main path's
-        launches took its tensor-core kernel (where it has one)."""
+        launches took its tensor-core kernel (where it has one); ``grouped``:
+        the kernel's name in the MoE phase, whose grouped launches (bf16 x,
+        G 64, M in MOE_M, qwen's wi_gate shape) add their times."""
         r = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "launches": launches, "max_abs_err": err, "ms": rec["ms"],
              "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
              "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
         if launches_tc is not None:
             r["launches_tc"] = launches_tc
+        if grouped is not None:
+            r["launches_moe"] = mo.get(grouped, 0)
+            for m in MOE_M:
+                g_rec = moe_rec[f"{grouped} M={m}"]
+                r[f"grouped_m{m}"] = {k_: g_rec[k_] for k_ in (
+                    "ms", "single_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
         return r
 
     kernels = [
         row("hamming_pairs", "src/repro_torch/csrc/hamming.cu",
             "src/repro/kernels/hamming/kernel.py:32",
             b1_plan + figs["B1"] + trained["B1"] + acc["B1"] + ob["B1"] + bx["B1"] + fl["B1"]
-            + en.get("B1", 0) + tf.get("B1", 0), b1_err,
+            + en.get("B1", 0) + tf.get("B1", 0) + mo.get("B1", 0), b1_err,
             dict(ms=b1_ms, plain_ms=b1_plain, bound_ms=b1_bound, bound_by="bytes",
                  library_ms=None)),
         {**row("cim_matmul_packed", "src/repro_torch/csrc/cim_matmul.cu",
                "src/repro/kernels/cim_matmul/kernel.py:242",
-               b2_launches + ob["B2"] + bx["B2"] + fl["B2"] + en.get("B2", 0) + tf.get("B2", 0),
-               max(b2_err, ee["B2"], te["B2"]), records["decode"],
+               b2_launches + ob["B2"] + bx["B2"] + fl["B2"] + en.get("B2", 0) + tf.get("B2", 0)
+               + mo.get("B2", 0),
+               max(b2_err, ee["B2"], te["B2"], me["B2"]), records["decode"],
                b2_tc + ob["B2_tc"] + bx["B2_tc"] + fl["B2_tc"] + en.get("B2_tc", 0)
-               + tf.get("B2_tc", 0)),
+               + tf.get("B2_tc", 0) + mo.get("B2_tc", 0), grouped="B2"),
          "launches_gain": fl["B2_gain"],
          **{k: v for k, v in records["decode"].items() if k.startswith("gain_")}},
         row("cim_matmul_packed_skip", "src/repro_torch/csrc/cim_matmul.cu",
             "src/repro/kernels/cim_matmul/kernel.py:193",
-            b4_launches + ob["B4"] + bx["B4"] + en.get("B4", 0) + tf.get("B4", 0),
-            max(b4_err, ee["B4"], te["B4"]), records["B4 decode"],
-            b4_tc + ob["B4_tc"] + bx["B4_tc"] + en.get("B4_tc", 0) + tf.get("B4_tc", 0)),
+            b4_launches + ob["B4"] + bx["B4"] + en.get("B4", 0) + tf.get("B4", 0)
+            + mo.get("B4", 0),
+            max(b4_err, ee["B4"], te["B4"], me["B4"]), records["B4 decode"],
+            b4_tc + ob["B4_tc"] + bx["B4_tc"] + en.get("B4_tc", 0) + tf.get("B4_tc", 0)
+            + mo.get("B4_tc", 0), grouped="B4"),
         row("cim_matmul_planes", "src/repro_torch/csrc/cim_planes.cu",
             "src/repro/kernels/cim_matmul/kernel.py:74",
-            b5_launches + ob["B5"] + fl["B5"] + en.get("B5", 0) + tf.get("B5", 0),
-            max(b5_err, ee["B5"], te["B5"]), records["B5 decode"],
-            b5_tc + ob["B5_tc"] + fl["B5_tc"] + en.get("B5_tc", 0) + tf.get("B5_tc", 0)),
+            b5_launches + ob["B5"] + fl["B5"] + en.get("B5", 0) + tf.get("B5", 0)
+            + mo.get("B5", 0),
+            max(b5_err, ee["B5"], te["B5"], me["B5"]), records["B5 decode"],
+            b5_tc + ob["B5_tc"] + fl["B5_tc"] + en.get("B5_tc", 0) + tf.get("B5_tc", 0)
+            + mo.get("B5_tc", 0), grouped="B5"),
         row("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/kernel.py:109",
             yi["B3"] + acc["B3"] + ob["B3"] + bx["B3"] + fl["B3"] + en.get("B3", 0)
-            + tf.get("B3", 0), max(b3_err, ee["B3"], te["B3"]), rec_b3,
+            + tf.get("B3", 0) + mo.get("B3", 0), max(b3_err, ee["B3"], te["B3"]), rec_b3,
             yi["B3_tc"] + ob["B3_tc"] + bx["B3_tc"] + fl["B3_tc"] + en.get("B3_tc", 0)
-            + tf.get("B3_tc", 0)),
+            + tf.get("B3_tc", 0) + mo.get("B3_tc", 0)),
         row("bitslice", "src/repro_torch/csrc/bitslice.cu",
             "src/repro/kernels/bitslice/kernel.py:35",
-            yi["B6"] + ob["B6"] + fl["B6"] + en.get("B6", 0) + tf.get("B6", 0), 0.0, rec_b6),
+            yi["B6"] + ob["B6"] + fl["B6"] + en.get("B6", 0) + tf.get("B6", 0) + mo.get("B6", 0),
+            0.0, rec_b6),
     ]
     say("kernels: " + ", ".join(
         f"{r['name']} launches={r['launches']}"
         + (f" launches_tc={r['launches_tc']}" if "launches_tc" in r else "")
         + (f" launches_gain={r['launches_gain']} gain_ms={r['gain_ms']:.4f}"
            f" gain_bound_ms={r['gain_bound_ms']:.4f}" if "launches_gain" in r else "")
+        + (f" launches_moe={r['launches_moe']}" + "".join(
+            f" grouped_m{m}_ms={r[f'grouped_m{m}']['ms']:.4f}"
+            f" (64 singles {r[f'grouped_m{m}']['single_ms']:.4f},"
+            f" bmm {r[f'grouped_m{m}']['library_ms']:.4f},"
+            f" bound {r[f'grouped_m{m}']['bound_ms']:.4f})" for m in MOE_M)
+           if "launches_moe" in r else "")
         + f" max_abs_err={r['max_abs_err']:.3e} "
         f"ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f}"
         + (f" library_ms={r['library_ms']:.4f}" if r["library_ms"] is not None else "")

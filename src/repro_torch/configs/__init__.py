@@ -1,12 +1,13 @@
 """Architecture configs served by the port + registry."""
-from repro_torch.configs.base import ArchConfig, get_arch, list_archs, register
+from repro_torch.configs.base import ArchConfig, MoEConfig, get_arch, list_archs, register
 
 # importing each module registers its config
 from repro_torch.configs import (  # noqa: F401  (registration side effect)
     gemma_2b,
     internlm2_1_8b,
     phi3_medium_14b,
+    qwen2_moe_a2_7b,
     yi_6b,
 )
 
-__all__ = ["ArchConfig", "get_arch", "list_archs", "register"]
+__all__ = ["ArchConfig", "MoEConfig", "get_arch", "list_archs", "register"]

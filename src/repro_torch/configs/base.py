@@ -1,13 +1,33 @@
 """Architecture config schema and registry (the port's own copy).
 
-Only the fields the ported decoder path reads are kept: the attention +
+Only the fields the ported decoder paths read are kept: the attention +
 gated-MLP (SwiGLU or GeGLU) decoder stack of ``block_pattern=(("attn", 1),)``
-families, and the tensor-parallel flags of ``parallel/tp.py``.
+families, the mixture-of-experts block of ``(("moe", 1),)`` families
+(``MoEConfig``, ``models/moe.py``), and the tensor-parallel flags of
+``parallel/tp.py``.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_routed: int
+    n_shared: int
+    top_k: int
+    d_expert: int  # per-expert FFN hidden dim
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    # Allocate expert weights padded to this count (> n_routed); routing
+    # never selects a padded expert, so they are dead weights that are
+    # planned and served all the same, as in the reference.
+    pad_experts_to: int | None = None
+
+    @property
+    def n_alloc(self) -> int:
+        return self.pad_experts_to or self.n_routed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,6 +46,7 @@ class ArchConfig:
     tie_embeddings: bool = False
     embed_scale: bool = False  # multiply embeddings by sqrt(d_model) (gemma)
     dtype: str = "bfloat16"
+    moe: Optional[MoEConfig] = None
     # sequence of (block_kind, repeat), expanded cyclically to n_layers
     block_pattern: tuple[tuple[str, int], ...] = (("attn", 1),)
     # --- tensor parallelism (parallel/tp.py) ---

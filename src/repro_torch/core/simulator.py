@@ -286,7 +286,11 @@ def prepare_linear(
 def cim_linear(x: torch.Tensor, operands: dict[str, torch.Tensor]) -> torch.Tensor:
     """y = x @ w_hat computed on the deployed planes -> f32[M, N].
 
-    x: [M, K] on the operands' device.  Int8 planes take kernel B5;
+    x: [M, K] on the operands' device; or grouped, x [G, M, K] against an
+    operand dict whose every entry leads with the group axis (``scale`` /
+    ``offset`` f32[G], ``plane_ids`` [G, cols], ``plane_tile_nz`` [G, cols,
+    T], ...: a MoE layer's expert stack) -> f32[G, M, N] from ONE grouped
+    kernel launch, the offset term per group.  Int8 planes take kernel B5;
     packed planes take B4 when they carry zero-tile flags and B2 otherwise,
     with ``plane_ids`` inside the kernel (plain versions on the CPU).  The
     rank-1 term ``sum(x) * offset`` is the offset encoding's digital
@@ -304,7 +308,7 @@ def cim_linear(x: torch.Tensor, operands: dict[str, torch.Tensor]) -> torch.Tens
         y = cim_ops.cim_matmul(x, operands["splanes"], operands["scale"])
     else:
         if "row_atten" in operands:
-            x = x * operands["row_atten"]
+            x = x * operands["row_atten"][..., None, :]
         masked = "stuck0_packed" in operands
         y = cim_ops.cim_matmul_packed(
             x, read_planes(operands), operands["sign_packed"], operands["scale"],
@@ -313,7 +317,8 @@ def cim_linear(x: torch.Tensor, operands: dict[str, torch.Tensor]) -> torch.Tens
         )
     if operands.get("encoding") == "sign_magnitude":
         return y
-    return y + torch.sum(x, dim=-1, keepdim=True, dtype=torch.float32) * operands["offset"]
+    offset = operands["offset"][..., None, None]  # per group; [1, 1] for one matmul
+    return y + torch.sum(x, dim=-1, keepdim=True, dtype=torch.float32) * offset
 
 
 # ---------------------------------------------------------------------------

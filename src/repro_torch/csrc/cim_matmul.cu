@@ -21,6 +21,15 @@
 //             tile is zero across all N
 //   scale     f32 scalar (device pointer)
 //   out       f32 [M, N]
+// Grouped launch (G >= 1 independent matmuls, the experts of a MoE layer):
+// every operand above gains a leading group axis ([G, M, K] x, [G, cols,
+// ceil(K/8), N] planes, [G] scale, [G, M, N] out, ...), all contiguous, and
+// blockIdx.z carries (group, M tile) as group * m_tiles + tile.  A block
+// offsets each base pointer by its group's stride (derived from M, K, N and
+// cols) once, then runs exactly the one-matmul code: a group computes what a
+// single launch of it with the same launch plan computes, bit for bit.  The
+// split-K workspace is [G, splits, M, N] and the reduce sums each group's
+// splits in order and scales by the group's scale.
 //
 // What bounds it: at decode (M = batch) the packed weight bytes,
 // (cols + 1) / 8 * K * N (B4: the flagged-live tiles only), over 3.35 TB/s;
@@ -165,12 +174,23 @@ cim_packed_kernel(const float* __restrict__ x, const uint8_t* __restrict__ plane
   __shared__ float xs[MT][kKChunk];
   const int n0 = (blockIdx.x * kThreads + threadIdx.x) * kCols;
   const int split = blockIdx.y;
-  const int m0 = blockIdx.z * MT;
+  const int m_tiles = (m_rows + MT - 1) / MT;
+  const int grp = blockIdx.z / m_tiles;
+  const int m0 = (blockIdx.z % m_tiles) * MT;
   const int k_begin = split * k_per_split;  // a multiple of 8
   const int k_end = min(k_dim, k_begin + k_per_split);
   const int k_bytes = (k_dim + 7) / 8;
   const int k_tiles = (k_bytes + 15) / 16;  // flags per plane (B4)
   const bool live = n0 < n_cols;
+  // this group's operands (grouped launch; group 0 of a single one)
+  x += (size_t)grp * m_rows * k_dim;
+  planes += (size_t)grp * cols * k_bytes * n_cols;
+  sign += (size_t)grp * k_bytes * n_cols;
+  if (kIds) plane_ids += (size_t)grp * cols;
+  if (kSkip) tile_nz += (size_t)grp * cols * k_tiles;
+  if (kGain) plane_gain += (size_t)grp * cols * n_cols;
+  scale += grp;
+  dst += (size_t)grp * gridDim.y * m_rows * n_cols;
 
   // stored plane b's bit position in the magnitude: b, or plane_ids[b]
   int weight_bit[COLS];
@@ -280,37 +300,40 @@ cim_packed_kernel(const float* __restrict__ x, const uint8_t* __restrict__ plane
   }
 }
 
-// out[i] = scale * sum_{s < splits} ws[s][i], summed in split order.
+// out[g][i] = scale[g] * sum_{s < splits} ws[g][s][i], summed in split order.
 __global__ void splitk_reduce_kernel(const float* __restrict__ ws,
                                      const float* __restrict__ scale,
-                                     float* __restrict__ out, int splits, long long mn) {
+                                     float* __restrict__ out, int splits, long long mn,
+                                     long long total) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= mn) return;
+  if (i >= total) return;
+  const long long g = i / mn, r = i % mn;
+  const float* part = ws + (size_t)g * splits * mn + r;
   float acc = 0.f;
-  for (int s = 0; s < splits; ++s) acc += ws[(size_t)s * mn + i];
-  out[i] = acc * __ldg(scale);
+  for (int s = 0; s < splits; ++s) acc += part[(size_t)s * mn];
+  out[i] = acc * __ldg(scale + g);
 }
 
 cudaError_t reduce_splits(const float* ws, const float* scale, float* out, int splits, int m,
-                          int n, cudaStream_t st) {
-  const long long mn = (long long)m * n;
+                          int n, int groups, cudaStream_t st) {
+  const long long mn = (long long)m * n, total = mn * groups;
   const int threads = 256;
-  splitk_reduce_kernel<<<(unsigned)((mn + threads - 1) / threads), threads, 0, st>>>(
-      ws, scale, out, splits, mn);
+  splitk_reduce_kernel<<<(unsigned)((total + threads - 1) / threads), threads, 0, st>>>(
+      ws, scale, out, splits, mn, total);
   return cudaGetLastError();
 }
 
 struct Args {
   const void *x, *planes, *sign, *plane_ids, *tile_nz, *plane_gain, *scale;
   float* dst;
-  int m, k, n, cols, splits, k_per_split, apply_scale;
+  int m, k, n, cols, splits, k_per_split, apply_scale, groups;
   cudaStream_t stream;
 };
 
 template <int MT, int COLS, bool kVec, bool kSkip, bool kIds, bool kGain>
 void launch_main(const Args& a) {
   const int col_groups = (a.n + kCols - 1) / kCols;
-  dim3 grid((col_groups + kThreads - 1) / kThreads, a.splits, (a.m + MT - 1) / MT);
+  dim3 grid((col_groups + kThreads - 1) / kThreads, a.splits, a.groups * ((a.m + MT - 1) / MT));
   cim_packed_kernel<MT, COLS, kVec, kSkip, kIds, kGain><<<grid, kThreads, 0, a.stream>>>(
       (const float*)a.x, (const uint8_t*)a.planes, (const uint8_t*)a.sign,
       (const int*)a.plane_ids, (const uint8_t*)a.tile_nz, (const float*)a.plane_gain,
@@ -583,12 +606,23 @@ cim_packed_tc_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ pla
   uint8_t* tiles = stages + C::SLOTS * C::STAGE_BYTES;  // hi, lo of buffer 0, then of buffer 1
   uint8_t* zero_tile = tiles + 4 * kWBytes;  // B4: the hi | lo that a stage with no live plane multiplies
 
-  const int n0 = blockIdx.x * kBN, split = blockIdx.y, m0 = blockIdx.z * C::BM;
+  const int m_tiles = (m_rows + C::BM - 1) / C::BM;
+  const int grp = blockIdx.z / m_tiles;
+  const int n0 = blockIdx.x * kBN, split = blockIdx.y, m0 = (blockIdx.z % m_tiles) * C::BM;
   const int x_rows = min(C::BM, m_rows - m0);  // rows of x below M
   const int k_begin = split * k_per_split;  // a multiple of kBK
   const int k_end = min(k_dim, k_begin + k_per_split);
   const int n_tiles = (k_end - k_begin + kBK - 1) / kBK;
   const int k_flag_tiles = (k_dim + 127) / 128;
+  // this group's operands (grouped launch; group 0 of a single one)
+  const size_t k_bytes = (size_t)(k_dim + 7) / 8;
+  x += (size_t)grp * m_rows * k_dim;
+  planes += (size_t)grp * cols * k_bytes * n_cols;
+  sign += (size_t)grp * k_bytes * n_cols;
+  if (kIds) plane_ids += (size_t)grp * cols;
+  if (kSkip) tile_nz += (size_t)grp * cols * k_flag_tiles;
+  scale += grp;
+  dst += (size_t)grp * gridDim.y * m_rows * n_cols;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int wg = warp / 4, wl = warp % 4;
 
@@ -737,7 +771,7 @@ cudaError_t launch(const Args& a) {
     if (err != cudaSuccess) return err;
     if (dev < 64) opted_in |= 1ULL << dev;
   }
-  dim3 grid((a.n + kBN - 1) / kBN, a.splits, (a.m + C::BM - 1) / C::BM);
+  dim3 grid((a.n + kBN - 1) / kBN, a.splits, a.groups * ((a.m + C::BM - 1) / C::BM));
   kern<<<grid, kThreadsTc, C::SMEM, a.stream>>>(
       static_cast<const bf16*>(a.x), static_cast<const uint8_t*>(a.planes),
       static_cast<const uint8_t*>(a.sign), static_cast<const int*>(a.plane_ids),
@@ -777,44 +811,51 @@ cudaError_t launch_nwg(int nwg, bool vec, const Args& a) {
 // multiple of 8; mt is 4 or 16; vec requires n % 4 == 0 and 4-byte aligned
 // planes and sign.  plane_ids may be null; tile_nz non-null selects B4;
 // plane_gain (f32 [cols, n]) may be non-null only where tile_nz is null.
-// With splits > 1, ws holds f32[splits, m, n].
+// groups >= 1 matmuls of these shapes, each operand contiguous with a
+// leading group axis (groups * ceil(m / mt) <= 65535).  With splits > 1,
+// ws holds f32[groups, splits, m, n].
 // Returns the first CUDA error of the launches (0 on success).
 extern "C" int cim_matmul_packed_launch(const void* x, const void* planes, const void* sign,
                                         const void* plane_ids, const void* tile_nz,
                                         const void* plane_gain, const void* scale, void* out,
-                                        void* ws, int m, int k, int n, int cols, int mt,
-                                        int vec, int splits, int k_per_split, void* stream) {
+                                        void* ws, int m, int k, int n, int cols, int groups,
+                                        int mt, int vec, int splits, int k_per_split,
+                                        void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (plane_gain != nullptr && tile_nz != nullptr) return (int)cudaErrorInvalidValue;
   Args a{x, planes, sign, plane_ids, tile_nz, plane_gain, scale,
          splits > 1 ? (float*)ws : (float*)out,
-         m, k, n, cols, splits, k_per_split, splits > 1 ? 0 : 1, st};
+         m, k, n, cols, splits, k_per_split, splits > 1 ? 0 : 1, groups, st};
   if (tile_nz != nullptr) launch_ids<true, false>(mt, vec != 0, a);
   else if (plane_gain != nullptr) launch_ids<false, true>(mt, vec != 0, a);
   else launch_ids<false, false>(mt, vec != 0, a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits <= 1) return (int)err;
-  return (int)reduce_splits((const float*)ws, (const float*)scale, (float*)out, splits, m, n, st);
+  return (int)reduce_splits((const float*)ws, (const float*)scale, (float*)out, splits, m, n,
+                            groups, st);
 }
 
 // The tensor-core kernel for bf16 x (the wrapper validates): cols <= 16;
 // nwg 1 (M <= 64) or 2; vec requires n % 16 == 0, k % 8 == 0 and 16-byte
 // aligned x, planes and sign; k_per_split a multiple of 64; plane_ids may
 // be null (identity), and ids that are not a permutation of 0 .. cols - 1
-// give NaN in every output element; tile_nz non-null selects B4.
-// With splits > 1, ws holds f32[splits, m, n] and the fixed-order reduce
-// scales.  Returns the first CUDA error of the launches (0 on success).
+// give NaN in every output element of their group; tile_nz non-null
+// selects B4.  groups >= 1 as for the FMA launcher (groups *
+// ceil(m / (64 nwg)) <= 65535).  With splits > 1, ws holds f32[groups,
+// splits, m, n] and the fixed-order reduce scales.  Returns the first CUDA
+// error of the launches (0 on success).
 extern "C" int cim_matmul_packed_tc_launch(const void* x, const void* planes, const void* sign,
                                            const void* plane_ids, const void* tile_nz,
                                            const void* scale, void* out, void* ws, int m,
-                                           int k, int n, int cols, int nwg, int vec,
+                                           int k, int n, int cols, int groups, int nwg, int vec,
                                            int splits, int k_per_split, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   Args a{x, planes, sign, plane_ids, tile_nz, nullptr, scale,
          splits > 1 ? (float*)ws : (float*)out,
-         m, k, n, cols, splits, k_per_split, splits > 1 ? 0 : 1, st};
+         m, k, n, cols, splits, k_per_split, splits > 1 ? 0 : 1, groups, st};
   const cudaError_t err = cols <= 10 ? tc::launch_nwg<10>(nwg, vec != 0, a)
                                      : tc::launch_nwg<16>(nwg, vec != 0, a);
   if (err != cudaSuccess || splits <= 1) return (int)err;
-  return (int)reduce_splits((const float*)ws, (const float*)scale, (float*)out, splits, m, n, st);
+  return (int)reduce_splits((const float*)ws, (const float*)scale, (float*)out, splits, m, n,
+                            groups, st);
 }

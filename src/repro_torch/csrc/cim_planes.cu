@@ -14,6 +14,13 @@
 //            plane 0 = LSB
 //   scale    f32 scalar (device pointer)
 //   out      f32 [M, N]
+// Grouped launch (G >= 1 independent matmuls, the experts of a MoE layer):
+// every operand gains a leading group axis ([G, M, K] x, [G, cols, K, N]
+// splanes, [G] scale, [G, M, N] out), all contiguous; blockIdx.z carries
+// group * m_tiles + M tile, a block offsets its base pointers by its
+// group's stride once and then runs the one-matmul code, so a group gives
+// what a single launch with the same plan gives, bit for bit.  The split-K
+// workspace is [G, splits, M, N].
 //
 // What bounds it: at decode (M = batch) the plane bytes, cols * K * N (one
 // byte per bit cell) over 3.35 TB/s; at prefill (M = 128) the same bytes
@@ -102,11 +109,18 @@ cim_planes_kernel(const XT* __restrict__ x, const int8_t* __restrict__ splanes,
   __shared__ float xs[MT][kKChunk];
   const int n0 = (blockIdx.x * kThreads + threadIdx.x) * kCols;
   const int split = blockIdx.y;
-  const int m0 = blockIdx.z * MT;
+  const int m_tiles = (m_rows + MT - 1) / MT;
+  const int grp = blockIdx.z / m_tiles;
+  const int m0 = (blockIdx.z % m_tiles) * MT;
   const int k_begin = split * k_per_split;
   const int k_end = min(k_dim, k_begin + k_per_split);
   const size_t plane_stride = (size_t)k_dim * n_cols;
   const bool live = n0 < n_cols;
+  // this group's operands (grouped launch; group 0 of a single one)
+  x += (size_t)grp * m_rows * k_dim;
+  splanes += (size_t)grp * cols * plane_stride;
+  scale += grp;
+  dst += (size_t)grp * gridDim.y * m_rows * n_cols;
 
   float acc[MT][kCols];
 #pragma unroll
@@ -190,28 +204,40 @@ cim_planes_kernel(const XT* __restrict__ x, const int8_t* __restrict__ splanes,
   }
 }
 
-// out[i] = scale * sum_{s < splits} ws[s][i], summed in split order.
+// out[g][i] = scale[g] * sum_{s < splits} ws[g][s][i], summed in split order.
 __global__ void splitk_reduce_kernel(const float* __restrict__ ws,
                                      const float* __restrict__ scale,
-                                     float* __restrict__ out, int splits, long long mn) {
+                                     float* __restrict__ out, int splits, long long mn,
+                                     long long total) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= mn) return;
+  if (i >= total) return;
+  const long long g = i / mn, r = i % mn;
+  const float* part = ws + (size_t)g * splits * mn + r;
   float acc = 0.f;
-  for (int s = 0; s < splits; ++s) acc += ws[(size_t)s * mn + i];
-  out[i] = acc * __ldg(scale);
+  for (int s = 0; s < splits; ++s) acc += part[(size_t)s * mn];
+  out[i] = acc * __ldg(scale + g);
+}
+
+cudaError_t reduce_splits(const void* ws, const void* scale, void* out, int splits, int m, int n,
+                          int groups, cudaStream_t st) {
+  const long long mn = (long long)m * n, total = mn * groups;
+  const int threads = 256;
+  splitk_reduce_kernel<<<(unsigned)((total + threads - 1) / threads), threads, 0, st>>>(
+      (const float*)ws, (const float*)scale, (float*)out, splits, mn, total);
+  return cudaGetLastError();
 }
 
 struct Args {
   const void *x, *splanes, *scale;
   float* dst;
-  int m, k, n, cols, splits, k_per_split, apply_scale;
+  int m, k, n, cols, splits, k_per_split, apply_scale, groups;
   cudaStream_t stream;
 };
 
 template <typename XT, int MT, int COLS, bool kVec, bool kPlanes>
 void launch_main(const Args& a) {
   const int col_groups = (a.n + kCols - 1) / kCols;
-  dim3 grid((col_groups + kThreads - 1) / kThreads, a.splits, (a.m + MT - 1) / MT);
+  dim3 grid((col_groups + kThreads - 1) / kThreads, a.splits, a.groups * ((a.m + MT - 1) / MT));
   cim_planes_kernel<XT, MT, COLS, kVec, kPlanes><<<grid, kThreads, 0, a.stream>>>(
       (const XT*)a.x, (const int8_t*)a.splanes, (const float*)a.scale, a.dst,
       a.m, a.k, a.n, a.cols, a.k_per_split, a.apply_scale);
@@ -349,10 +375,17 @@ cim_planes_tc_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ spla
   uint8_t* w_hi = stages + C::STAGES * C::STAGE_BYTES;  // bf16 [BN][kBK], K-major, swizzled
   uint8_t* w_lo = w_hi + C::W_BYTES;
 
-  const int n0 = blockIdx.x * C::BN, split = blockIdx.y, m0 = blockIdx.z * C::BM;
+  const int m_tiles = (m_rows + C::BM - 1) / C::BM;
+  const int grp = blockIdx.z / m_tiles;
+  const int n0 = blockIdx.x * C::BN, split = blockIdx.y, m0 = (blockIdx.z % m_tiles) * C::BM;
   const int k_begin = split * k_per_split;
   const int k_end = min(k_dim, k_begin + k_per_split);
   const int n_tiles = (k_end - k_begin + kBK - 1) / kBK;
+  // this group's operands (grouped launch; group 0 of a single one)
+  x += (size_t)grp * m_rows * k_dim;
+  splanes += (size_t)grp * cols * k_dim * n_cols;
+  scale += grp;
+  dst += (size_t)grp * gridDim.y * m_rows * n_cols;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int wg = warp / 4, wl = warp % 4;
 
@@ -461,8 +494,8 @@ cim_planes_tc_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ spla
 
 template <int COLS, int NWG, bool kVec>
 cudaError_t launch(const void* x, const void* splanes, const void* scale, float* dst, int m,
-                   int k, int n, int cols, int splits, int k_per_split, int apply_scale,
-                   cudaStream_t stream) {
+                   int k, int n, int cols, int groups, int splits, int k_per_split,
+                   int apply_scale, cudaStream_t stream) {
   using C = Cfg<COLS, NWG>;
   auto kern = cim_planes_tc_kernel<COLS, NWG, kVec>;
   static unsigned long long opted_in = 0;  // > 48 KB of shared memory, once per device
@@ -474,7 +507,7 @@ cudaError_t launch(const void* x, const void* splanes, const void* scale, float*
     if (err != cudaSuccess) return err;
     if (dev < 64) opted_in |= 1ULL << dev;
   }
-  dim3 grid((n + C::BN - 1) / C::BN, splits, (m + C::BM - 1) / C::BM);
+  dim3 grid((n + C::BN - 1) / C::BN, splits, groups * ((m + C::BM - 1) / C::BM));
   kern<<<grid, C::THREADS, C::SMEM, stream>>>(
       static_cast<const bf16*>(x), static_cast<const int8_t*>(splanes),
       static_cast<const float*>(scale), dst, m, k, n, cols, k_per_split, apply_scale);
@@ -483,11 +516,11 @@ cudaError_t launch(const void* x, const void* splanes, const void* scale, float*
 
 template <int COLS, int NWG>
 cudaError_t launch_vec(bool vec, const void* x, const void* splanes, const void* scale,
-                       float* dst, int m, int k, int n, int cols, int splits, int k_per_split,
-                       int apply_scale, cudaStream_t stream) {
-  return vec ? launch<COLS, NWG, true>(x, splanes, scale, dst, m, k, n, cols, splits,
+                       float* dst, int m, int k, int n, int cols, int groups, int splits,
+                       int k_per_split, int apply_scale, cudaStream_t stream) {
+  return vec ? launch<COLS, NWG, true>(x, splanes, scale, dst, m, k, n, cols, groups, splits,
                                        k_per_split, apply_scale, stream)
-             : launch<COLS, NWG, false>(x, splanes, scale, dst, m, k, n, cols, splits,
+             : launch<COLS, NWG, false>(x, splanes, scale, dst, m, k, n, cols, groups, splits,
                                         k_per_split, apply_scale, stream);
 }
 
@@ -498,54 +531,51 @@ cudaError_t launch_vec(bool vec, const void* x, const void* splanes, const void*
 // The wrapper validates shapes and pointers.  cols <= 16; mt is 4 or 16;
 // vec requires n % 4 == 0 and 4-byte aligned planes; planes_mode selects
 // the per-plane oracle.  fused_dequant takes f32 x only (bf16 x runs
-// cim_planes_tc_launch).  With splits > 1, ws holds f32[splits, m, n].
+// cim_planes_tc_launch).  groups >= 1 matmuls of these shapes, each operand
+// contiguous with a leading group axis (groups * ceil(m / mt) <= 65535).
+// With splits > 1, ws holds f32[groups, splits, m, n].
 // Returns the first CUDA error of the launches (0 on success).
 extern "C" int cim_planes_launch(const void* x, int x_is_bf16, const void* splanes,
                                  const void* scale, void* out, void* ws, int m, int k, int n,
-                                 int cols, int mt, int vec, int planes_mode, int splits,
-                                 int k_per_split, void* stream) {
+                                 int cols, int groups, int mt, int vec, int planes_mode,
+                                 int splits, int k_per_split, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   Args a{x, splanes, scale, splits > 1 ? (float*)ws : (float*)out,
-         m, k, n, cols, splits, k_per_split, splits > 1 ? 0 : 1, st};
+         m, k, n, cols, splits, k_per_split, splits > 1 ? 0 : 1, groups, st};
   if (!planes_mode && x_is_bf16) return (int)cudaErrorInvalidValue;
   if (!planes_mode) launch_mt<float, false>(mt, vec != 0, a);
   else if (x_is_bf16) launch_mt<__nv_bfloat16, true>(mt, vec != 0, a);
   else launch_mt<float, true>(mt, vec != 0, a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits <= 1) return (int)err;
-  const long long mn = (long long)m * n;
-  const int threads = 256;
-  splitk_reduce_kernel<<<(unsigned)((mn + threads - 1) / threads), threads, 0, st>>>(
-      (const float*)ws, (const float*)scale, (float*)out, splits, mn);
-  return (int)cudaGetLastError();
+  return (int)reduce_splits(ws, scale, out, splits, m, n, groups, st);
 }
 
 // The tensor-core path of fused_dequant for bf16 x (the wrapper validates):
 // cols <= 16; nwg 1 (M <= 64) or 2; vec requires n % 16 == 0, k % 8 == 0 and
-// 16-byte aligned x and planes; k_per_split a multiple of 64.  With
-// splits > 1, ws holds f32[splits, m, n] and the fixed-order reduce scales.
+// 16-byte aligned x and planes; k_per_split a multiple of 64; groups as for
+// cim_planes_launch (groups * ceil(m / (64 nwg)) <= 65535).  With
+// splits > 1, ws holds f32[groups, splits, m, n] and the fixed-order reduce
+// scales.
 extern "C" int cim_planes_tc_launch(const void* x, const void* splanes, const void* scale,
-                                    void* out, void* ws, int m, int k, int n, int cols, int nwg,
-                                    int vec, int splits, int k_per_split, void* stream) {
+                                    void* out, void* ws, int m, int k, int n, int cols,
+                                    int groups, int nwg, int vec, int splits, int k_per_split,
+                                    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   float* dst = splits > 1 ? (float*)ws : (float*)out;
   const int apply = splits > 1 ? 0 : 1;
   const bool v = vec != 0;
   cudaError_t err;
   if (cols <= 10)
-    err = nwg == 1 ? tc::launch_vec<10, 1>(v, x, splanes, scale, dst, m, k, n, cols, splits,
-                                           k_per_split, apply, st)
-                   : tc::launch_vec<10, 2>(v, x, splanes, scale, dst, m, k, n, cols, splits,
-                                           k_per_split, apply, st);
+    err = nwg == 1 ? tc::launch_vec<10, 1>(v, x, splanes, scale, dst, m, k, n, cols, groups,
+                                           splits, k_per_split, apply, st)
+                   : tc::launch_vec<10, 2>(v, x, splanes, scale, dst, m, k, n, cols, groups,
+                                           splits, k_per_split, apply, st);
   else
-    err = nwg == 1 ? tc::launch_vec<16, 1>(v, x, splanes, scale, dst, m, k, n, cols, splits,
-                                           k_per_split, apply, st)
-                   : tc::launch_vec<16, 2>(v, x, splanes, scale, dst, m, k, n, cols, splits,
-                                           k_per_split, apply, st);
+    err = nwg == 1 ? tc::launch_vec<16, 1>(v, x, splanes, scale, dst, m, k, n, cols, groups,
+                                           splits, k_per_split, apply, st)
+                   : tc::launch_vec<16, 2>(v, x, splanes, scale, dst, m, k, n, cols, groups,
+                                           splits, k_per_split, apply, st);
   if (err != cudaSuccess || splits <= 1) return (int)err;
-  const long long mn = (long long)m * n;
-  const int threads = 256;
-  splitk_reduce_kernel<<<(unsigned)((mn + threads - 1) / threads), threads, 0, st>>>(
-      (const float*)ws, (const float*)scale, (float*)out, splits, mn);
-  return (int)cudaGetLastError();
+  return (int)reduce_splits(ws, scale, out, splits, m, n, groups, st);
 }

@@ -18,6 +18,10 @@ bit-packed planes (B2, B4):
                  weighs gain[p, n] * 2**plane_ids[p] (drifted conductances)
   y = scale * (x @ (sign * sum_p gain_p * 2**plane_ids[p] * bits_p)) -> f32[M, N]
 
+grouped (both): x [G, M, K], every operand with a leading [G], scale f32[G]
+  -> f32[G, M, N], computed one group at a time with the single-group
+  arithmetic, so it equals G single calls bit for bit.
+
 Each function counts its calls in ``.calls``, so a run can show that its
 kernels, not these, served it.
 """
@@ -49,6 +53,9 @@ def cim_matmul(
     """
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; choose from {MODES}")
+    if x.ndim == 3:
+        return torch.stack([cim_matmul(x[g], splanes[g], scale[g], mode)
+                            for g in range(x.shape[0])])
     cim_matmul.calls += 1
     xf = x.to(torch.float32)
     cols, _, n = splanes.shape
@@ -133,6 +140,12 @@ def cim_matmul_packed(
     plane_gain: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """y = scale * (x.float() @ unpack(planes, signs)) -> f32[M, N]."""
+    if x.ndim == 3:
+        return torch.stack([
+            cim_matmul_packed(x[g], planes_packed[g], sign_packed[g], scale[g],
+                              None if plane_ids is None else plane_ids[g],
+                              None if plane_gain is None else plane_gain[g])
+            for g in range(x.shape[0])])
     cim_matmul_packed.calls += 1
     w = unpack_weights(planes_packed, sign_packed, x.shape[-1], plane_ids, plane_gain)
     return (x.to(torch.float32) @ w) * scale

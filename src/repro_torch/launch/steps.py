@@ -91,16 +91,22 @@ def _params_device(params) -> torch.device:
     return None
 
 
-MATMUL_BLOCKS = ("attn", "mlp")  # a layer's sub-dicts whose dense leaves ``layers.linear`` casts
+# a layer's sub-dicts whose dense leaves ``layers.linear`` casts ("moe": the
+# routed expert stacks and the shared GLU)
+MATMUL_BLOCKS = ("attn", "mlp", "moe")
+F32_MATMULS = ("router",)  # matmuls the model runs in float32 whatever its dtype
 
 
 def _cast_matmul_weights(params, dtype: torch.dtype):
     """The dense matmul weights of every layer cast to ``dtype``: the bytes
     ``layers.linear`` makes at every call.  The embedding table (read in f32
-    by ``unembed``), the norm gains and the LM head (an f32 matmul) stay as
-    they are, as do operand dicts."""
+    by ``unembed``), the norm gains, the LM head and the MoE router (f32
+    matmuls) stay as they are, as do operand dicts."""
     def cast_block(block):
-        return {k: v.to(dtype) if isinstance(v, torch.Tensor) else v for k, v in block.items()}
+        return {k: v if k in F32_MATMULS or simulator.is_cim_operands(v)
+                else v.to(dtype) if isinstance(v, torch.Tensor)
+                else cast_block(v) if isinstance(v, dict) else v
+                for k, v in block.items()}
 
     segs = [{k: cast_block(v) if k in MATMUL_BLOCKS else v for k, v in seg.items()}
             for seg in params["segments"]]

@@ -6,7 +6,7 @@ from typing import Any
 
 import torch
 
-from repro_torch import prng
+from repro_torch import prng, tree
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels._util import resolve_device
 from repro_torch.models import transformer
@@ -52,3 +52,24 @@ def make_batch(cfg: ArchConfig, key: torch.Tensor, batch: int, seq_len: int, *,
     device = resolve_device(device)
     kt, _ = prng.split(key.to(device)).unbind(-2)
     return {"tokens": prng.randint(kt, (batch, seq_len), 0, cfg.vocab_size)}
+
+
+def param_count(params) -> int:
+    return sum(int(x.numel()) for x in tree.leaves(params))
+
+
+def active_param_count(params, cfg: ArchConfig) -> int:
+    """Active params per token (MoE: shared + top_k of the n_alloc routed
+    experts).  The routed weights are the expert stacks, the wi_gate /
+    wi_up / wo leaves of a ``moe`` sublayer, whatever their rank: the
+    reference takes every rank-3 wi_gate / wi_up / wo leaf instead, which on
+    its layer-stacked tree counts the stacked attention ``wo`` and shared
+    GLU as routed and misses the [L, E, ...] expert stacks (ROADMAP C.10);
+    on an unstacked tree both counts agree."""
+    total = param_count(params)
+    if cfg.moe is None:
+        return total
+    routed = sum(int(leaf.numel()) for path, leaf in tree.leaves_with_path(params)
+                 if len(path) >= 2 and path[-2] == "moe" and path[-1] in ("wi_gate", "wi_up", "wo"))
+    active_frac = cfg.moe.top_k / cfg.moe.n_alloc
+    return total - routed + int(routed * active_frac)

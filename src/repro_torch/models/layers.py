@@ -33,19 +33,27 @@ def _dense_init(key: torch.Tensor, in_dim: int, out_dim: int, scale: float = 1.0
 def _cim_apply(w: dict, x: torch.Tensor) -> torch.Tensor:
     """Crossbar operand dict @ activations, any rank.
 
-    Leading operand dims beyond the canonical 3-D planes (stacked layers)
-    pair with the same leading dims of ``x``, one matmul per index (the
-    reference vmaps them): every entry of the dict (planes, signs, scales,
-    ``plane_ids``, ``plane_tile_nz``) is sliced on that axis.  The remaining
-    dims of ``x`` flatten into M.
+    Leading operand dims beyond the canonical 3-D planes pair with the same
+    leading dims of ``x`` (the reference vmaps them).  ONE leading axis (a
+    MoE layer's expert stack, x ``[E, ..., K]``) is one grouped kernel
+    launch over it (``simulator.cim_linear`` on x ``[E, M, K]``); further
+    leading axes are walked one index at a time, every entry of the dict
+    (planes, signs, scales, ``plane_ids``, ``plane_tile_nz``) sliced on
+    them.  The remaining dims of ``x`` flatten into M.
     """
     from repro_torch.core import simulator
 
     planes = w["splanes"] if "splanes" in w else w["planes_packed"]
-    if planes.ndim > 3:
+    if planes.ndim > 4:
         return torch.stack(
             [_cim_apply({k: v[i] for k, v in w.items()}, x[i]) for i in range(x.shape[0])]
         )
+    if planes.ndim == 4:
+        if x.shape[0] != planes.shape[0]:
+            raise ValueError(f"x leads with {x.shape[0]}, the operands with {planes.shape[0]}")
+        lead = x.shape[:-1]
+        y = simulator.cim_linear(x.reshape(x.shape[0], -1, x.shape[-1]), w)
+        return y.reshape(*lead, y.shape[-1])
     lead = x.shape[:-1]
     y = simulator.cim_linear(x.reshape(-1, x.shape[-1]), w)
     return y.reshape(*lead, y.shape[-1])

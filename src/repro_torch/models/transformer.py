@@ -4,11 +4,13 @@
 segment's params are stacked on a leading layer axis (the reference scans
 over it), and the port walks that axis in a Python loop, handing each layer
 its slice — dense tensors and packed operand dicts alike.  The port has
-the ``attn`` kind only (the dense decoders).
+the ``attn`` kind (the dense decoders) and the ``moe`` kind (attention +
+mixture-of-experts MLP, ``models/moe.py``); ``KINDS`` maps each to its
+init / forward / decode-step functions, as the reference's registry does.
 
 Interface:
   init(key, cfg, device=)                          -> params (device: cuda default)
-  forward(params, cfg, batch, remat=, train=)      -> (logits, aux)
+  forward(params, cfg, batch, remat=, train=)      -> (logits, aux: summed over MoE layers)
   prefill(params, cfg, batch)                      -> (logits, cache)
   decode_step(params, cfg, cache, token, pos)      -> (logits, cache); pos int, 0-d or (B,) tensor
   init_cache(cfg, batch, seq_len, dtype=, device=) -> cache
@@ -32,10 +34,23 @@ from torch.utils.checkpoint import (
 from repro_torch import prng
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels._util import resolve_device
-from repro_torch.models import blocks, layers
+from repro_torch.models import blocks, layers, moe
 from repro_torch.models.layers import Params
 
-KINDS = ("attn",)
+
+class _Kind:
+    """A block kind: init(keys, cfg), fwd(p, cfg, x, return_cache=, train=)
+    -> (x, cache[, aux]) and step(p, cfg, x, cache, pos) -> x; ``has_aux``
+    kinds return the layer's aux loss from ``fwd``."""
+
+    def __init__(self, init, fwd, step, has_aux=False):
+        self.init, self.fwd, self.step, self.has_aux = init, fwd, step, has_aux
+
+
+KINDS: dict[str, _Kind] = {
+    "attn": _Kind(blocks.init_attn_block, blocks.attn_block_fwd, blocks.attn_block_step),
+    "moe": _Kind(moe.init_moe_block, moe.moe_block_fwd, moe.moe_block_step, has_aux=True),
+}
 
 
 def segments_of(cfg: ArchConfig) -> list[tuple[str, int]]:
@@ -73,8 +88,8 @@ def init(key: torch.Tensor, cfg: ArchConfig, *, device=None) -> Params:
     keys = prng.split(key, len(segs) + 3)
     params: Params = {"embed": layers.init_embedding(keys[0], cfg.vocab_size, cfg.d_model)}
     params["segments"] = [
-        blocks.init_attn_block(prng.split(keys[i + 1], count), cfg)
-        for i, (_, count) in enumerate(segs)
+        KINDS[kind].init(prng.split(keys[i + 1], count), cfg)
+        for i, (kind, count) in enumerate(segs)
     ]
     params["final_norm"] = layers.init_norm(cfg.d_model, key.device)
     if not cfg.tie_embeddings:
@@ -131,25 +146,35 @@ def _remat_layer(fn, remat: str):
 
 def _run_segments(params: Params, cfg: ArchConfig, x: torch.Tensor, *, return_cache: bool,
                   remat: str = "none", train: bool = False):
+    """-> (x, aux summed over the aux kinds' layers (f32, in layer order),
+    per-segment caches or None)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
-    for (_, count), p_stack in zip(segments_of(cfg), params["segments"]):
+    for (kind, count), p_stack in zip(segments_of(cfg), params["segments"]):
+        spec = KINDS[kind]
         layer_caches = []
 
-        def layer(p_layer, xc):
-            return blocks.attn_block_fwd(p_layer, cfg, xc, return_cache=return_cache, train=train)
+        def layer(p_layer, xc, _spec=spec):
+            return _spec.fwd(p_layer, cfg, xc, return_cache=return_cache, train=train)
 
         layer = _remat_layer(layer, remat)
         for i in range(count):
-            x, cache = layer(layer_slice(p_stack, i), x)
+            out = layer(layer_slice(p_stack, i), x)
+            if spec.has_aux:
+                x, cache, aux_l = out
+                aux = aux + aux_l
+            else:
+                x, cache = out
             layer_caches.append(cache)
         if return_cache:
             caches.append({k: torch.stack([c[k] for c in layer_caches]) for k in ("k", "v")})
-    return x, caches if return_cache else None
+    return x, aux, caches if return_cache else None
 
 
 def forward(params: Params, cfg: ArchConfig, batch: dict, *, remat: str = "none",
             train: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
-    """batch: {"tokens": (B, S) int}.  Returns (logits (B, S, V) f32, aux 0).
+    """batch: {"tokens": (B, S) int}.  Returns (logits (B, S, V) f32, aux
+    f32: the MoE layers' load-balance losses summed, 0 for the dense kinds).
 
     ``train=True`` is the differentiable forward of ``launch.steps.loss_fn``:
     its attention is ``blockwise_attention`` on every device (the function
@@ -159,15 +184,15 @@ def forward(params: Params, cfg: ArchConfig, batch: dict, *, remat: str = "none"
     if remat not in REMATS:
         raise ValueError(f"unknown remat policy {remat!r}")
     x = _embed_inputs(params, cfg, batch["tokens"])
-    x, _ = _run_segments(params, cfg, x, return_cache=False, remat=remat, train=train)
-    return _logits(params, cfg, x), torch.zeros((), device=x.device)
+    x, aux, _ = _run_segments(params, cfg, x, return_cache=False, remat=remat, train=train)
+    return _logits(params, cfg, x), aux
 
 
 def prefill(params: Params, cfg: ArchConfig, batch: dict) -> tuple[torch.Tensor, list]:
     """Returns (last-position logits (B, 1, V), per-segment prompt caches
     {"k", "v": (count, B, Hkv, S, hd)})."""
     x = _embed_inputs(params, cfg, batch["tokens"])
-    x, caches = _run_segments(params, cfg, x, return_cache=True)
+    x, _, caches = _run_segments(params, cfg, x, return_cache=True)
     return _logits(params, cfg, x[:, -1:]), caches
 
 
@@ -193,11 +218,9 @@ def decode_step(
     or a (B,) int tensor of per-row positions (the engine's ragged decode).
     Writes the caches in place and returns (logits (B, 1, V), caches)."""
     x = _embed_inputs(params, cfg, token)
-    for (_, count), p_stack, c_stack in zip(segments_of(cfg), params["segments"], caches):
+    for (kind, count), p_stack, c_stack in zip(segments_of(cfg), params["segments"], caches):
         for i in range(count):
-            x = blocks.attn_block_step(
-                layer_slice(p_stack, i), cfg, x, layer_slice(c_stack, i), pos
-            )
+            x = KINDS[kind].step(layer_slice(p_stack, i), cfg, x, layer_slice(c_stack, i), pos)
     return _logits(params, cfg, x), caches
 
 
@@ -206,8 +229,8 @@ def decode_step(
 # ---------------------------------------------------------------------------
 
 def supports_paged(cfg: ArchConfig) -> bool:
-    """Paged KV serving covers pure-attention decoder stacks (every dense
-    config the port has; another block kind raises in ``segments_of``)."""
+    """Paged KV serving covers pure-attention decoder stacks: the dense
+    configs; a ``moe`` stack is refused, as in the reference."""
     return {k for k, _ in segments_of(cfg)} <= {"attn"}
 
 
