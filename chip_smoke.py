@@ -206,6 +206,24 @@ Phases (one line each, any failed check exits 1):
      version, bit-equal to 64 single launches on the same launch plan, B4
      == B2; timed (bf16, wi_gate's shape) beside 64 single launches,
      torch.bmm on dense bf16 weights and the byte bound;
+  5l. mla: deepseek-v2-236b at published width (d_model 5120, 128 heads,
+     MLA q_lora 1536 / kv_lora 512 / nope 128 / rope 64 / v 128, 160 routed
+     experts + 2 shared, top-6, d_expert 1536, vocab 102400, untied head),
+     depth cut 60 -> 1 (MLA_LAYERS): the SWS sort kernel on one
+     [1, 160, 5120, 1536] expert stack == torch.sort(stable=True) bit for
+     bit, timed; a const_rle plan through one pool served raw-packed (B2)
+     and const_rle (B4, tokens == raw-packed); one stateless plan (each
+     tensor's bytes in flight printed, the expert stacks' at most
+     PLAN_BYTES_PER_WEIGHT; wkv_a re-planned on the CPU, report and w_hat
+     equal) served fp, dense, packed (B2) and planes_int8 (B6 builds, B5
+     serves; the f32 originals freed first), each through the serve gates:
+     (11 x layers + 1) x gen CIM launches a generate (MLA's wq_a, wq_b,
+     wkv_a and wo, the router, the shared GLU's 3, each expert stack's 3 as
+     ONE grouped launch), 10 x layers x gen on the tensor cores, no B3 (the
+     prefill's attention is blockwise_attention, once a layer, as the
+     reference's); prefill logits within dense's bound (bf16: the rows
+     whose last token kept its experts); then the grouped B2, B4 and B5 at
+     G 160, M 8, K x N 5120 x 1536 and 1536 x 5120;
   6. kernels: time, bound (the bf16 tensor-core rate for the tensor-core
      paths, the f32 rate for the FMA kernels), plain-version and library
      times; B2, B3 and B5 on both paths, B2 with plane gains at decode (f32
@@ -213,16 +231,18 @@ Phases (one line each, any failed check exits 1):
 
 The line before the last is the kernels' JSON record (B1's launches are
 those of the gemma-2b plan and the figures, train, accuracy, offset-binary,
-bench-extra, faults, engine, tp-fleet and moe phases; B2's, B4's and B5's those
-of gemma's packed, const_rle and planes_int8 generates plus the
-offset-binary, bench-extra, faults, engine and tp-fleet and moe phases' (B2's
+bench-extra, faults, engine, tp-fleet, moe and mla phases; B2's, B4's and B5's
+those of gemma's packed, const_rle and planes_int8 generates plus the
+offset-binary, bench-extra, faults, engine, tp-fleet, moe and mla phases' (B2's
 ``launches_gain`` those with plane gains; the engines' from their graphs'
 nodes x replays plus each capture's warm-up run; ``launches_moe`` the moe
 phase's, and ``grouped_m8`` / ``grouped_m11`` the grouped launch's times
-at the expert shapes); B3's those of yi-6b's generate and the accuracy,
+at the expert shapes; ``launches_mla`` and ``grouped_g160_m8`` the mla
+phase's); the ``sws_sort`` row is the planner's sort helper (no TPU
+kernel), its launches the mla phase's plans'; B3's those of yi-6b's generate and the accuracy,
 offset-binary, bench-extra, faults, engine, tp-fleet and moe phases; B6's
-yi-6b's, the offset-binary, the faults, the engine, the tp-fleet and the
-moe deployments');
+yi-6b's, the offset-binary, the faults, the engine, the tp-fleet, the
+moe and the mla deployments');
 the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
 ``python3 chip_smoke.py`` (needs one CUDA card; fails without one).
@@ -543,7 +563,8 @@ def graph_counts(decode) -> dict:
     return got
 
 
-def served(label, cfg, params, batch, gen, kernel, want, want_tc=0, make=None, expect=None):
+def served(label, cfg, params, batch, gen, kernel, want, want_tc=0, make=None, expect=None,
+           blockwise=0):
     """Serve through the CUDA graph (``loop="scan"``) and through the eager
     per-token loop (``loop="python"``); tok/s of each is the best of 3
     timed passes.  Fails unless both give the same tokens and each
@@ -563,10 +584,19 @@ def served(label, cfg, params, batch, gen, kernel, want, want_tc=0, make=None, e
 
     ``make(loop)`` builds the generator instead of ``serve.make_generator``
     (a tensor-parallel one), and ``expect`` replaces the launches a
-    generate must make (every kernel counter, B3 included)."""
+    generate must make (every kernel counter, B3 included).  ``blockwise``
+    is the number of ``blockwise_attention`` calls a prefill makes by
+    design (MLA's prefill attention, the reference's own, not a fallback):
+    the only plain-version calls allowed."""
     import torch
 
     from repro_torch.launch import serve
+    from repro_torch.models import attention
+
+    def plain_ok(c):
+        """No plain-version call but the prefill's by-design attention."""
+        bw = attention.blockwise_attention.calls
+        return bw == blockwise and c["plain"] == bw
 
     if make is None:
         def make(loop):
@@ -575,13 +605,15 @@ def served(label, cfg, params, batch, gen, kernel, want, want_tc=0, make=None, e
     reset_counts()
     timed = make("scan")
     c_setup = counts()
+    plain_setup = plain_ok(c_setup)
     reset_counts()
     replays = timed.decode.replays
     toks, dt = timed()
     c_eager = counts()
+    plain_eager = plain_ok(c_eager)
     replays = timed.decode.replays - replays
     twice = {k: c_setup[k] - c_eager[k] for k in c_setup}
-    if any(v % 2 for v in twice.values()) or c_setup["plain"] or c_eager["plain"]:
+    if any(v % 2 for v in twice.values()) or not (plain_setup and plain_eager):
         fail(f"{label} graph set-up launched {c_setup}, a timed run {c_eager}: not one prefill "
              f"plus two decodes")
     from_capture = {k: c_eager[k] + twice[k] // 2 * replays for k in c_setup if k != "plain"}
@@ -622,7 +654,7 @@ def served(label, cfg, params, batch, gen, kernel, want, want_tc=0, make=None, e
     reset_counts()
     toks_py, dt_py = eager()
     c_py = counts()
-    if nonzero(c_py) != expect or c_py["plain"]:
+    if nonzero(c_py) != expect or not plain_ok(c_py):
         fail(f"{label} eager generate launched {c_py} (want {expect}, nothing else, no "
              f"plain-version call)")
     if not torch.equal(toks, toks_py):
@@ -3249,7 +3281,8 @@ def moe_prefill(cfg, params, batch) -> dict:
     return out
 
 
-def moe_logit_check(got: dict, want: dict, label: str, gate: tuple) -> None:
+def moe_logit_check(got: dict, want: dict, label: str, gate: tuple, arch=MOE_ARCH,
+                    kept_rows=False) -> None:
     """Prefill logits of two deployments (``moe_prefill``), with the tokens
     whose expert set differs in any layer.  ``gate`` names the compute
     dtypes held to the bound (F32_LOGIT_RTOL / BF16_LOGIT_RTOL of the
@@ -3257,22 +3290,36 @@ def moe_logit_check(got: dict, want: dict, label: str, gate: tuple) -> None:
     discrete: dense rounds w_hat to bf16 in bf16 compute, and a token whose
     top-k set flips takes other experts' outputs, so bf16 against dense is
     printed with its flips, and the bf16 gate compares two deployments that
-    both compute on the exact w_hat."""
+    both compute on the exact w_hat.  With ``kept_rows`` (a one-layer model,
+    where a token's routing reaches no other token's logits) the gate holds
+    the rows whose last token, the one a prefill's logits come from, kept
+    its experts in both; a flipped row is printed."""
+    import torch
+
     for dtype_name, rtol in (("bfloat16", BF16_LOGIT_RTOL), ("float32", F32_LOGIT_RTOL)):
         (lg, pg), (lw, pw) = got[dtype_name], want[dtype_name]
-        d = (lg - lw).abs().max().item()
+        d_rows = (lg - lw).abs().amax(dim=tuple(range(1, lg.ndim)))  # (B,)
+        d = d_rows.max().item()
         lim = rtol * lw.abs().max().item()
         flips = sum(int((a != b).any(dim=-1).sum()) for a, b in zip(pg, pw))
+        b_, s_ = lg.shape[0], len(pw[0]) // lg.shape[0]
+        last = torch.arange(b_, device=d_rows.device) * s_ + s_ - 1
+        flipped = torch.zeros(b_, dtype=torch.bool, device=d_rows.device)
+        for a, b in zip(pg, pw):
+            flipped |= (a[last] != b[last]).any(dim=-1).to(d_rows.device)
         held = dtype_name in gate
-        say(f"phase logits: {MOE_ARCH} {dtype_name} prefill {label} max |d| {d:.4e} (bound "
-            f"{rtol:g} * max|logit| = {lim:.4e}{'' if held else ', printed'}); tokens whose "
-            f"expert set differs, summed over layers: {flips} of {sum(len(a) for a in pw)}")
-        if held and d > lim:
-            fail(f"{dtype_name} prefill logits of {label} differ by {d:.4e}")
+        d_held = d_rows[~flipped].max().item() if kept_rows and not flipped.all() else d
+        say(f"phase logits: {arch} {dtype_name} prefill {label} max |d| {d:.4e}"
+            + (f" ({d_held:.4e} over the {int((~flipped).sum())} of {b_} rows whose last token "
+               f"kept its experts)" if kept_rows else "")
+            + f" (bound {rtol:g} * max|logit| = {lim:.4e}{'' if held else ', printed'}); tokens "
+            f"whose expert set differs, summed over layers: {flips} of {sum(len(a) for a in pw)}")
+        if held and (d_held > lim or (kept_rows and flipped.all())):
+            fail(f"{dtype_name} prefill logits of {label} differ by {d_held:.4e}")
 
 
-def moe_stacks(dev, k, n, seed):
-    """qwen2-moe-a2.7b-sized expert stacks of one matmul (G = n_alloc = 64):
+def moe_stacks(dev, g_, k, n, seed):
+    """Expert stacks of one matmul (G = ``g_``, a config's n_alloc):
     packed operands with every tile live, the same with about half of the
     (plane, 128-row) tiles zero (const_rle flags), int8 planes, and the
     dense bf16 weights of the first (``torch.bmm``'s operand)."""
@@ -3280,7 +3327,6 @@ def moe_stacks(dev, k, n, seed):
 
     from repro_torch.core import planes, simulator
 
-    g_ = 64
     gen = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randint(0, 1024, (g_, k, n), dtype=torch.int32, device=dev, generator=gen)
     s = torch.where(torch.rand(g_, k, n, device=dev, generator=gen) < 0.5, -1, 1).to(torch.int8)
@@ -3297,16 +3343,17 @@ def moe_stacks(dev, k, n, seed):
     return packed, rle, int8, dense
 
 
-def check_moe_kernels(dev) -> dict:
-    """The grouped launches at qwen2-moe-a2.7b's expert shapes (G 64, M in
-    MOE_M, K x N in MOE_SHAPES, bf16 and f32 x): B2, B4 (about 50% zero
-    tiles) and B5 each ONE launch, within 2 * eps * K * (|x| @ |w|) of its
-    plain version, equal to 64 single launches bit for bit where both take
-    the same launch plan (else within twice the bound), B4 == B2 on the same
-    bits.  Then, bf16 x at M in MOE_M on wi_gate's shape: the grouped
-    launch, the same work as 64 single launches, the plain version and
-    ``torch.bmm`` on dense bf16 [64, K, N] weights, timed, beside the byte
-    bound.  Returns max |d| by kernel and the timing records."""
+def check_moe_kernels(dev, g_=64, shapes=MOE_SHAPES, ms=MOE_M, label="moe-kernels") -> dict:
+    """The grouped launches at a MoE config's expert shapes (G ``g_``, M in
+    ``ms``, K x N in ``shapes``, bf16 and f32 x; qwen2-moe-a2.7b's by
+    default): B2, B4 (about 50% zero tiles) and B5 each ONE launch, within
+    2 * eps * K * (|x| @ |w|) of its plain version, equal to G single
+    launches bit for bit where both take the same launch plan (else within
+    twice the bound), B4 == B2 on the same bits.  Then, bf16 x at M in
+    ``ms`` on the first shape (wi_gate's): the grouped launch, the same work
+    as G single launches, the plain version and ``torch.bmm`` on dense bf16
+    [G, K, N] weights, timed, beside the byte bound.  Returns max |d| by
+    kernel and the timing records."""
     import torch
 
     from repro_torch.core import planes
@@ -3336,8 +3383,8 @@ def check_moe_kernels(dev) -> dict:
             return cim_ops.cim_matmul(x[i], op["splanes"][i], op["scale"][i])
         return call
 
-    for k, n in MOE_SHAPES:
-        packed, rle, int8, dense = moe_stacks(dev, k, n, k + n)
+    for k, n in shapes:
+        packed, rle, int8, dense = moe_stacks(dev, g_, k, n, k + n)
         w_abs = {"B2": cim_ref.unpack_weights(packed["planes_packed"], packed["sign_packed"], k)
                  .abs() * packed["scale"][:, None, None],
                  "B4": cim_ref.unpack_weights(rle["planes_packed"], rle["sign_packed"], k)
@@ -3349,9 +3396,9 @@ def check_moe_kernels(dev) -> dict:
                        x, rle["planes_packed"], rle["sign_packed"], rle["scale"])),
                    "B5": (planes_call(int8), lambda x: cim_ref.cim_matmul(
                        x, int8["splanes"], int8["scale"]))}
-        for m in MOE_M:
+        for m in ms:
             for dtype in (torch.bfloat16, torch.float32):
-                x = torch.randn(64, m, k, device=dev, generator=gen).to(dtype)
+                x = torch.randn(g_, m, k, device=dev, generator=gen).to(dtype)
                 tc = dtype == torch.bfloat16
                 for name, (call, plain) in kernels.items():
                     reset_counts()
@@ -3360,13 +3407,13 @@ def check_moe_kernels(dev) -> dict:
                     want_c = {name: 1, **({f"{name}_tc": 1} if tc else {})}
                     if {k_: v for k_, v in c.items() if v} != want_c:
                         fail(f"grouped {name} {dtype} M={m} K={k} N={n} launched {c} "
-                             f"(want {want_c}: one launch for 64 experts)")
-                    single = torch.stack([call(x, i) for i in range(64)])
+                             f"(want {want_c}: one launch for {g_} experts)")
+                    single = torch.stack([call(x, i) for i in range(g_)])
                     want = plain(x)
                     torch.cuda.synchronize()
                     lim = B2_BOUND_C * eps * k * (x.float().abs() @ w_abs[name])
                     d = (got - want).abs()
-                    if got.shape != (64, m, n) or not bool((d <= lim).all()):
+                    if got.shape != (g_, m, n) or not bool((d <= lim).all()):
                         fail(f"grouped {name} {dtype} M={m} K={k} N={n} outside the bound of its "
                              f"plain version: max |d| {d.max().item():.3e}")
                     if name == "B5":
@@ -3375,13 +3422,13 @@ def check_moe_kernels(dev) -> dict:
                     else:
                         plan = (lambda gr: cim_ops.tc_packed_launch_plan(m, k, n, sms, gr)) if tc \
                             else (lambda gr: cim_ops.launch_plan(m, k, n, sms, groups=gr))
-                    same = plan(1) == plan(64)
+                    same = plan(1) == plan(g_)
                     if same and not torch.equal(got, single):
-                        fail(f"grouped {name} {dtype} M={m} K={k} N={n} differs from 64 single "
+                        fail(f"grouped {name} {dtype} M={m} K={k} N={n} differs from {g_} single "
                              f"launches on the same plan {plan(1)}")
                     if not same and not bool(((got - single).abs() <= 2 * lim).all()):
                         fail(f"grouped {name} {dtype} M={m} K={k} N={n} outside twice the bound "
-                             f"of 64 single launches (plans {plan(64)} / {plan(1)})")
+                             f"of {g_} single launches (plans {plan(g_)} / {plan(1)})")
                     if name == "B4":
                         b2 = cim_ops.cim_matmul_packed(x, rle["planes_packed"],
                                                        rle["sign_packed"], rle["scale"])
@@ -3392,39 +3439,39 @@ def check_moe_kernels(dev) -> dict:
                     n_cases += 1
                     n_same += int(same)
                 del x
-        if (k, n) == MOE_SHAPES[0]:
+        if (k, n) == shapes[0]:
             # timings: bf16 x, the main path's dtype
-            for m in MOE_M:
-                x = torch.randn(64, m, k, device=dev, generator=gen).to(torch.bfloat16)
-                x_bytes, out_bytes, flops = 64 * m * k * 2, 64 * m * n * 4, 2 * 64 * m * k * n
+            for m in ms:
+                x = torch.randn(g_, m, k, device=dev, generator=gen).to(torch.bfloat16)
+                x_bytes, out_bytes, flops = g_ * m * k * 2, g_ * m * n * 4, 2 * g_ * m * k * n
                 library = cuda_ms(lambda: torch.bmm(x, dense))
                 for name, (call, plain) in kernels.items():
-                    ms = cuda_ms(lambda: call(x))
-                    singles = cuda_ms(lambda: [call(x, i) for i in range(64)], reps=5)
+                    t_ms = cuda_ms(lambda: call(x))
+                    singles = cuda_ms(lambda: [call(x, i) for i in range(g_)], reps=5)
                     plain_ms = cuda_ms(lambda: plain(x), reps=2, warmup=1)
                     if name == "B2":
-                        w_bytes = 64 * 11 * (k // 8) * n
+                        w_bytes = g_ * 11 * (k // 8) * n
                     elif name == "B4":
                         w_bytes = sum(planes.operand_payload_bytes(
                             {f: rle[f][i] for f in ("planes_packed", "sign_packed",
                                                     "plane_tile_nz")})["total_bytes"]
-                            for i in range(64))
+                            for i in range(g_))
                     else:
-                        w_bytes = 64 * 10 * k * n
+                        w_bytes = g_ * 10 * k * n
                     b, by = bound(x_bytes + w_bytes + out_bytes, flops, BF16_TC_FLOPS)
-                    records[f"{name} M={m}"] = dict(ms=ms, single_ms=singles, plain_ms=plain_ms,
+                    records[f"{name} M={m}"] = dict(ms=t_ms, single_ms=singles, plain_ms=plain_ms,
                                                     library_ms=library, bound_ms=b, bound_by=by,
                                                     weight_bytes=w_bytes)
-                    say(f"phase moe-kernels: grouped {name} bf16 G=64 M={m} K={k} N={n}: "
-                        f"{ms:.4f} ms (bound {b:.4f} by {by}, weight bytes {w_bytes:,}); 64 "
+                    say(f"phase {label}: grouped {name} bf16 G={g_} M={m} K={k} N={n}: "
+                        f"{t_ms:.4f} ms (bound {b:.4f} by {by}, weight bytes {w_bytes:,}); {g_} "
                         f"single launches {singles:.4f} ms; plain {plain_ms:.4f} ms; torch.bmm on "
                         f"dense bf16 {library:.4f} ms")
                 del x
         del packed, rle, int8, dense, w_abs, kernels
         torch.cuda.empty_cache()
-    say(f"phase moe-kernels: {n_cases} grouped cases (B2, B4 at ~50% zero tiles, B5; G 64, M in "
-        f"{MOE_M}, K x N in {MOE_SHAPES}, bf16 and f32 x), each one launch, within "
-        f"{B2_BOUND_C}*eps*K*(|x|@|w|) of its plain version, bit-equal to 64 single launches in "
+    say(f"phase {label}: {n_cases} grouped cases (B2, B4 at ~50% zero tiles, B5; G {g_}, M in "
+        f"{ms}, K x N in {shapes}, bf16 and f32 x), each one launch, within "
+        f"{B2_BOUND_C}*eps*K*(|x|@|w|) of its plain version, bit-equal to {g_} single launches in "
         f"the {n_same} cases on the same launch plan (the rest within twice the bound), B4 == B2; "
         f"max |d| {err}; {time.perf_counter() - t0:.1f} s")
     return {"err": err, "records": records}
@@ -3474,23 +3521,23 @@ def moe_phase(dev) -> dict:
         f"{m.n_alloc} routed) from "
         f"the reference's key in {time.perf_counter() - t0:.2f} s")
     spec, pcfg = planner.CrossbarSpec(), planner.PlannerConfig(p_stuck=P_STUCK)
+    init_peak = torch.cuda.max_memory_allocated()
     reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    plan = planner.build_deployment(params, spec, pcfg, device=dev)
-    torch.cuda.synchronize()
-    plan_s = time.perf_counter() - t0
+    plan, plan_s, per_weight, plan_peak = plan_tracked(params, spec, pcfg, dev)
     c = counts()
     add(c)
     for name, r in plan.reports.items():
         say(f"  {name} {list(r.shape)}: sws {r.sws_speedup:.3f}x total {r.total_speedup:.3f}x "
-            f"({r.transitions_baseline} -> {r.transitions_sws} -> {r.transitions_final})")
+            f"({r.transitions_baseline} -> {r.transitions_sws} -> {r.transitions_final}); "
+            f"{per_weight[name]:.2f} B a weight in flight")
     tot = plan.totals()
     n_planned = sum(r.n_weights for r in plan.reports.values())
     say(f"phase moe-plan: {len(plan.reports)} tensors ({n_planned / 1e9:.3f}G weights) in "
         f"{plan_s:.2f} s; sws {tot['sws_speedup']:.4f}x total "
         f"{tot['total_speedup']:.4f}x; B1 launches {c['B1']}; peak CUDA memory "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        f"{max(init_peak, plan_peak) / 1e9:.2f} GB (the plan's {plan_peak / 1e9:.2f}); bytes in "
+        f"flight a weight on the expert stacks: " + ", ".join(
+            f"{k_} {v:.2f}" for k_, v in per_weight.items() if "/moe/w" in k_))
     if c["B1"] <= 0 or any(c[k_] for k_ in c if k_ not in ("B1", "plain")) or c["plain"]:
         fail(f"{MOE_ARCH} plan launched {c}")
     stacks = [f"segments/0/moe/{w}" for w in ("router", "wi_gate", "wi_up", "wo")]
@@ -3597,6 +3644,274 @@ def moe_phase(dev) -> dict:
     kern = check_moe_kernels(dev)
     say(f"phase moe: {time.perf_counter() - t_phase:.1f} s; launches {totals}")
     return {**totals, "err": kern["err"], "records": kern["records"]}
+
+
+MLA_ARCH = "deepseek-v2-236b"
+MLA_LAYERS = 1  # depth cut 60 -> 1, the only cut: one layer's three 1.26 G-weight stacks
+MLA_M = (8,)  # expert-buffer rows: capacity 8 at decode (t = 4) and at prefill (t = 128)
+MLA_SHAPES = ((5120, 1536), (1536, 5120))  # K x N of wi_gate / wi_up, and of wo
+MLA_CHECK = "segments/0/mla/wkv_a"  # the tensor re-planned on the CPU
+MLA_STACK = "segments/0/moe/wi_gate"  # the stack the sort kernel is held on
+PLAN_BYTES_PER_WEIGHT = 24  # the planner's bytes in flight a weight on a full-width stack
+
+
+def plan_tracked(params, spec, pcfg, dev, **kw):
+    """``build_deployment`` with each tensor's bytes in flight: the peak
+    CUDA memory while it is planned, less what was allocated when it began
+    (its ``w_hat`` included), over its weights.  Returns (plan, seconds,
+    bytes a weight by tensor, the plan's peak CUDA memory in bytes)."""
+    import torch
+
+    from repro_torch.core import planner
+
+    peaks, cur = {}, {}
+
+    def close():
+        if cur:
+            torch.cuda.synchronize()
+            peaks[cur["name"]] = (torch.cuda.max_memory_allocated(), cur["base"])
+
+    def progress(name):
+        close()
+        torch.cuda.synchronize()
+        cur.update(name=name, base=torch.cuda.memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan = planner.build_deployment(params, spec, pcfg, progress=progress, device=dev, **kw)
+    close()
+    plan_s = time.perf_counter() - t0
+    per_weight = {name: (peak - base) / plan.reports[name].n_weights
+                  for name, (peak, base) in peaks.items()}
+    return plan, plan_s, per_weight, max(peak for peak, _ in peaks.values())
+
+
+def check_sort(w, encoding="sign_magnitude") -> dict:
+    """The SWS sort kernel on one full stack (flat, ``w``'s own bytes)
+    against its plain version (``torch.sort(stable=True)`` of the padded
+    keys) on the card, bit for bit (random weights tie often: 1.26 G floats
+    share far fewer values), then both timed beside ``torch.sort`` alone
+    (the keys made beforehand) and the byte bound (w read, the int32
+    permutation written)."""
+    import torch
+
+    from repro_torch.kernels.sws_sort import ops as sort_ops
+    from repro_torch.kernels.sws_sort import ref as sort_ref
+
+    flat = w.reshape(-1)
+    n = flat.shape[0]
+    n_total = n + (-n) % 128
+    launches = sort_ops.LAUNCHES["SORT"]
+    got = sort_ops.sws_argsort(flat, n_total, encoding)
+    if sort_ops.LAUNCHES["SORT"] != launches + 1:
+        fail("sws_argsort on a CUDA tensor did not launch its kernel")
+    want = sort_ref.sws_argsort(flat, n_total, encoding)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail(f"the SWS sort kernel differs from torch.sort(stable=True) in "
+             f"{int((got != want).sum())} of {n_total} slots")
+    del want
+    ties = n - int(torch.unique(flat.abs()).numel())
+    ms = cuda_ms(lambda: sort_ops.sws_argsort(flat, n_total, encoding), reps=3, warmup=1)
+    plain_ms = cuda_ms(lambda: sort_ref.sws_argsort(flat, n_total, encoding), reps=3, warmup=1)
+    key = sort_ref.sort_key(torch.nn.functional.pad(flat, (0, n_total - n)), encoding)
+    library_ms = cuda_ms(lambda: torch.sort(key, stable=True), reps=3, warmup=1)
+    del key, got
+    torch.cuda.empty_cache()
+    b, by = bound(4 * n + 4 * n_total, 0)
+    say(f"phase mla-sort: the SWS sort kernel on {MLA_STACK} ({n:,} weights, {ties:,} of them "
+        f"tied with another |w|): permutation == torch.sort(stable=True)'s bit for bit; "
+        f"{ms:.4f} ms (bound {b:.4f} by {by}), plain {plain_ms:.4f} ms, torch.sort of the keys "
+        f"{library_ms:.4f} ms")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b, bound_by=by)
+
+
+def mla_phase(dev) -> dict:
+    """deepseek-v2-236b at its published width with the depth cut to
+    MLA_LAYERS: the SWS sort kernel held on one expert stack; a const_rle
+    plan through one pool served raw-packed (B2) and const_rle (B4); one
+    stateless plan (each tensor's bytes in flight printed, the expert
+    stacks held to PLAN_BYTES_PER_WEIGHT; MLA_CHECK re-planned on the CPU)
+    served fp, dense, packed (B2) and planes_int8 (B6 builds, B5 serves,
+    after the f32 originals are freed), every variant through the serve
+    gates: MLA's four planned projections, the router, the shared GLU's
+    three and the expert stacks' three matmuls (ONE grouped launch each) a
+    layer, and the head: (11 x layers + 1) x gen CIM launches a generate,
+    10 x layers x gen on the tensor cores, no B3 (MLA's prefill attention
+    is ``blockwise_attention``, once a layer a prefill, as the reference's
+    is); prefill logits within dense's bound.  Then the grouped kernels at
+    G 160 and the expert shapes (check_moe_kernels).  Returns the phase's
+    launches, max |d|, the grouped timings and the sort's record."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.configs import get_arch
+    from repro_torch.core import planner, pool
+    from repro_torch.kernels.sws_sort import ops as sort_ops
+    from repro_torch.models import api
+
+    t_phase = time.perf_counter()
+    totals = {}
+
+    def add(c):
+        for k_, v in c.items():
+            if k_ != "plain":
+                totals[k_] = totals.get(k_, 0) + v
+
+    full = get_arch(MLA_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MLA_LAYERS)
+    m, a = cfg.moe, cfg.mla
+    say(f"phase mla-plan: {MLA_ARCH} d_model={cfg.d_model} heads={cfg.n_heads} MLA q_lora "
+        f"{a.q_lora_rank} kv_lora {a.kv_lora_rank} nope {a.qk_nope_head_dim} rope "
+        f"{a.qk_rope_head_dim} v {a.v_head_dim}, vocab={cfg.vocab_size}, {m.n_routed} routed "
+        f"experts + {m.n_shared} shared, top-{m.top_k}, d_expert={m.d_expert}, untied head; "
+        f"depth cut {full.n_layers} -> {MLA_LAYERS} (the only cut), p_stuck={P_STUCK}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init(prng.PRNGKey(0), cfg, device=dev)
+    torch.cuda.synchronize()
+    say(f"phase init: {MLA_ARCH} x{MLA_LAYERS} {api.param_count(params) / 1e9:.3f}G params "
+        f"({api.active_param_count(params, cfg) / 1e9:.3f}G active a token) from the reference's "
+        f"key in {time.perf_counter() - t0:.2f} s; {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    sort_rec = check_sort(dict(planner.iter_weights(params, planner.PlannerConfig()))[MLA_STACK])
+    spec = planner.CrossbarSpec()
+    batch = api.make_batch(cfg, prng.PRNGKey(0), BATCH, PROMPT, device=dev)
+    # per forward: MLA's wq_a, wq_b, wkv_a and wo (wk_b / wv_b stay dense w_hat), the router,
+    # the shared GLU's 3 and the routed experts' 3 (one grouped launch each) a layer; the head
+    want = (11 * MLA_LAYERS + 1) * GEN
+    want_tc = 10 * MLA_LAYERS * GEN  # the router's and the head's f32 x take the FMA kernels
+    say(f"phase mla-serve: launch formula per generate: (11 x {MLA_LAYERS} + 1) x {GEN} = {want} "
+        f"CIM launches (wq_a, wq_b, wkv_a, wo, router, shared wi_gate / wi_up / wo, and the "
+        f"expert stacks' wi_gate / wi_up / wo as one grouped launch each, a layer; the head), "
+        f"10 x {MLA_LAYERS} x {GEN} = {want_tc} on the tensor cores; no B3, blockwise_attention "
+        f"{MLA_LAYERS} a prefill")
+
+    def serve_mla(label, p, kernel):
+        exp = {kernel: want, f"{kernel}_tc": want_tc} if kernel else {}
+        out = served(f"{MLA_ARCH} {label}", cfg, p, batch, GEN, kernel, want, want_tc=want_tc,
+                     expect=exp, blockwise=MLA_LAYERS)
+        add(out[3])
+        say(f"phase mla-memory: after {label}: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+            f"allocated, peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        return out
+
+    def plan_line(label, plan, plan_s, per_weight, peak, c, gate):
+        tot = plan.totals()
+        n_planned = sum(r.n_weights for r in plan.reports.values())
+        stacks = {k_: v for k_, v in per_weight.items() if "/moe/w" in k_}
+        say(f"phase {label}: {len(plan.reports)} tensors ({n_planned / 1e9:.3f}G weights) in "
+            f"{plan_s:.2f} s; sws {tot['sws_speedup']:.4f}x total {tot['total_speedup']:.4f}x; "
+            f"B1 {c['B1']}, SORT {c['SORT']}; peak CUDA memory {peak / 1e9:.2f} GB; bytes in "
+            f"flight a weight: " + ", ".join(f"{k_} {v:.2f}" for k_, v in stacks.items())
+            + f" (all tensors: max {max(per_weight.values()):.2f})")
+        if c["B1"] <= 0 or c["SORT"] != len(plan.reports) or any(
+                c[k_] for k_ in c if k_ not in ("B1", "SORT", "plain")) or c["plain"]:
+            fail(f"{MLA_ARCH} {label} launched {c} (want B1 > 0, one SORT a tensor)")
+        over = {k_: v for k_, v in stacks.items() if v > PLAN_BYTES_PER_WEIGHT}
+        if len(stacks) != 3 or (gate and over):
+            fail(f"{MLA_ARCH} {label}: the expert stacks took {over or stacks} bytes a weight in "
+                 f"flight (at most {PLAN_BYTES_PER_WEIGHT})")
+
+    def plan_counts():
+        return {**counts(), "SORT": sort_ops.LAUNCHES["SORT"] - sort_base}
+
+    # const_rle through one persistent pool: the same bits served raw (B2) and flagged (B4)
+    pcfg_pool = planner.PlannerConfig(p_stuck=P_STUCK, codec=CODEC)
+    xbars = pool.CrossbarPool(spec, pcfg_pool.crossbars, device=dev)
+    reset_counts()
+    sort_base = sort_ops.LAUNCHES["SORT"]
+    pool_plan, pool_s, pool_pw, pool_peak = plan_tracked(params, spec, pcfg_pool, dev, pool=xbars)
+    c = plan_counts()
+    add(c)
+    plan_line("mla-plan-pool", pool_plan, pool_s, pool_pw, pool_peak, c, gate=False)
+    stats = xbars.stats()
+    if stats.total_writes != sum(r.transitions_final for r in pool_plan.reports.values()):
+        fail("pool wear does not sum to the programmed transitions")
+    toks, tps = {}, {}
+    p_raw = planner.deploy_params(params, pool_plan, materialize="packed", codec="raw")
+    toks["raw_pool"], tps["packed (pool plan)"], _, _ = serve_mla("packed (pool plan)", p_raw, "B2")
+    del p_raw
+    p_rle = planner.deploy_params(params, pool_plan, materialize="packed", codec=CODEC)
+    flags = p_rle["segments"][0]["moe"]["wi_gate"]["plane_tile_nz"]
+    say(f"phase mla-deploy: {CODEC} expert stack segments/0/moe/wi_gate: per-expert tile flags "
+        f"{list(flags.shape)}, live tiles {int(flags.sum())}/{flags.numel()}; pool wear max cell "
+        f"{stats.max_cell_writes}, total {stats.total_writes}")
+    toks["rle"], tps[f"packed {CODEC}"], _, _ = serve_mla(f"packed {CODEC}", p_rle, "B4")
+    if not torch.equal(toks["rle"], toks["raw_pool"]):
+        fail(f"{MLA_ARCH} {CODEC} tokens differ from raw-packed tokens of the same plan")
+    del p_rle, flags, pool_plan, xbars
+    torch.cuda.empty_cache()
+
+    # the stateless plan
+    pcfg = planner.PlannerConfig(p_stuck=P_STUCK)
+    reset_counts()
+    sort_base = sort_ops.LAUNCHES["SORT"]
+    plan, plan_s, per_weight, peak = plan_tracked(params, spec, pcfg, dev)
+    c = plan_counts()
+    add(c)
+    plan_line("mla-plan", plan, plan_s, per_weight, peak, c, gate=True)
+    for name, r in plan.reports.items():
+        say(f"  {name} {list(r.shape)}: sws {r.sws_speedup:.3f}x total {r.total_speedup:.3f}x "
+            f"({r.transitions_baseline} -> {r.transitions_sws} -> {r.transitions_final}); "
+            f"{per_weight[name]:.2f} B a weight in flight")
+    want_planned = {f"segments/0/mla/{w}" for w in ("wq_a", "wq_b", "wkv_a", "wk_b", "wv_b", "wo")}
+    want_planned |= {f"segments/0/moe/{w}" for w in ("router", "wi_gate", "wi_up", "wo")}
+    if not want_planned | {"head/w"} <= set(plan.reports):
+        fail(f"{MLA_ARCH}: not planned: {sorted(want_planned - set(plan.reports))}")
+    key = planner.tensor_keys(params, pcfg)[MLA_CHECK]
+    w_cpu = dict(planner.iter_weights(params, pcfg))[MLA_CHECK].cpu()
+    r_cpu, w_hat_cpu = planner.analyze_tensor(w_cpu, spec, pcfg, key, name=MLA_CHECK)
+    same_report(plan.reports[MLA_CHECK], r_cpu, f"{MLA_ARCH} {MLA_CHECK}")
+    if plan.deployed[MLA_CHECK].cpu().numpy().tobytes() != w_hat_cpu.numpy().tobytes():
+        fail(f"CPU plan of {MLA_ARCH} {MLA_CHECK} deploys other w_hat bytes")
+    say(f"phase mla-plan-cpu: {MLA_CHECK} {list(w_cpu.shape)} planned on the CPU: report "
+        f"equal, w_hat bytes identical")
+    del w_cpu, w_hat_cpu
+
+    toks["fp"], tps["fp"], _, _ = serve_mla("fp", params, None)
+    p_dense = planner.deploy_params(params, plan, materialize="dense")
+    toks["dense"], tps["dense"], _, _ = serve_mla("dense", p_dense, None)
+    p_packed = planner.deploy_params(params, plan, materialize="packed")
+    op = p_packed["segments"][0]["moe"]["wi_gate"]
+    say(f"phase mla-deploy: segments/0/moe/wi_gate operands: planes "
+        f"{list(op['planes_packed'].shape)}, scale {list(op['scale'].shape)} (layer, expert); "
+        f"wk_b / wv_b dense w_hat {list(p_packed['segments'][0]['mla']['wk_b'].shape)}")
+    toks["packed"], tps["packed"], timed, _ = serve_mla("packed", p_packed, "B2")
+    say(f"phase trace: {MLA_ARCH} cim-packed generate: {trace(timed)}")
+    pf = {"dense": moe_prefill(cfg, p_dense, batch), "packed": moe_prefill(cfg, p_packed, batch)}
+    moe_logit_check(pf["packed"], pf["dense"], "packed vs dense", ("float32",), MLA_ARCH,
+                    kept_rows=True)
+    del timed, p_packed, op
+    # planes_int8 takes 10 bytes a planned weight: free the f32 originals of every planned
+    # tensor first (the dense tree shares w_hat and the unplanned leaves)
+    del params
+    torch.cuda.empty_cache()
+    p_int8, c6 = deploy_int8(p_dense, plan)
+    add(c6)
+    int8_gb = sum(v["splanes"].numel() for v in _operand_dicts(p_int8)) / 1e9
+    del p_dense, plan
+    torch.cuda.empty_cache()
+    toks["planes_int8"], tps["planes_int8"], timed, _ = serve_mla("planes_int8", p_int8, "B5")
+    say(f"phase trace: {MLA_ARCH} cim-planes_int8 generate: {trace(timed)}")
+    pf["planes_int8"] = moe_prefill(cfg, p_int8, batch)
+    moe_logit_check(pf["planes_int8"], pf["dense"], "planes_int8 vs dense", ("float32",),
+                    MLA_ARCH, kept_rows=True)
+    moe_logit_check(pf["planes_int8"], pf["packed"], "planes_int8 vs packed (both exact w_hat)",
+                    ("bfloat16", "float32"), MLA_ARCH, kept_rows=True)
+    agree = {k_: (toks[k_] == toks["dense"]).float().mean().item()
+             for k_ in ("fp", "packed", "planes_int8")}
+    say(f"phase mla-serve: {int8_gb:.2f} GB of int8 planes built by {c6['B6']} B6 launches; "
+        f"batch {BATCH} prompt {PROMPT} gen {GEN} greedy bf16, graph tok/s "
+        + ", ".join(f"{k_} {v:.1f}" for k_, v in tps.items())
+        + f"; {CODEC} tokens == raw-packed tokens; token agreement with dense {agree}; peak CUDA "
+        f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del pf, timed, p_int8
+    torch.cuda.empty_cache()
+
+    kern = check_moe_kernels(dev, m.n_alloc, MLA_SHAPES, MLA_M, "mla-kernels")
+    say(f"phase mla: {time.perf_counter() - t_phase:.1f} s; launches {totals}")
+    return {**totals, "err": kern["err"], "records": kern["records"], "sort": sort_rec}
 
 
 def main() -> None:
@@ -4029,6 +4344,10 @@ def main() -> None:
     mo = moe_phase(dev)
     me, moe_rec = mo.pop("err"), mo.pop("records")
 
+    # --- 5l. MLA: deepseek-v2-236b at published width, one layer ----------------
+    ml = mla_phase(dev)
+    mle, mla_rec, sort_rec = ml.pop("err"), ml.pop("records"), ml.pop("sort")
+
     # --- 6. kernels: time, bound, plain, library -------------------------------
     t = 1 << 20
     pairs = [tuple(torch.randint(0, 256, (t, 16, 10), dtype=torch.uint8, device=dev, generator=g)
@@ -4181,43 +4500,45 @@ def main() -> None:
         if launches_tc is not None:
             r["launches_tc"] = launches_tc
         if grouped is not None:
+            keys = ("ms", "single_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
             r["launches_moe"] = mo.get(grouped, 0)
             for m in MOE_M:
-                g_rec = moe_rec[f"{grouped} M={m}"]
-                r[f"grouped_m{m}"] = {k_: g_rec[k_] for k_ in (
-                    "ms", "single_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+                r[f"grouped_m{m}"] = {k_: moe_rec[f"{grouped} M={m}"][k_] for k_ in keys}
+            r["launches_mla"] = ml.get(grouped, 0)
+            for m in MLA_M:
+                r[f"grouped_g160_m{m}"] = {k_: mla_rec[f"{grouped} M={m}"][k_] for k_ in keys}
         return r
 
     kernels = [
         row("hamming_pairs", "src/repro_torch/csrc/hamming.cu",
             "src/repro/kernels/hamming/kernel.py:32",
             b1_plan + figs["B1"] + trained["B1"] + acc["B1"] + ob["B1"] + bx["B1"] + fl["B1"]
-            + en.get("B1", 0) + tf.get("B1", 0) + mo.get("B1", 0), b1_err,
+            + en.get("B1", 0) + tf.get("B1", 0) + mo.get("B1", 0) + ml.get("B1", 0), b1_err,
             dict(ms=b1_ms, plain_ms=b1_plain, bound_ms=b1_bound, bound_by="bytes",
                  library_ms=None)),
         {**row("cim_matmul_packed", "src/repro_torch/csrc/cim_matmul.cu",
                "src/repro/kernels/cim_matmul/kernel.py:242",
                b2_launches + ob["B2"] + bx["B2"] + fl["B2"] + en.get("B2", 0) + tf.get("B2", 0)
-               + mo.get("B2", 0),
-               max(b2_err, ee["B2"], te["B2"], me["B2"]), records["decode"],
+               + mo.get("B2", 0) + ml.get("B2", 0),
+               max(b2_err, ee["B2"], te["B2"], me["B2"], mle["B2"]), records["decode"],
                b2_tc + ob["B2_tc"] + bx["B2_tc"] + fl["B2_tc"] + en.get("B2_tc", 0)
-               + tf.get("B2_tc", 0) + mo.get("B2_tc", 0), grouped="B2"),
+               + tf.get("B2_tc", 0) + mo.get("B2_tc", 0) + ml.get("B2_tc", 0), grouped="B2"),
          "launches_gain": fl["B2_gain"],
          **{k: v for k, v in records["decode"].items() if k.startswith("gain_")}},
         row("cim_matmul_packed_skip", "src/repro_torch/csrc/cim_matmul.cu",
             "src/repro/kernels/cim_matmul/kernel.py:193",
             b4_launches + ob["B4"] + bx["B4"] + en.get("B4", 0) + tf.get("B4", 0)
-            + mo.get("B4", 0),
-            max(b4_err, ee["B4"], te["B4"], me["B4"]), records["B4 decode"],
+            + mo.get("B4", 0) + ml.get("B4", 0),
+            max(b4_err, ee["B4"], te["B4"], me["B4"], mle["B4"]), records["B4 decode"],
             b4_tc + ob["B4_tc"] + bx["B4_tc"] + en.get("B4_tc", 0) + tf.get("B4_tc", 0)
-            + mo.get("B4_tc", 0), grouped="B4"),
+            + mo.get("B4_tc", 0) + ml.get("B4_tc", 0), grouped="B4"),
         row("cim_matmul_planes", "src/repro_torch/csrc/cim_planes.cu",
             "src/repro/kernels/cim_matmul/kernel.py:74",
             b5_launches + ob["B5"] + fl["B5"] + en.get("B5", 0) + tf.get("B5", 0)
-            + mo.get("B5", 0),
-            max(b5_err, ee["B5"], te["B5"], me["B5"]), records["B5 decode"],
+            + mo.get("B5", 0) + ml.get("B5", 0),
+            max(b5_err, ee["B5"], te["B5"], me["B5"], mle["B5"]), records["B5 decode"],
             b5_tc + ob["B5_tc"] + fl["B5_tc"] + en.get("B5_tc", 0) + tf.get("B5_tc", 0)
-            + mo.get("B5_tc", 0), grouped="B5"),
+            + mo.get("B5_tc", 0) + ml.get("B5_tc", 0), grouped="B5"),
         row("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/kernel.py:109",
             yi["B3"] + acc["B3"] + ob["B3"] + bx["B3"] + fl["B3"] + en.get("B3", 0)
@@ -4226,8 +4547,13 @@ def main() -> None:
             + tf.get("B3_tc", 0) + mo.get("B3_tc", 0)),
         row("bitslice", "src/repro_torch/csrc/bitslice.cu",
             "src/repro/kernels/bitslice/kernel.py:35",
-            yi["B6"] + ob["B6"] + fl["B6"] + en.get("B6", 0) + tf.get("B6", 0) + mo.get("B6", 0),
-            0.0, rec_b6),
+            yi["B6"] + ob["B6"] + fl["B6"] + en.get("B6", 0) + tf.get("B6", 0) + mo.get("B6", 0)
+            + ml.get("B6", 0), 0.0, rec_b6),
+        # a planner helper, not a TPU kernel: the reference sorts on the host; its launches
+        # are phase mla's plans' (the other phases' plans launch it too, uncounted)
+        row("sws_sort", "src/repro_torch/csrc/sws_sort.cu",
+            "none (planner helper; the reference sorts on the host, src/repro/core/sws.py:113)",
+            ml["SORT"], 0.0, sort_rec),
     ]
     say("kernels: " + ", ".join(
         f"{r['name']} launches={r['launches']}"
@@ -4239,6 +4565,11 @@ def main() -> None:
             f" (64 singles {r[f'grouped_m{m}']['single_ms']:.4f},"
             f" bmm {r[f'grouped_m{m}']['library_ms']:.4f},"
             f" bound {r[f'grouped_m{m}']['bound_ms']:.4f})" for m in MOE_M)
+           + f" launches_mla={r['launches_mla']}" + "".join(
+            f" grouped_g160_m{m}_ms={r[f'grouped_g160_m{m}']['ms']:.4f}"
+            f" (160 singles {r[f'grouped_g160_m{m}']['single_ms']:.4f},"
+            f" bmm {r[f'grouped_g160_m{m}']['library_ms']:.4f},"
+            f" bound {r[f'grouped_g160_m{m}']['bound_ms']:.4f})" for m in MLA_M)
            if "launches_moe" in r else "")
         + f" max_abs_err={r['max_abs_err']:.3e} "
         f"ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f}"

@@ -1,8 +1,9 @@
 """Architecture configs served by the port + registry."""
-from repro_torch.configs.base import ArchConfig, MoEConfig, get_arch, list_archs, register
+from repro_torch.configs.base import ArchConfig, MLAConfig, MoEConfig, get_arch, list_archs, register
 
 # importing each module registers its config
 from repro_torch.configs import (  # noqa: F401  (registration side effect)
+    deepseek_v2_236b,
     gemma_2b,
     internlm2_1_8b,
     phi3_medium_14b,
@@ -10,4 +11,4 @@ from repro_torch.configs import (  # noqa: F401  (registration side effect)
     yi_6b,
 )
 
-__all__ = ["ArchConfig", "MoEConfig", "get_arch", "list_archs", "register"]
+__all__ = ["ArchConfig", "MLAConfig", "MoEConfig", "get_arch", "list_archs", "register"]

@@ -3,8 +3,9 @@
 Only the fields the ported decoder paths read are kept: the attention +
 gated-MLP (SwiGLU or GeGLU) decoder stack of ``block_pattern=(("attn", 1),)``
 families, the mixture-of-experts block of ``(("moe", 1),)`` families
-(``MoEConfig``, ``models/moe.py``), and the tensor-parallel flags of
-``parallel/tp.py``.
+(``MoEConfig``, ``models/moe.py``), the multi-head latent attention + MoE
+block of ``(("mla_moe", 1),)`` families (``MLAConfig``, ``models/mla.py``),
+and the tensor-parallel flags of ``parallel/tp.py``.
 """
 from __future__ import annotations
 
@@ -31,6 +32,15 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 1536
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
     family: str
@@ -47,6 +57,7 @@ class ArchConfig:
     embed_scale: bool = False  # multiply embeddings by sqrt(d_model) (gemma)
     dtype: str = "bfloat16"
     moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     # sequence of (block_kind, repeat), expanded cyclically to n_layers
     block_pattern: tuple[tuple[str, int], ...] = (("attn", 1),)
     # --- tensor parallelism (parallel/tp.py) ---

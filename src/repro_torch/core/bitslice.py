@@ -40,40 +40,61 @@ class Quantized:
     encoding: str
 
 
+def quant_params(flat: torch.Tensor, cols: int,
+                 encoding: str = "sign_magnitude") -> tuple[torch.Tensor, torch.Tensor]:
+    """(scale, offset) of :func:`quantize` for the flat float32 ``flat``,
+    from its min and max alone (no full-size temporary): range ``max|w|``
+    (the larger of ``|min|`` and ``|max|``, the same float) or ``max - min``
+    for offset_binary, and ``scale = range * (1/levels)`` with a float32
+    reciprocal constant.  A range below ``tiny * levels`` (a constant
+    tensor) gives a subnormal scale, which XLA:CPU flushes to zero; so does
+    the port."""
+    if encoding not in ENCODINGS:
+        raise ValueError(f"unknown encoding: {encoding!r}")
+    dev = flat.device
+    inv_levels = torch.tensor(1.0 / (2**cols - 1), dtype=torch.float32, device=dev)
+    tiny = torch.tensor(torch.finfo(torch.float32).tiny, dtype=torch.float32, device=dev)
+    if encoding == "offset_binary":
+        lo, hi = torch.aminmax(flat)
+        rng, offset = hi - lo, lo
+    else:
+        if flat.numel():
+            lo, hi = torch.aminmax(flat)
+            rng = torch.maximum(lo.abs(), hi.abs())
+        else:
+            rng = tiny
+        offset = torch.zeros((), dtype=torch.float32, device=dev)
+    scale = torch.maximum(rng, tiny) * inv_levels
+    scale = torch.where(scale < tiny, torch.zeros_like(scale), scale)
+    return scale, offset
+
+
+def quantize_values(flat: torch.Tensor, scale: torch.Tensor, offset: torch.Tensor, cols: int,
+                    encoding: str = "sign_magnitude") -> tuple[torch.Tensor, torch.Tensor]:
+    """(q int32, sign int8) of float32 weights under a given scale and
+    offset: ``round(|w| / scale)`` or ``round((w - offset) / scale)``, a true
+    division rounding half to even, clamped to the levels (``0 / 0`` gives
+    q = 0, as XLA's conversion of NaN does); elementwise, so any slice of a
+    tensor quantizes as the whole does."""
+    levels = float(2**cols - 1)
+    mag = flat - offset if encoding == "offset_binary" else flat.abs()
+    q = torch.clamp(torch.nan_to_num(torch.round(mag / scale), nan=0.0), 0, levels)
+    if encoding == "offset_binary":
+        sign = torch.ones(flat.shape, dtype=torch.int8, device=flat.device)
+    else:
+        sign = torch.where(flat < 0, -1, 1).to(torch.int8)
+    return q.to(torch.int32), sign
+
+
 def quantize(w: torch.Tensor, cols: int, encoding: str = "sign_magnitude") -> Quantized:
     """Quantize a tensor (any shape; flattened) to ``cols``-bit crossbar form.
 
-    Same operation order as the reference: ``scale = range * (1/levels)``
-    with a float32 reciprocal constant (range ``max|w|``, or ``max - min``
-    for offset_binary), then ``round(|w| / scale)`` or ``round((w - min) /
-    scale)``, a true division, rounding half to even.  A range below
-    ``tiny * levels`` (a constant tensor) gives a subnormal scale, which
-    XLA:CPU flushes to zero; so does the port, and ``0 / 0`` then gives
-    q = 0 as XLA's conversion of NaN does.
+    Same operation order as the reference (:func:`quant_params`, then
+    :func:`quantize_values`).
     """
-    if encoding not in ENCODINGS:
-        raise ValueError(f"unknown encoding: {encoding!r}")
     flat = w.reshape(-1).to(torch.float32)
-    dev = flat.device
-    levels = float(2**cols - 1)
-    inv_levels = torch.tensor(1.0 / (2**cols - 1), dtype=torch.float32, device=dev)
-    tiny = torch.tensor(torch.finfo(torch.float32).tiny, dtype=torch.float32, device=dev)
-
-    def quantize_by(rng: torch.Tensor, mag: torch.Tensor):
-        scale = torch.maximum(rng, tiny) * inv_levels
-        scale = torch.where(scale < tiny, torch.zeros_like(scale), scale)
-        q = torch.nan_to_num(torch.round(mag / scale), nan=0.0)
-        return scale, torch.clamp(q, 0, levels).to(torch.int32)
-
-    if encoding == "offset_binary":
-        lo, hi = flat.min(), flat.max()
-        scale, q = quantize_by(hi - lo, flat - lo)
-        sign = torch.ones_like(q, dtype=torch.int8)
-        return Quantized(q=q, sign=sign, scale=scale, offset=lo, cols=cols, encoding=encoding)
-    absw = flat.abs()
-    scale, q = quantize_by(absw.max() if flat.numel() else tiny, absw)
-    sign = torch.where(flat < 0, -1, 1).to(torch.int8)
-    offset = torch.zeros((), dtype=torch.float32, device=dev)
+    scale, offset = quant_params(flat, cols, encoding)
+    q, sign = quantize_values(flat, scale, offset, cols, encoding)
     return Quantized(q=q, sign=sign, scale=scale, offset=offset, cols=cols, encoding=encoding)
 
 

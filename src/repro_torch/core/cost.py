@@ -15,12 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import bitslice
-from repro_torch.kernels.hamming.ref import _byte_popcount
-
-
-def popcount_u8(x: torch.Tensor) -> torch.Tensor:
-    """Elementwise popcount of uint8 words -> int32."""
-    return _byte_popcount(x.device)[x.to(torch.int64)]
+from repro_torch.kernels.hamming.ref import popcount_bytes as popcount_u8
 
 
 def pair_transitions_packed(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -262,7 +262,8 @@ class IntegrityManager:
 
     def attach_aux(self, name: str, aux: dict[str, Any]) -> None:
         """Planner hook: the reconstruction closure (sign slots, scale,
-        offset, inverse permutation, size, shape, dtype) ``rebuild`` needs."""
+        offset, slot -> source permutation, size, shape, dtype) ``rebuild``
+        needs."""
         self.tensors[name].aux = aux
 
     def _rebuild_tile_index(self) -> None:
@@ -596,9 +597,8 @@ class IntegrityManager:
             )
         arr = planes_mod.logical_from_physical(self.read(rec, transient=False), rec.col_order)
         aux = rec.aux
-        w_hat_slots = _planner._dequant_slots(arr, aux["sign_slots"], aux["scale"],
-                                              aux["offset"], self.rows)
-        flat = w_hat_slots.reshape(-1)[aux["inv_perm"]][: aux["n"]]
+        flat = _planner.w_hat_from_slots(arr, aux["sign_slots"], aux["scale"], aux["offset"],
+                                         aux["perm"], aux["n"], self.rows)
         return flat.reshape(aux["shape"]).to(aux["dtype"])
 
     def rebuild_plan(self, plan):

@@ -15,8 +15,12 @@ crossbars hold, and the pool prices and wears those.
 Per tensor the work is plain tensor code on the tensor's device; pair
 pricing goes through ``kernels.hamming.ops.price_pairs`` (the Hamming kernel
 on CUDA, its plain version on the CPU).  A tensor is handled as a padded
-flat vector of ``S * rows`` slots plus the slot -> source permutation; the
-achieved weights come back through its inverse, so index matching is exact.
+flat vector of ``S * rows`` slots plus the int32 slot -> source permutation
+(the SWS argsort, ``kernels.sws_sort``: CUB's radix sort on CUDA); the
+achieved weights are scattered back through it, so index matching is
+exact.  Quantizing, packing and dequantizing run over chunks of slots, so a
+tensor costs ~16 bytes a weight in flight beyond its ``w_hat`` (the sort's
+buffers) whatever its size.
 A stacked segment tensor (leading layer axis) is planned as ONE tensor,
 exactly as the reference does.
 
@@ -38,12 +42,13 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch import prng, tree
 from repro_torch.core import bitslice, planes, schedule, sws
 from repro_torch.core.pool import CrossbarPool
 from repro_torch.kernels._util import resolve_device
+from repro_torch.kernels.sws_sort import ops as sort_ops
+from repro_torch.kernels.sws_sort import ref as sort_ref
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,16 +182,32 @@ def _dequant_slots(
 
 @dataclasses.dataclass
 class _Prep:
-    """Per-tensor prep: logical weights, chains, baseline and SWS planes."""
+    """Per-tensor prep: chains, baseline job costs, SWS planes and signs,
+    and the slot -> source permutation (slots past ``n`` hold the zero
+    padding of the last section)."""
 
-    flat: torch.Tensor  # f32[n] logical weights
+    n: int  # logical weights
     chains: list[np.ndarray]
     jobs_u: np.ndarray  # baseline job costs (unsorted, full reprogramming)
     packed_s: torch.Tensor  # SWS-ordered packed planes uint8[S, W, cols]
     sign_slots: torch.Tensor  # int8[S, rows]
     scale: torch.Tensor
     offset: torch.Tensor
-    inv_perm: torch.Tensor
+    perm: torch.Tensor  # int32[S * rows]
+
+
+# Weights a chunked pass of the planner handles at once: bounds the f32,
+# int32 and int64 temporaries of quantizing, packing and dequantizing, so a
+# tensor's bytes in flight are its permutation, planes and signs plus the
+# sort's buffers (``kernels/sws_sort``), whatever its size.
+_CHUNK = 1 << 24
+
+
+def _slot_chunks(n_total: int, rows: int):
+    """[a, b) slot ranges of whole sections, about ``_CHUNK`` slots each."""
+    step = max(rows, _CHUNK // rows * rows)
+    for a in range(0, n_total, step):
+        yield a, min(a + step, n_total)
 
 
 def _sort_key(flat_padded: torch.Tensor, encoding: str) -> torch.Tensor:
@@ -194,7 +215,7 @@ def _sort_key(flat_padded: torch.Tensor, encoding: str) -> torch.Tensor:
     offset_binary stores w - min, so it sorts by value.  ``+ 0.0`` turns
     -0.0 into +0.0 (and changes no other value), so the two zeros tie on
     every sort route, as they do in the reference's float sort."""
-    return flat_padded.abs() if encoding == "sign_magnitude" else flat_padded + 0.0
+    return sort_ref.sort_key(flat_padded, encoding)
 
 
 def _perm_full_with_inverse(
@@ -202,12 +223,16 @@ def _perm_full_with_inverse(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Slot -> source permutation of the padded vector (SWS order by
     :func:`_sort_key`, the zero padding sorting with the zeros; then the TSP
-    section walk if asked), and its inverse; the identity without SWS."""
+    section walk if asked), int64, and its inverse; the identity without
+    SWS.  ``core/redeploy.py``'s pricing; :func:`_prep` keeps the same
+    permutation in int32 with no inverse."""
     rows, cols = spec.rows, spec.cols
     if not config.sws:
         ar = torch.arange(flat_padded.shape[0], device=flat_padded.device)
         return ar, ar
-    perm, inv_perm = sws.stable_argsort(_sort_key(flat_padded, spec.encoding), with_inverse=True)
+    n_total = flat_padded.shape[0]
+    perm = sort_ops.sws_argsort(flat_padded, n_total, spec.encoding).to(torch.int64)
+    inv_perm = sws.inverse_permutation(perm)
     if config.section_order == "tsp":
         order = sws.tsp_greedy_order(bitslice.section_planes_packed(q_padded[perm], rows, cols))
         slot = order[:, None] * rows + torch.arange(rows, device=order.device)
@@ -216,38 +241,73 @@ def _perm_full_with_inverse(
     return perm, inv_perm
 
 
-def _prep(w: torch.Tensor, spec: CrossbarSpec, config: PlannerConfig) -> _Prep:
-    """Quantize, price the unsorted baseline, sort (SWS) and pack."""
-    rows, cols = spec.rows, spec.cols
-    flat = w.reshape(-1).to(torch.float32)
+def _section_slots(flat: torch.Tensor, src: torch.Tensor, spec: CrossbarSpec,
+                   scale: torch.Tensor, offset: torch.Tensor):
+    """Packed planes uint8[s, W, cols] and signs int8[s, rows] of the slots
+    whose sources are ``src`` (int64, whole sections; a source >= n is zero
+    padding: q 0, sign +1)."""
     n = flat.shape[0]
-    pad = (-n) % rows
-    flat_padded = F.pad(flat, (0, pad))
-    s = (n + pad) // rows
+    pad = src >= n
+    q, sign = bitslice.quantize_values(flat[src.clamp(max=n - 1)], scale, offset, spec.cols,
+                                       spec.encoding)
+    q, sign = q.masked_fill(pad, 0), sign.masked_fill(pad, 1)
+    return bitslice.section_planes_packed(q, spec.rows, spec.cols), sign.reshape(-1, spec.rows)
+
+
+def _prep(w: torch.Tensor, spec: CrossbarSpec, config: PlannerConfig) -> _Prep:
+    """Quantize, price the unsorted baseline, sort (SWS) and pack.
+
+    Works through the slots in chunks of whole sections, so no full-size
+    copy of ``w``, of its magnitudes, signs or keys, and no int64
+    permutation or inverse is ever held: in flight are the int32
+    permutation, the packed planes and signs, and the sort's own buffers.
+    """
+    rows, cols = spec.rows, spec.cols
+    flat = w.reshape(-1).to(torch.float32)  # a view of a float32 ``w``
+    n = flat.shape[0]
+    n_total = n + (-n) % rows
+    s = n_total // rows
     l = max(1, min(config.crossbars, s))
     chains = schedule.make_chains(s, l, config.schedule)
-
-    qt = bitslice.quantize(flat, cols, spec.encoding)
-    q_padded = F.pad(qt.q, (0, pad))
-    sign_padded = F.pad(qt.sign, (0, pad), value=1)
+    scale, offset = bitslice.quant_params(flat, cols, spec.encoding)
+    dev = flat.device
+    words = -(-rows // 8)
 
     # baseline: unsorted natural order, full reprogramming
-    jobs_u = schedule.schedule_job_costs(
-        bitslice.section_planes_packed(q_padded, rows, cols), chains,
-        include_initial=config.include_initial,
-    )
+    packed_u = torch.empty((s, words, cols), dtype=torch.uint8, device=dev)
+    for a, b in _slot_chunks(n_total, rows):
+        src = torch.arange(a, b, device=dev)
+        packed_u[a // rows:b // rows] = _section_slots(flat, src, spec, scale, offset)[0]
+    jobs_u = schedule.schedule_job_costs(packed_u, chains, include_initial=config.include_initial)
+    del packed_u
 
-    perm, inv_perm = _perm_full_with_inverse(flat_padded, spec, config, q_padded)
-    return _Prep(
-        flat=flat,
-        chains=chains,
-        jobs_u=jobs_u.cpu().numpy(),
-        packed_s=bitslice.section_planes_packed(q_padded[perm], rows, cols),
-        sign_slots=sign_padded[perm].reshape(s, rows),
-        scale=qt.scale,
-        offset=qt.offset,
-        inv_perm=inv_perm,
-    )
+    if config.sws:
+        perm = sort_ops.sws_argsort(flat, n_total, spec.encoding)
+    else:
+        perm = torch.arange(n_total, dtype=torch.int32, device=dev)
+    packed_s = torch.empty((s, words, cols), dtype=torch.uint8, device=dev)
+    sign_slots = torch.empty((s, rows), dtype=torch.int8, device=dev)
+    for a, b in _slot_chunks(n_total, rows):
+        packed_s[a // rows:b // rows], sign_slots[a // rows:b // rows] = _section_slots(
+            flat, perm[a:b].to(torch.int64), spec, scale, offset)
+    if config.sws and config.section_order == "tsp":
+        order = sws.tsp_greedy_order(packed_s)
+        slot = order[:, None] * rows + torch.arange(rows, device=dev)
+        perm, packed_s, sign_slots = perm[slot.reshape(-1)], packed_s[order], sign_slots[order]
+    return _Prep(n=n, chains=chains, jobs_u=jobs_u.cpu().numpy(), packed_s=packed_s,
+                 sign_slots=sign_slots, scale=scale, offset=offset, perm=perm)
+
+
+def _quant_mse(w: torch.Tensor, w_hat: torch.Tensor) -> float:
+    """||w - w_hat||^2 / n, summed in chunks in float64 (no full-size
+    temporary); the reference's float32 mean differs in the last bits."""
+    a, b = w.reshape(-1), w_hat.reshape(-1)
+    n = a.shape[0]
+    total = torch.zeros((), dtype=torch.float64, device=a.device)
+    for i in range(0, n, _CHUNK):
+        d = a[i:i + _CHUNK].to(torch.float32) - b[i:i + _CHUNK].to(torch.float32)
+        total += torch.sum((d * d).to(torch.float64))
+    return float(total) / n if n else float("nan")
 
 
 def _report(
@@ -256,7 +316,7 @@ def _report(
 ) -> TensorReport:
     """TensorReport from host job costs (int64 aggregation: whole-tensor
     totals can exceed int32)."""
-    n = prep.flat.shape[0]
+    n = prep.n
     trans_sws = int(np.sum(jobs_s, dtype=np.int64))
     return TensorReport(
         name=name,
@@ -273,17 +333,33 @@ def _report(
             schedule.lockstep_time_host(jobs_s, config.threads, sort_jobs=True)
         ),
         lockstep_time_ideal=float(trans_sws) / config.threads,
-        quant_mse=float(torch.mean((prep.flat - w_hat_flat) ** 2)),
+        quant_mse=_quant_mse(w, w_hat_flat),
         scale=float(prep.scale),
         offset=float(prep.offset),
     )
 
 
+def w_hat_from_slots(achieved: torch.Tensor, sign_slots: torch.Tensor, scale: torch.Tensor,
+                     offset: torch.Tensor, perm: torch.Tensor, n: int, rows: int) -> torch.Tensor:
+    """Achieved packed planes uint8[S, W, cols] -> the achieved weights
+    f32[n] in logical order: each chunk of slots dequantized
+    (:func:`_dequant_slots`) and scattered to its sources through ``perm``
+    (slot -> source), the inverse permutation's gather without its
+    full-size int64 array.  The padding slots land past ``n``."""
+    out = torch.empty((perm.shape[0],), dtype=torch.float32, device=achieved.device)
+    for a, b in _slot_chunks(perm.shape[0], rows):
+        sa, sb = a // rows, b // rows
+        vals = _dequant_slots(achieved[sa:sb], sign_slots[sa:sb], scale, offset, rows)
+        out[perm[a:b].to(torch.int64)] = vals.reshape(-1)
+    return out[:n]
+
+
 def _w_hat(achieved: torch.Tensor, prep: _Prep, w: torch.Tensor, rows: int):
-    """Achieved packed planes -> (w_hat_flat f32[n], w_hat in w's layout)."""
-    w_hat_slots = _dequant_slots(achieved, prep.sign_slots, prep.scale, prep.offset, rows)
-    w_hat_flat = w_hat_slots.reshape(-1)[prep.inv_perm][: prep.flat.shape[0]]
-    return w_hat_flat, w_hat_flat.reshape(w.shape).to(w.dtype)
+    """Achieved packed planes -> (w_hat_flat f32[n], w_hat in w's layout and
+    dtype: the same storage for a float32 ``w``)."""
+    flat = w_hat_from_slots(achieved, prep.sign_slots, prep.scale, prep.offset, prep.perm,
+                            prep.n, rows)
+    return flat, flat.reshape(w.shape).to(w.dtype)
 
 
 def analyze_tensor(
@@ -339,8 +415,7 @@ def analyze_tensor(
         # planes with, into the same w_hat bytes
         pool.integrity.attach_aux(name, {
             "sign_slots": prep.sign_slots, "scale": prep.scale, "offset": prep.offset,
-            "inv_perm": prep.inv_perm, "n": prep.flat.shape[0], "shape": tuple(w.shape),
-            "dtype": w.dtype,
+            "perm": prep.perm, "n": prep.n, "shape": tuple(w.shape), "dtype": w.dtype,
         })
     jobs_s, trans_final = res.job_costs, res.transitions_programmed
     if not config.include_initial:
@@ -418,12 +493,13 @@ def build_deployment(
 MATERIALIZATIONS = ("dense", "packed", "planes_int8")
 
 # Deployed tensors whose consumers are not plain [K, N] matmuls stay dense
-# under "packed" (still the achieved crossbar weights).  Matched against
-# '/'-separated name components.  On the ported decoder that is the norm
-# gains "g": at full width min_size admits the stacked gains, which rmsnorm
-# multiplies elementwise (ROADMAP C.4).  Other families' non-matmul
+# under "packed" and "planes_int8" (still the achieved crossbar weights).
+# Matched against '/'-separated name components.  The norm gains "g": at
+# full width min_size admits the stacked gains, which rmsnorm multiplies
+# elementwise (ROADMAP C.4); MLA's "wk_b" / "wv_b", which the absorbed
+# decode reshapes per head (models/mla.py).  Other families' non-matmul
 # parameters join this list with their blocks.
-MATERIALIZE_DENSE_ONLY = ("g",)
+MATERIALIZE_DENSE_ONLY = ("g", "wk_b", "wv_b")
 
 
 def _dense_only(name: str) -> bool:

@@ -77,6 +77,14 @@ def _step_masks(
     return torch.cat(parts, dim=1)
 
 
+# chain steps x rows a group of chains walks at once: bounds the walk's
+# int32 / int64 temporaries (the stuck-column cummax and gather, the masks)
+# at a few GB for a full-width expert stack, whose 16 chains of ~600k steps
+# then walk one at a time.  Chains are independent, so grouping changes no
+# bit: each chain draws from its own key.
+_WALK_CHUNK = 1 << 26
+
+
 def walk_packed(
     packed: torch.Tensor,
     order: torch.Tensor,
@@ -100,17 +108,62 @@ def walk_packed(
     crossbar ``l`` holds while ``order[l, t]`` is resident.  With
     ``with_wear`` the walk also returns per-step counts int64[L, T] and
     per-cell wear int32[L, rows, cols] (toggles of each cell over the walk).
+    Chains walk in groups of ``_WALK_CHUNK // (T * rows)``.
     """
     n_chains, steps = order.shape
-    seq = packed[order]  # [L, T, W, cols]
     if valid is None:
         valid = torch.ones((n_chains, steps), dtype=torch.bool, device=packed.device)
     if state0 is None:
         state0 = torch.zeros((n_chains,) + tuple(packed.shape[1:]), dtype=torch.uint8,
                              device=packed.device)
+    group = max(1, _WALK_CHUNK // max(1, steps * rows))
+    states = torch.empty((n_chains, steps) + tuple(packed.shape[1:]), dtype=torch.uint8,
+                         device=packed.device)
+    parts = []
+    for l0 in range(0, n_chains, group):
+        g = slice(l0, l0 + group)
+        out = _walk_group(packed, order[g], p, keys[g], rows=rows, stuck_cols=stuck_cols,
+                          include_initial=include_initial, valid=valid[g], state0=state0[g],
+                          with_wear=with_wear)
+        states[g] = out[1]
+        parts.append([o for i, o in enumerate(out) if i != 1])
+    merged = [torch.cat(col) for col in zip(*parts)]
+    return (merged[0], states, *merged[1:])
+
+
+# steps a first-level scan of _cummax_steps covers
+_SCAN_BLOCK = 512
+
+
+def _cummax_steps(x: torch.Tensor) -> torch.Tensor:
+    """``torch.cummax(x, dim=1).values`` of step indices x [L, T, ...] (-1
+    where none), in two levels: a scan over each block of _SCAN_BLOCK steps,
+    then one over the blocks' last values, carried into the next block.
+    The same values (max is exact); torch's scan over a non-innermost dim
+    runs one thread a column through all T steps, which at a full-width
+    stack's ~600k steps and 128 columns a chain leaves the card idle."""
+    t = x.shape[1]
+    if t <= _SCAN_BLOCK:
+        return torch.cummax(x, dim=1).values
+    nb = -(-t // _SCAN_BLOCK)
+    lead, rest = x.shape[0], tuple(x.shape[2:])
+    if nb * _SCAN_BLOCK != t:
+        x = torch.cat([x, x.new_full((lead, nb * _SCAN_BLOCK - t) + rest, -1)], dim=1)
+    inner = torch.cummax(x.reshape((lead, nb, _SCAN_BLOCK) + rest), dim=2).values
+    carry = torch.cummax(inner[:, :, -1], dim=1).values  # [L, nb, ...]
+    prev = torch.cat([carry.new_full((lead, 1) + rest, -1), carry[:, :-1]], dim=1)
+    out = torch.maximum(inner, prev[:, :, None])
+    return out.reshape((lead, nb * _SCAN_BLOCK) + rest)[:, :t]
+
+
+def _walk_group(packed, order, p, keys, *, rows, stuck_cols, include_initial, valid, state0,
+                with_wear):
+    """:func:`walk_packed` on one group of chains."""
+    steps = order.shape[1]
+    seq = packed[order]  # [L, T, W, cols]
     t_idx = torch.arange(steps, dtype=torch.int32, device=packed.device)
     # non-stuck cells hold the target of the last valid step (state0 before)
-    last_valid = torch.cummax(torch.where(valid, t_idx[None, :], -1), dim=1).values
+    last_valid = _cummax_steps(torch.where(valid, t_idx[None, :], -1))
     idx = last_valid.clamp(min=0).to(torch.int64)[:, :, None, None].expand(seq.shape)
     states = torch.where((last_valid >= 0)[:, :, None, None], torch.gather(seq, 1, idx),
                          state0[:, None])
@@ -118,7 +171,7 @@ def walk_packed(
         mask = _step_masks(keys, steps, p, rows, stuck_cols)
         mask &= valid[:, :, None, None]
         last = torch.where(mask, t_idx[None, :, None, None], -1)
-        last = torch.cummax(last, dim=1).values  # last masked step <= t, or -1
+        last = _cummax_steps(last)  # last masked step <= t, or -1
         target = bitslice.unpackbits(seq[..., :stuck_cols], -2, rows)  # [L, T, rows, sc]
         held = torch.gather(target, 1, last.clamp(min=0).to(torch.int64))
         start = bitslice.unpackbits(state0[..., :stuck_cols], -2, rows)[:, None]

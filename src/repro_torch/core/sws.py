@@ -8,7 +8,10 @@ inverse give exact index matching back to the logical layout.
 
 The reference's host ``pure_callback`` sort works around XLA:CPU's slow
 comparison sort; a stable sort yields the identical permutation on any
-route, so the port uses ``torch.sort(stable=True)`` everywhere.
+route.  The planner's weight permutation goes through
+``kernels.sws_sort`` (CUB's radix sort on the card, into int32, whose plain
+version is ``torch.sort(stable=True)``); the rest here sorts with
+``torch.sort(stable=True)``.
 """
 from __future__ import annotations
 

@@ -28,7 +28,8 @@ import torch.nn.functional as F
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNEL_SOURCES = ("hamming", "cim_matmul", "cim_planes", "flash_attention", "bitslice")
+KERNEL_SOURCES = ("hamming", "cim_matmul", "cim_planes", "flash_attention", "bitslice",
+                  "sws_sort")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v",

@@ -13,16 +13,18 @@ from __future__ import annotations
 import torch
 
 
-def _byte_popcount(device) -> torch.Tensor:
-    v = torch.arange(256, dtype=torch.int32, device=device)
-    return sum(((v >> i) & 1) for i in range(8)).to(torch.int32)
+def popcount_bytes(x: torch.Tensor) -> torch.Tensor:
+    """Elementwise popcount of uint8 words -> uint8 (sum it with a wider
+    ``dtype``).  Bit-parallel in the words' own byte, so no wider index or
+    count is ever built: a table lookup would cost 12 bytes a byte."""
+    x = x - ((x >> 1) & 0x55)
+    x = (x & 0x33) + ((x >> 2) & 0x33)
+    return (x + (x >> 4)) & 0x0F
 
 
 def hamming_pairs(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     hamming_pairs.calls += 1
-    table = _byte_popcount(a.device)
-    x = table[torch.bitwise_xor(a, b).to(torch.int64)]
-    return x.sum(dim=(1, 2), dtype=torch.int32)
+    return popcount_bytes(torch.bitwise_xor(a, b)).sum(dim=(1, 2), dtype=torch.int32)
 
 
 hamming_pairs.calls = 0

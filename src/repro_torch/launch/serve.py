@@ -297,7 +297,13 @@ def main(argv: list[str] | None = None) -> None:
     # dense and int8 planes have no stored-plane layout to encode; the plan's
     # codec already shaped the pool's physical programming above
     codec = args.codec if args.materialize == "packed" else "raw"
+    # the served tree needs the deployed tensors and the unplanned leaves only: the f32
+    # originals of the planned ones go first, and w_hat once the operands are built (a
+    # full-width deepseek-v2-236b layer's int8 planes take 45 GB of the card)
+    params = deploy_params(params, plan, materialize="dense")
     params_hat = deploy_params(params, plan, materialize=args.materialize, codec=codec)
+    del params
+    plan = dataclasses.replace(plan, deployed={})
     tokens_hat, tps_hat = generate(cfg, params_hat, batch, gen_len=args.gen, seed=args.seed,
                                    loop=args.loop)
     agree = (tokens == tokens_hat).float().mean().item()

@@ -91,19 +91,24 @@ def _params_device(params) -> torch.device:
     return None
 
 
-# a layer's sub-dicts whose dense leaves ``layers.linear`` casts ("moe": the
-# routed expert stacks and the shared GLU)
-MATMUL_BLOCKS = ("attn", "mlp", "moe")
-F32_MATMULS = ("router",)  # matmuls the model runs in float32 whatever its dtype
+# a layer's sub-dicts whose dense leaves the model casts at use ("moe": the
+# routed expert stacks and the shared GLU; "mla": its projections, wk_b and
+# wv_b included)
+MATMUL_BLOCKS = ("attn", "mlp", "moe", "mla")
+# entries of those sub-dicts left as they are: the MoE router (a float32
+# matmul whatever the model's dtype) and MLA's norm gains (rmsnorm reads
+# them in float32, so a bf16 copy would round them)
+KEEP_F32 = ("router", "q_norm", "kv_norm")
 
 
 def _cast_matmul_weights(params, dtype: torch.dtype):
     """The dense matmul weights of every layer cast to ``dtype``: the bytes
-    ``layers.linear`` makes at every call.  The embedding table (read in f32
-    by ``unembed``), the norm gains, the LM head and the MoE router (f32
-    matmuls) stay as they are, as do operand dicts."""
+    ``layers.linear`` (and MLA's per-head ``wk_b`` / ``wv_b``) make at every
+    call.  The embedding table (read in f32 by ``unembed``), the norm gains,
+    the LM head and the MoE router (f32 matmuls) stay as they are, as do
+    operand dicts."""
     def cast_block(block):
-        return {k: v if k in F32_MATMULS or simulator.is_cim_operands(v)
+        return {k: v if k in KEEP_F32 or simulator.is_cim_operands(v)
                 else v.to(dtype) if isinstance(v, torch.Tensor)
                 else cast_block(v) if isinstance(v, dict) else v
                 for k, v in block.items()}

@@ -4,9 +4,12 @@
 segment's params are stacked on a leading layer axis (the reference scans
 over it), and the port walks that axis in a Python loop, handing each layer
 its slice — dense tensors and packed operand dicts alike.  The port has
-the ``attn`` kind (the dense decoders) and the ``moe`` kind (attention +
-mixture-of-experts MLP, ``models/moe.py``); ``KINDS`` maps each to its
-init / forward / decode-step functions, as the reference's registry does.
+the ``attn`` kind (the dense decoders), the ``moe`` kind (attention +
+mixture-of-experts MLP, ``models/moe.py``) and the ``mla_moe`` kind
+(multi-head latent attention + MoE MLP, ``models/mla.py``); ``KINDS`` maps
+each to its init / forward / decode-step / cache functions, as the
+reference's registry does, and each segment's cache holds its kind's own
+keys ({"k", "v"}, or the latent {"c_kv", "k_rope"}).
 
 Interface:
   init(key, cfg, device=)                          -> params (device: cuda default)
@@ -34,22 +37,29 @@ from torch.utils.checkpoint import (
 from repro_torch import prng
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels._util import resolve_device
-from repro_torch.models import blocks, layers, moe
+from repro_torch.models import blocks, layers, mla, moe
 from repro_torch.models.layers import Params
 
 
 class _Kind:
     """A block kind: init(keys, cfg), fwd(p, cfg, x, return_cache=, train=)
-    -> (x, cache[, aux]) and step(p, cfg, x, cache, pos) -> x; ``has_aux``
-    kinds return the layer's aux loss from ``fwd``."""
+    -> (x, cache[, aux]), step(p, cfg, x, cache, pos) -> x and
+    init_cache(cfg, batch, seq_len, dtype, device, lead) -> the zero decode
+    cache of one layer (``lead`` stacks it); ``has_aux`` kinds return the
+    layer's aux loss from ``fwd``."""
 
-    def __init__(self, init, fwd, step, has_aux=False):
-        self.init, self.fwd, self.step, self.has_aux = init, fwd, step, has_aux
+    def __init__(self, init, fwd, step, init_cache, has_aux=False):
+        self.init, self.fwd, self.step = init, fwd, step
+        self.init_cache, self.has_aux = init_cache, has_aux
 
 
 KINDS: dict[str, _Kind] = {
-    "attn": _Kind(blocks.init_attn_block, blocks.attn_block_fwd, blocks.attn_block_step),
-    "moe": _Kind(moe.init_moe_block, moe.moe_block_fwd, moe.moe_block_step, has_aux=True),
+    "attn": _Kind(blocks.init_attn_block, blocks.attn_block_fwd, blocks.attn_block_step,
+                  blocks.init_attn_cache),
+    "moe": _Kind(moe.init_moe_block, moe.moe_block_fwd, moe.moe_block_step,
+                 blocks.init_attn_cache, has_aux=True),
+    "mla_moe": _Kind(mla.init_mla_moe_block, mla.mla_moe_block_fwd, mla.mla_moe_block_step,
+                     mla.init_mla_cache, has_aux=True),
 }
 
 
@@ -167,7 +177,7 @@ def _run_segments(params: Params, cfg: ArchConfig, x: torch.Tensor, *, return_ca
                 x, cache = out
             layer_caches.append(cache)
         if return_cache:
-            caches.append({k: torch.stack([c[k] for c in layer_caches]) for k in ("k", "v")})
+            caches.append({k: torch.stack([c[k] for c in layer_caches]) for k in layer_caches[0]})
     return x, aux, caches if return_cache else None
 
 
@@ -189,8 +199,9 @@ def forward(params: Params, cfg: ArchConfig, batch: dict, *, remat: str = "none"
 
 
 def prefill(params: Params, cfg: ArchConfig, batch: dict) -> tuple[torch.Tensor, list]:
-    """Returns (last-position logits (B, 1, V), per-segment prompt caches
-    {"k", "v": (count, B, Hkv, S, hd)})."""
+    """Returns (last-position logits (B, 1, V), per-segment prompt caches:
+    {"k", "v": (count, B, Hkv, S, hd)}, or MLA's {"c_kv": (count, B, S, r),
+    "k_rope": (count, B, S, dr)})."""
     x = _embed_inputs(params, cfg, batch["tokens"])
     x, _, caches = _run_segments(params, cfg, x, return_cache=True)
     return _logits(params, cfg, x[:, -1:]), caches
@@ -198,15 +209,15 @@ def prefill(params: Params, cfg: ArchConfig, batch: dict) -> tuple[torch.Tensor,
 
 def init_cache(cfg: ArchConfig, batch: int, seq_len: int, dtype=None, *, device=None,
                shards: int = 0) -> list:
-    """Zero decode cache, one stacked {"k", "v"} per segment (CUDA unless
-    ``device="cpu"``); ``shards`` > 0 adds a shard axis after the layer axis
-    (a TP plan's sharded attention: one cache per shard)."""
+    """Zero decode cache, one stacked cache of its kind's keys per segment
+    (CUDA unless ``device="cpu"``); ``shards`` > 0 adds a shard axis after
+    the layer axis (a TP plan's sharded attention: one cache per shard)."""
     device = resolve_device(device)
     dtype = compute_dtype(cfg) if dtype is None else dtype
     extra = (shards,) if shards else ()
     return [
-        blocks.init_attn_cache(cfg, batch, seq_len, dtype, device, lead=(count, *extra))
-        for _, count in segments_of(cfg)
+        KINDS[kind].init_cache(cfg, batch, seq_len, dtype, device, lead=(count, *extra))
+        for kind, count in segments_of(cfg)
     ]
 
 
@@ -230,7 +241,8 @@ def decode_step(
 
 def supports_paged(cfg: ArchConfig) -> bool:
     """Paged KV serving covers pure-attention decoder stacks: the dense
-    configs; a ``moe`` stack is refused, as in the reference."""
+    configs; a ``moe`` or ``mla_moe`` stack is refused, as in the
+    reference."""
     return {k for k, _ in segments_of(cfg)} <= {"attn"}
 
 
