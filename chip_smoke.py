@@ -20,8 +20,10 @@ continuous-batching engine, every dispatch a CUDA graph; and yi-6b and
 gemma-2b split over tensor-parallel shards, deployed over per-shard pools
 and served by fleets of engine replicas under chaos; and qwen2-moe-a2.7b
 (2 layers) planned and served from its bits with every expert stack one
-grouped kernel launch — and holds each hand-written kernel against its
-plain PyTorch version on the card.
+grouped kernel launch; deepseek-v2-236b (1 layer) with MLA; and hymba-1.5b
+(4 layers), attention beside Mamba heads with meta tokens and
+sliding-window ring caches — and holds each hand-written kernel against
+its plain PyTorch version on the card.
 Phases (one line each, any failed check exits 1):
 
   1. card + build: name and power limit, the kernels built from csrc/;
@@ -224,25 +226,48 @@ Phases (one line each, any failed check exits 1):
      reference's); prefill logits within dense's bound (bf16: the rows
      whose last token kept its experts); then the grouped B2, B4 and B5 at
      G 160, M 8, K x N 5120 x 1536 and 1536 x 5120;
+  5m. hymba: hymba-1.5b at published width (d_model 1600, 25 heads over 5
+     KV heads at head dim 64, d_ff 5504, vocab 32001, untied head, SSM
+     state 16, conv 4, expand 2, chunk 16, window 1024, 128 meta tokens),
+     depth cut 32 -> 4 (HYMBA_LAYERS: one hymba_global layer, three
+     hymba_swa): a const_rle plan through one pool served raw-packed (B2)
+     and const_rle (B4, tokens == raw-packed); one stateless plan served
+     fp, dense, packed (B2) and planes_int8 (B6 builds, B5 serves), each
+     through the serve gates: (11 x layers + 1) x gen CIM launches a
+     generate (attention's 4, the Mamba projections' 4, the MLP's 3 a
+     layer; the head), 11 x layers x gen on the tensor cores, B3 = B3_tc =
+     layers at D = 64 a prefill, no blockwise_attention; prefill logits of
+     packed and planes_int8 within dense's bound; then a packed generate
+     of a 1024-token prompt (1,152 positions with the meta tokens: the swa
+     mask at the published window, the ring roll and wrap) through the
+     serve gates, its last decode logits within 2e-2 of forward's largest
+     over the whole sequence.  B2 / B4 / B5 at the Mamba projections'
+     x_proj [3200, 132] and dt_proj [100, 3200] (the kernels' non-vec
+     branches) run with the kernel checks of phase 3, B3 at hymba's layout
+     with phase 3's B3 cases;
   6. kernels: time, bound (the bf16 tensor-core rate for the tensor-core
      paths, the f32 rate for the FMA kernels), plain-version and library
      times; B2, B3 and B5 on both paths, B2 with plane gains at decode (f32
-     x); B6 at yi-6b's wi_gate and head.
+     x); B3 also at hymba-1.5b's D = 64 (``d64_serve``: B 4, S 160;
+     ``d64_2048``: B 1, S 2048) beside bf16 SDPA; B6 at yi-6b's wi_gate and
+     head.
 
 The line before the last is the kernels' JSON record (B1's launches are
 those of the gemma-2b plan and the figures, train, accuracy, offset-binary,
-bench-extra, faults, engine, tp-fleet, moe and mla phases; B2's, B4's and B5's
+bench-extra, faults, engine, tp-fleet, moe, mla and hymba phases; B2's, B4's and B5's
 those of gemma's packed, const_rle and planes_int8 generates plus the
-offset-binary, bench-extra, faults, engine, tp-fleet, moe and mla phases' (B2's
+offset-binary, bench-extra, faults, engine, tp-fleet, moe, mla and hymba phases' (B2's
 ``launches_gain`` those with plane gains; the engines' from their graphs'
 nodes x replays plus each capture's warm-up run; ``launches_moe`` the moe
 phase's, and ``grouped_m8`` / ``grouped_m11`` the grouped launch's times
 at the expert shapes; ``launches_mla`` and ``grouped_g160_m8`` the mla
-phase's); the ``sws_sort`` row is the planner's sort helper (no TPU
-kernel), its launches the mla phase's plans'; B3's those of yi-6b's generate and the accuracy,
-offset-binary, bench-extra, faults, engine, tp-fleet and moe phases; B6's
-yi-6b's, the offset-binary, the faults, the engine, the tp-fleet, the
-moe and the mla deployments');
+phase's; ``launches_hymba`` the hymba phase's); the ``sws_sort`` row is the
+planner's sort helper (no TPU kernel), its launches the mla phase's plans';
+B3's those of yi-6b's generate and the accuracy, offset-binary, bench-extra,
+faults, engine, tp-fleet, moe and hymba phases (``launches_hymba`` /
+``launches_hymba_tc`` the hymba phase's, at D = 64); B6's yi-6b's, the
+offset-binary, the faults, the engine, the tp-fleet, the moe, the mla and
+the hymba deployments');
 the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
 ``python3 chip_smoke.py`` (needs one CUDA card; fails without one).
@@ -283,6 +308,9 @@ B3_SMALL = {  # (B, Hq, Hkv, D) of the reduced configs, f32; internlm2's is the 
     "internlm2/yi reduced": (8, 4, 2, 16), "phi3 reduced": (8, 4, 2, 20),
     "gemma reduced": (8, 4, 1, 32)}
 B3_LONG = 2048  # the long-prefill check and timing length
+# hymba-1.5b's attention at its serve shape: 25 query heads over 5 KV heads at D = 64, its
+# window, and the prefill length of a served prompt (128 meta tokens + PROMPT)
+B3_HYMBA = dict(layout=(BATCH, 25, 5, 64), window=1024, s=128 + PROMPT)
 B6_CASES = (  # (shape, element offset of w): the vector path, then the element path
     ((4, 4096, 11008), 0), ((4, 4096, 11008), 1), ((7, 333), 0), ((5, 1), 0),
     ((3, 64, 96), 1), ((2, 33000, 16), 0), ((65537, 1, 5), 0),
@@ -809,14 +837,15 @@ def bound(nbytes, flops, rate=F32_FLOPS):
 
 
 def time_attention(dev) -> dict:
-    """B3, causal, at yi-6b's and gemma-2b's serve prefill shapes and a
-    2048-token prefill of each: the bf16 tensor-core kernel (the main
-    path) and the f32 FMA kernel, the plain version, SDPA on the bf16 and
-    on the f32 inputs (timed as a yardstick only) and each path's bound (q,
-    k, v, o bytes; 4 * D FLOPs per visible pair at the bf16 tensor-core
-    rate or the f32 rate).  Also the
-    host time of one bf16 call's TMA descriptor encoding.  Returns the
-    record at yi-6b's serve shape."""
+    """B3, causal, at yi-6b's, gemma-2b's and hymba-1.5b's serve prefill
+    shapes (hymba: B 4, S 160 = 128 meta + 32, D = 64) and a 2048-token
+    prefill of each: the bf16 tensor-core kernel (the main path) and the
+    f32 FMA kernel, the plain version, SDPA on the bf16 and on the f32
+    inputs (timed as a yardstick only) and each path's bound (q, k, v, o
+    bytes; 4 * D FLOPs per visible pair at the bf16 tensor-core rate or the
+    f32 rate).  Also the host time of one bf16 call's TMA descriptor
+    encoding.  Returns the record at yi-6b's serve shape, with hymba's two
+    under ``d64_serve`` and ``d64_2048``."""
     import torch
     import torch.nn.functional as F
 
@@ -824,9 +853,11 @@ def time_attention(dev) -> dict:
     from repro_torch.kernels.flash_attention import ref as fa_ref
 
     records, lines = {}, []
-    for name, layout in (("yi-6b", (BATCH, 32, 4, 128)), ("gemma-2b", (BATCH, 8, 1, 256))):
-        for s in (PROMPT, B3_LONG):
-            lay = layout if s == PROMPT else (1,) + layout[1:]
+    for name, layout, serve_s in (("yi-6b", (BATCH, 32, 4, 128), PROMPT),
+                                  ("gemma-2b", (BATCH, 8, 1, 256), PROMPT),
+                                  ("hymba-1.5b", B3_HYMBA["layout"], B3_HYMBA["s"])):
+        for s in (serve_s, B3_LONG):
+            lay = layout if s == serve_s else (1,) + layout[1:]
             b, hq, _, d = lay
             q, k, v, _, _ = attention_inputs(dev, lay, s, False, torch.bfloat16, seed=s + d)
             if (name, s) == ("yi-6b", PROMPT):
@@ -857,7 +888,8 @@ def time_attention(dev) -> dict:
             del q, k, v, qf, kf, vf
     say("phase kernels: B3 causal: " + "; ".join(lines))
     torch.cuda.empty_cache()
-    return records[("yi-6b", PROMPT)]
+    return {**records[("yi-6b", PROMPT)], "d64_serve": records[("hymba-1.5b", B3_HYMBA["s"])],
+            "d64_2048": records[("hymba-1.5b", B3_LONG)]}
 
 
 def time_bitslice(dev) -> dict:
@@ -924,21 +956,26 @@ def live_pairs(b, s, sk, kind, kvl, off, window):
 
 def check_b3(dev):
     """B3 against its plain version in every case (bf16 on the tensor-core
-    kernel, f32 on the FMA kernel, which the launch counts must show);
-    returns the max |d| and the number of cases."""
+    kernel, f32 on the FMA kernel, which the launch counts must show), at
+    yi-6b's, gemma-2b's and hymba-1.5b's serve shapes (hymba: D = 64, 25
+    query heads over 5 KV heads, S = 160, swa at its window 1024) and a
+    2048-token prefill of each; returns the max |d| and the number of
+    cases."""
     import torch
 
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
 
-    layouts = {"yi-6b": (4, 32, 4, 128), "gemma-2b": (4, 8, 1, 256)}
+    layouts = {"yi-6b": ((4, 32, 4, 128), PROMPT, B3_WINDOW),
+               "gemma-2b": ((4, 8, 1, 256), PROMPT, B3_WINDOW),
+               "hymba-1.5b": (B3_HYMBA["layout"], B3_HYMBA["s"], B3_HYMBA["window"])}
     worst, n = 0.0, 0
-    for name, layout in layouts.items():
-        for s in (PROMPT, B3_LONG):
-            lay = layout if s == PROMPT else (1,) + layout[1:]
+    for name, (layout, serve_s, swa_window) in layouts.items():
+        for s in (serve_s, B3_LONG):
+            lay = layout if s == serve_s else (1,) + layout[1:]
             errs = []
             for kind in ("causal", "bidir", "swa"):
-                window = B3_WINDOW if kind == "swa" else None
+                window = swa_window if kind == "swa" else None
                 for per_row in (False, True):
                     for dtype in (torch.float32, torch.bfloat16):
                         q, k, v, kvl, off = attention_inputs(dev, lay, s, per_row, dtype, seed=n)
@@ -3914,6 +3951,262 @@ def mla_phase(dev) -> dict:
     return {**totals, "err": kern["err"], "records": kern["records"], "sort": sort_rec}
 
 
+HYMBA_ARCH = "hymba-1.5b"
+HYMBA_LAYERS = 4  # depth cut 32 -> 4, the only cut: [global, swa, swa, swa]
+HYMBA_LONG_PROMPT = 1024  # + 128 meta tokens: past the 1024 window, the ring wraps
+HYMBA_LOGIT_RTOL = 0.02  # the long generate's last decode logits vs forward, bf16
+# K x N of the Mamba projections no other served model reaches: x_proj (N = 132, not a
+# multiple of 16) and dt_proj (K = 100, not a multiple of 8): the kernels' non-vec branches
+MAMBA_SHAPES = {"x_proj": (3200, 132), "dt_proj": (100, 3200)}
+MAMBA_M = (BATCH, BATCH * (128 + PROMPT))  # decode rows, and a served prefill's rows
+
+
+def check_mamba_kernels(dev) -> dict:
+    """B2, B4 (~half the tiles zero, const_rle flags) and B5 at hymba-1.5b's
+    x_proj and dt_proj shapes, M in MAMBA_M, bf16 x (tensor-core kernels)
+    and f32 x (FMA kernels): within the bound of the plain version, B4 ==
+    B2 bit for bit.  Returns the max |d| by kernel."""
+    import torch
+
+    from repro_torch.core import planes, simulator
+    from repro_torch.kernels.cim_matmul import ops as cim_ops
+    from repro_torch.kernels.cim_matmul import ref as cim_ref
+
+    eps = torch.finfo(torch.float32).eps
+    errs, n_cases = {"B2": 0.0, "B4": 0.0, "B5": 0.0}, 0
+    for name, (k, n) in MAMBA_SHAPES.items():
+        gen = torch.Generator(device=dev).manual_seed(k + n)
+        q = torch.randint(0, 1024, (k, n), dtype=torch.int32, device=dev, generator=gen)
+        sg = torch.where(torch.rand(k, n, device=dev, generator=gen) < 0.5, -1, 1).to(torch.int8)
+        op = simulator.packed_operands(q, sg, 0.02 / 1023, 0.0, 10)
+        dead = torch.rand(10, -(-k // 128), device=dev, generator=gen) < 0.5
+        rows = dead.repeat_interleave(16, dim=1)[:, : op["planes_packed"].shape[1]]
+        op["planes_packed"] = op["planes_packed"] * (~rows)[:, :, None]
+        op = planes.encode_operands(op, "const_rle")
+        i8 = simulator.int8_plane_operands(q, sg, 0.02 / 1023, 0.0, 10)
+        args = (op["planes_packed"], op["sign_packed"], op["scale"])
+        w_abs = cim_ref.unpack_weights(*args[:2], k).abs() * op["scale"]
+        w8_abs = q.float() * i8["scale"]
+        for m in MAMBA_M:
+            for dtype in (torch.bfloat16, torch.float32):
+                x = torch.randn(m, k, device=dev, generator=gen).to(dtype)
+                tc = dtype == torch.bfloat16
+                cim_ops.reset_launches()
+                got = {"B2": cim_ops.cim_matmul_packed(x, *args),
+                       "B4": cim_ops.cim_matmul_packed(x, *args, tile_nz=op["plane_tile_nz"]),
+                       "B5": cim_ops.cim_matmul(x, i8["splanes"], i8["scale"])}
+                path = {key: v for key, v in cim_ops.LAUNCHES.items() if v}
+                if path != {"B2": 1, "B4": 1, "B5": 1,
+                            **({"B2_tc": 1, "B4_tc": 1, "B5_tc": 1} if tc else {})}:
+                    fail(f"B2/B4/B5 at {name} [{k}, {n}] M={m} {dtype} took the wrong "
+                         f"kernels: {path}")
+                want = cim_ref.cim_matmul_packed(x, *args)
+                want5 = cim_ref.cim_matmul(x, i8["splanes"], i8["scale"])
+                torch.cuda.synchronize()
+                xa = x.float().abs()
+                for kern, w_, wa in (("B2", want, w_abs), ("B4", want, w_abs),
+                                     ("B5", want5, w8_abs)):
+                    err = (got[kern] - w_).abs()
+                    if got[kern].shape != (m, n) or not bool(
+                            (err <= B2_BOUND_C * eps * k * (xa @ wa)).all()):
+                        fail(f"{kern} outside the bound of its plain version at {name} "
+                             f"[{k}, {n}] M={m} {dtype}: max |d| {err.max().item():.3e}")
+                    errs[kern] = max(errs[kern], err.max().item())
+                if not torch.equal(got["B4"], got["B2"]):
+                    fail(f"B4 differs from B2 at {name} M={m} {dtype}")
+                n_cases += 1
+        del op, i8, q, sg, w_abs, w8_abs
+    torch.cuda.empty_cache()
+    say(f"phase mamba-kernels: B2, B4 (~50% zero tiles) and B5 at x_proj [3200, 132] and "
+        f"dt_proj [100, 3200] (the non-vec branches), M in {MAMBA_M}, bf16 x on the "
+        f"tensor-core kernels and f32 x on the FMA kernels: {n_cases} cases within "
+        f"{B2_BOUND_C}*eps*K*(|x|@|w|) of the plain versions, B4 == B2; max |d| "
+        + ", ".join(f"{k_} {v:.3e}" for k_, v in errs.items()))
+    return errs
+
+
+def hymba_decode_logits(cfg, params, tokens, prompt) -> tuple:
+    """Eager prefill of ``tokens[:, :prompt]`` and teacher-forced decode
+    steps over the rest (through ring caches and the SSM state): the last
+    step's logits, and ``forward``'s over the whole of ``tokens`` at the
+    same position."""
+    import torch
+
+    from repro_torch.models import api
+
+    b, total = tokens.shape
+    with torch.inference_mode():
+        logits, pf = api.prefill(params, cfg, {"tokens": tokens[:, :prompt]})
+        cache = api.merge_prefill_cache(
+            cfg, api.init_cache(cfg, b, total, device=tokens.device), pf)
+        for i in range(prompt, total):
+            logits, cache = api.decode_step(params, cfg, cache, tokens[:, i:i + 1],
+                                            torch.tensor(i, device=tokens.device))
+        full, _ = api.forward(params, cfg, {"tokens": tokens})
+    return logits[:, 0], full[:, -1]
+
+
+def hymba_phase(dev) -> dict:
+    """hymba-1.5b at its published width with the depth cut to
+    HYMBA_LAYERS (one hymba_global layer, three hymba_swa): init from the
+    reference's key; a const_rle plan through one pool served raw-packed
+    (B2) and const_rle (B4, tokens == raw-packed); one stateless plan served
+    fp, dense, packed (B2) and planes_int8 (B6 builds, B5 serves), each
+    through the serve gates: 11 CIM matmuls a layer (wq, wk, wv, wo,
+    in_proj, x_proj, dt_proj, out_proj, the MLP's three) and the head,
+    (11 x layers + 1) x gen CIM launches a generate, 11 x layers x gen on
+    the tensor cores (the f32 head on FMA), B3 = B3_tc = layers at D = 64,
+    no plain-version call, no blockwise_attention; prefill logits of packed
+    and planes_int8 within the bound of dense's.  Then one long-prompt
+    generate (packed, prompt HYMBA_LONG_PROMPT: 1,152 positions with the
+    meta tokens, past the 1024 window) through the serve gates, and its
+    last decode logits within HYMBA_LOGIT_RTOL of forward's largest over
+    the whole sequence.  Returns the phase's launches."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.configs import get_arch
+    from repro_torch.core import planner, pool
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+
+    t_phase = time.perf_counter()
+    totals = {}
+
+    def add(c):
+        for k_, v in c.items():
+            if k_ != "plain":
+                totals[k_] = totals.get(k_, 0) + v
+
+    full = get_arch(HYMBA_ARCH)
+    cfg = dataclasses.replace(full, n_layers=HYMBA_LAYERS)
+    sc = cfg.ssm
+    say(f"phase hymba-plan: {HYMBA_ARCH} d_model={cfg.d_model} heads={cfg.n_heads} "
+        f"kv={cfg.n_kv_heads} head_dim={cfg.head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab_size}, "
+        f"untied head, SSM state {sc.state_size} conv {sc.conv_width} expand {sc.expand} chunk "
+        f"{sc.chunk_size}, window {cfg.attn_window}, {cfg.n_meta_tokens} meta tokens; depth cut "
+        f"{full.n_layers} -> {HYMBA_LAYERS} (the only cut): {cfg.layer_kinds()}, "
+        f"p_stuck={P_STUCK}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init(prng.PRNGKey(0), cfg, device=dev)
+    torch.cuda.synchronize()
+    say(f"phase init: {HYMBA_ARCH} x{HYMBA_LAYERS} {api.param_count(params) / 1e6:.1f}M params "
+        f"from the reference's key in {time.perf_counter() - t0:.2f} s")
+    spec = planner.CrossbarSpec()
+    batch = api.make_batch(cfg, prng.PRNGKey(0), BATCH, PROMPT, device=dev)
+    want = (11 * HYMBA_LAYERS + 1) * GEN
+    want_tc = 11 * HYMBA_LAYERS * GEN
+    say(f"phase hymba-serve: launch formula per generate: (11 x {HYMBA_LAYERS} + 1) x {GEN} = "
+        f"{want} CIM launches (wq, wk, wv, wo, in_proj, x_proj, dt_proj, out_proj, wi_gate, "
+        f"wi_up, wo a layer; the head), 11 x {HYMBA_LAYERS} x {GEN} = {want_tc} on the tensor "
+        f"cores; B3 = B3_tc = {HYMBA_LAYERS} a prefill (D = 64, S = "
+        f"{cfg.n_meta_tokens + PROMPT})")
+
+    def serve_hymba(label, p, kernel, b=batch):
+        out = served(f"{HYMBA_ARCH} {label}", cfg, p, b, GEN, kernel, want,
+                     want_tc=want_tc if kernel else 0)
+        add(out[3])
+        return out
+
+    def plan_timed(label, pcfg, **kw):
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0_ = time.perf_counter()
+        plan_ = planner.build_deployment(params, spec, pcfg, device=dev, **kw)
+        torch.cuda.synchronize()
+        plan_s = time.perf_counter() - t0_
+        c = counts()
+        add(c)
+        tot = plan_.totals()
+        n_w = sum(r.n_weights for r in plan_.reports.values())
+        say(f"phase {label}: {len(plan_.reports)} tensors ({n_w / 1e6:.1f}M weights) in "
+            f"{plan_s:.2f} s; sws {tot['sws_speedup']:.4f}x total {tot['total_speedup']:.4f}x; "
+            f"B1 {c['B1']}; peak CUDA memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        if c["B1"] <= 0 or any(c[k_] for k_ in c if k_ not in ("B1", "plain")) or c["plain"]:
+            fail(f"{HYMBA_ARCH} {label} launched {c}")
+        return plan_
+
+    toks, tps = {}, {}
+    pcfg_pool = planner.PlannerConfig(p_stuck=P_STUCK, codec=CODEC)
+    xbars = pool.CrossbarPool(spec, pcfg_pool.crossbars, device=dev)
+    pool_plan = plan_timed("hymba-plan-pool", pcfg_pool, pool=xbars)
+    p_raw = planner.deploy_params(params, pool_plan, materialize="packed", codec="raw")
+    toks["raw_pool"], tps["packed (pool plan)"], _, _ = serve_hymba("packed (pool plan)", p_raw,
+                                                                   "B2")
+    p_rle = planner.deploy_params(params, pool_plan, materialize="packed", codec=CODEC)
+    toks["rle"], tps[f"packed {CODEC}"], _, _ = serve_hymba(f"packed {CODEC}", p_rle, "B4")
+    if not torch.equal(toks["rle"], toks["raw_pool"]):
+        fail(f"{HYMBA_ARCH} {CODEC} tokens differ from raw-packed tokens of the same plan")
+    del p_raw, p_rle, pool_plan, xbars
+
+    plan = plan_timed("hymba-plan", planner.PlannerConfig(p_stuck=P_STUCK))
+    planned = set(plan.reports)
+    mamba = {f"segments/1/mamba/{w}" for w in ("in_proj", "x_proj", "dt_proj", "out_proj",
+                                                "conv/w", "a_log", "dt_bias")}
+    if not mamba | {"meta", "head/w"} <= planned:
+        fail(f"{HYMBA_ARCH}: not planned: {sorted(mamba | {'meta', 'head/w'} - planned)}")
+    toks["fp"], tps["fp"], _, _ = serve_hymba("fp", params, None)
+    p_dense = planner.deploy_params(params, plan, materialize="dense")
+    toks["dense"], tps["dense"], _, _ = serve_hymba("dense", p_dense, None)
+    p_packed = planner.deploy_params(params, plan, materialize="packed")
+    m_ops = p_packed["segments"][1]["mamba"]
+    leaves = [m_ops["conv"]["w"], m_ops["a_log"], m_ops["dt_bias"], m_ops["d_skip"],
+              p_packed["meta"]]
+    if not all(isinstance(t, torch.Tensor) for t in leaves):
+        fail(f"{HYMBA_ARCH}: conv / a_log / dt_bias / d_skip / meta not served dense")
+    say(f"phase hymba-deploy: segments/1/mamba operands: x_proj planes "
+        f"{list(m_ops['x_proj']['planes_packed'].shape)}, dt_proj planes "
+        f"{list(m_ops['dt_proj']['planes_packed'].shape)}; conv, a_log, dt_bias, d_skip and "
+        f"meta dense w_hat")
+    toks["packed"], tps["packed"], timed, _ = serve_hymba("packed", p_packed, "B2")
+    say(f"phase trace: {HYMBA_ARCH} cim-packed generate: {trace(timed)}")
+    del timed
+    logit_check(cfg, p_dense, p_packed, batch, "packed")
+    p_int8, c6 = deploy_int8(p_dense, plan)
+    add(c6)
+    toks["planes_int8"], tps["planes_int8"], timed, _ = serve_hymba("planes_int8", p_int8, "B5")
+    say(f"phase trace: {HYMBA_ARCH} cim-planes_int8 generate: {trace(timed)}")
+    del timed
+    logit_check(cfg, p_dense, p_int8, batch, "planes_int8")
+    del p_int8, p_dense
+    torch.cuda.empty_cache()
+    agree = {k_: (toks[k_] == toks["dense"]).float().mean().item()
+             for k_ in ("fp", "packed", "planes_int8")}
+    say(f"phase hymba-serve: batch {BATCH} prompt {PROMPT} gen {GEN} greedy bf16, graph tok/s "
+        + ", ".join(f"{k_} {v:.1f}" for k_, v in tps.items())
+        + f"; {CODEC} tokens == raw-packed tokens; token agreement with dense {agree}; peak "
+        f"CUDA memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    # one long prompt: swa masks at the published window, the ring roll and the ring wrap
+    t0 = time.perf_counter()
+    long_batch = api.make_batch(cfg, prng.PRNGKey(1), BATCH, HYMBA_LONG_PROMPT, device=dev)
+    toks_long, tps_long, _, _ = serve_hymba(f"packed prompt {HYMBA_LONG_PROMPT}", p_packed,
+                                            "B2", long_batch)
+    served_p = steps.prepare_serving_params(p_packed, torch.bfloat16)
+    seq = torch.cat([long_batch["tokens"], toks_long[:, :-1].to(long_batch["tokens"].dtype)],
+                    dim=1)
+    last, ref_last = hymba_decode_logits(cfg, served_p, seq, HYMBA_LONG_PROMPT)
+    if not (torch.isfinite(last).all() and torch.isfinite(ref_last).all()):
+        fail(f"{HYMBA_ARCH} long generate: non-finite logits")
+    d = (last - ref_last).abs().max().item()
+    bnd = HYMBA_LOGIT_RTOL * ref_last.abs().max().item()
+    positions = cfg.n_meta_tokens + seq.shape[1]
+    say(f"phase hymba-long: packed, batch {BATCH}, prompt {HYMBA_LONG_PROMPT} + "
+        f"{cfg.n_meta_tokens} meta, gen {GEN}: graph {tps_long:.1f} tok/s, graph tokens == "
+        f"eager tokens; the last decode step (position {positions - 1}, ring slot "
+        f"{(positions - 1) % cfg.attn_window} of {cfg.attn_window}) vs forward over the "
+        f"{positions} positions: max |d| {d:.4e} (bound {HYMBA_LOGIT_RTOL:g} * max|logit| = "
+        f"{bnd:.4e}); {time.perf_counter() - t0:.1f} s")
+    if d > bnd:
+        fail(f"{HYMBA_ARCH} long generate: decode logits differ from forward by {d:.4e}")
+    del served_p, p_packed, params, plan
+    torch.cuda.empty_cache()
+    say(f"phase hymba: {time.perf_counter() - t_phase:.1f} s; launches {totals}")
+    return totals
+
+
 def main() -> None:
     import torch
 
@@ -4089,6 +4382,8 @@ def main() -> None:
     say(f"phase B5: {n5} cases (both modes, f32 and bf16 x, cols 10 and 16; bf16 fused_dequant "
         f"on the tensor-core kernel) within {B2_BOUND_C}*eps*K*(|x|@|w|), max |d| {b5_err:.3e}")
     torch.cuda.empty_cache()
+
+    mamba_err = check_mamba_kernels(dev)
 
     b3_err, n3 = check_b3(dev)
     say(f"phase B3: {n3} cases within {fa_ref.TOL:g} (abs + rel; bf16 one ulp more; bf16 on "
@@ -4348,6 +4643,9 @@ def main() -> None:
     ml = mla_phase(dev)
     mle, mla_rec, sort_rec = ml.pop("err"), ml.pop("records"), ml.pop("sort")
 
+    # --- 5m. hymba-1.5b at published width: Mamba heads, meta tokens, ring caches ---
+    hy = hymba_phase(dev)
+
     # --- 6. kernels: time, bound, plain, library -------------------------------
     t = 1 << 20
     pairs = [tuple(torch.randint(0, 256, (t, 16, 10), dtype=torch.uint8, device=dev, generator=g)
@@ -4513,42 +4811,51 @@ def main() -> None:
         row("hamming_pairs", "src/repro_torch/csrc/hamming.cu",
             "src/repro/kernels/hamming/kernel.py:32",
             b1_plan + figs["B1"] + trained["B1"] + acc["B1"] + ob["B1"] + bx["B1"] + fl["B1"]
-            + en.get("B1", 0) + tf.get("B1", 0) + mo.get("B1", 0) + ml.get("B1", 0), b1_err,
+            + en.get("B1", 0) + tf.get("B1", 0) + mo.get("B1", 0) + ml.get("B1", 0)
+            + hy.get("B1", 0), b1_err,
             dict(ms=b1_ms, plain_ms=b1_plain, bound_ms=b1_bound, bound_by="bytes",
                  library_ms=None)),
         {**row("cim_matmul_packed", "src/repro_torch/csrc/cim_matmul.cu",
                "src/repro/kernels/cim_matmul/kernel.py:242",
                b2_launches + ob["B2"] + bx["B2"] + fl["B2"] + en.get("B2", 0) + tf.get("B2", 0)
-               + mo.get("B2", 0) + ml.get("B2", 0),
-               max(b2_err, ee["B2"], te["B2"], me["B2"], mle["B2"]), records["decode"],
+               + mo.get("B2", 0) + ml.get("B2", 0) + hy.get("B2", 0),
+               max(b2_err, ee["B2"], te["B2"], me["B2"], mle["B2"], mamba_err["B2"]),
+               records["decode"],
                b2_tc + ob["B2_tc"] + bx["B2_tc"] + fl["B2_tc"] + en.get("B2_tc", 0)
-               + tf.get("B2_tc", 0) + mo.get("B2_tc", 0) + ml.get("B2_tc", 0), grouped="B2"),
+               + tf.get("B2_tc", 0) + mo.get("B2_tc", 0) + ml.get("B2_tc", 0)
+               + hy.get("B2_tc", 0), grouped="B2"),
+         "launches_hymba": hy.get("B2", 0),
          "launches_gain": fl["B2_gain"],
          **{k: v for k, v in records["decode"].items() if k.startswith("gain_")}},
         row("cim_matmul_packed_skip", "src/repro_torch/csrc/cim_matmul.cu",
             "src/repro/kernels/cim_matmul/kernel.py:193",
             b4_launches + ob["B4"] + bx["B4"] + en.get("B4", 0) + tf.get("B4", 0)
-            + mo.get("B4", 0) + ml.get("B4", 0),
-            max(b4_err, ee["B4"], te["B4"], me["B4"], mle["B4"]), records["B4 decode"],
+            + mo.get("B4", 0) + ml.get("B4", 0) + hy.get("B4", 0),
+            max(b4_err, ee["B4"], te["B4"], me["B4"], mle["B4"], mamba_err["B4"]),
+            records["B4 decode"],
             b4_tc + ob["B4_tc"] + bx["B4_tc"] + en.get("B4_tc", 0) + tf.get("B4_tc", 0)
-            + mo.get("B4_tc", 0) + ml.get("B4_tc", 0), grouped="B4"),
+            + mo.get("B4_tc", 0) + ml.get("B4_tc", 0) + hy.get("B4_tc", 0), grouped="B4"),
         row("cim_matmul_planes", "src/repro_torch/csrc/cim_planes.cu",
             "src/repro/kernels/cim_matmul/kernel.py:74",
             b5_launches + ob["B5"] + fl["B5"] + en.get("B5", 0) + tf.get("B5", 0)
-            + mo.get("B5", 0) + ml.get("B5", 0),
-            max(b5_err, ee["B5"], te["B5"], me["B5"], mle["B5"]), records["B5 decode"],
+            + mo.get("B5", 0) + ml.get("B5", 0) + hy.get("B5", 0),
+            max(b5_err, ee["B5"], te["B5"], me["B5"], mle["B5"], mamba_err["B5"]),
+            records["B5 decode"],
             b5_tc + ob["B5_tc"] + fl["B5_tc"] + en.get("B5_tc", 0) + tf.get("B5_tc", 0)
-            + mo.get("B5_tc", 0) + ml.get("B5_tc", 0), grouped="B5"),
-        row("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-            "src/repro/kernels/flash_attention/kernel.py:109",
-            yi["B3"] + acc["B3"] + ob["B3"] + bx["B3"] + fl["B3"] + en.get("B3", 0)
-            + tf.get("B3", 0) + mo.get("B3", 0), max(b3_err, ee["B3"], te["B3"]), rec_b3,
-            yi["B3_tc"] + ob["B3_tc"] + bx["B3_tc"] + fl["B3_tc"] + en.get("B3_tc", 0)
-            + tf.get("B3_tc", 0) + mo.get("B3_tc", 0)),
+            + mo.get("B5_tc", 0) + ml.get("B5_tc", 0) + hy.get("B5_tc", 0), grouped="B5"),
+        {**row("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+               "src/repro/kernels/flash_attention/kernel.py:109",
+               yi["B3"] + acc["B3"] + ob["B3"] + bx["B3"] + fl["B3"] + en.get("B3", 0)
+               + tf.get("B3", 0) + mo.get("B3", 0) + hy.get("B3", 0),
+               max(b3_err, ee["B3"], te["B3"]), rec_b3,
+               yi["B3_tc"] + ob["B3_tc"] + bx["B3_tc"] + fl["B3_tc"] + en.get("B3_tc", 0)
+               + tf.get("B3_tc", 0) + mo.get("B3_tc", 0) + hy.get("B3_tc", 0)),
+         "launches_hymba": hy.get("B3", 0), "launches_hymba_tc": hy.get("B3_tc", 0),
+         "d64_serve": rec_b3["d64_serve"], "d64_2048": rec_b3["d64_2048"]},
         row("bitslice", "src/repro_torch/csrc/bitslice.cu",
             "src/repro/kernels/bitslice/kernel.py:35",
             yi["B6"] + ob["B6"] + fl["B6"] + en.get("B6", 0) + tf.get("B6", 0) + mo.get("B6", 0)
-            + ml.get("B6", 0), 0.0, rec_b6),
+            + ml.get("B6", 0) + hy.get("B6", 0), 0.0, rec_b6),
         # a planner helper, not a TPU kernel: the reference sorts on the host; its launches
         # are phase mla's plans' (the other phases' plans launch it too, uncounted)
         row("sws_sort", "src/repro_torch/csrc/sws_sort.cu",
@@ -4571,6 +4878,10 @@ def main() -> None:
             f" bmm {r[f'grouped_g160_m{m}']['library_ms']:.4f},"
             f" bound {r[f'grouped_g160_m{m}']['bound_ms']:.4f})" for m in MLA_M)
            if "launches_moe" in r else "")
+        + "".join(f" {k_}_ms={r[k_]['ms']:.4f} (bound {r[k_]['bound_ms']:.4f},"
+                  f" SDPA {r[k_]['library_ms']:.4f})" for k_ in ("d64_serve", "d64_2048")
+                  if k_ in r)
+        + (f" launches_hymba={r['launches_hymba']}" if "launches_hymba" in r else "")
         + f" max_abs_err={r['max_abs_err']:.3e} "
         f"ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f}"
         + (f" library_ms={r['library_ms']:.4f}" if r["library_ms"] is not None else "")

@@ -1,14 +1,24 @@
 """Architecture configs served by the port + registry."""
-from repro_torch.configs.base import ArchConfig, MLAConfig, MoEConfig, get_arch, list_archs, register
+from repro_torch.configs.base import (
+    ArchConfig,
+    MLAConfig,
+    MoEConfig,
+    SSMConfig,
+    get_arch,
+    list_archs,
+    register,
+)
 
 # importing each module registers its config
 from repro_torch.configs import (  # noqa: F401  (registration side effect)
     deepseek_v2_236b,
     gemma_2b,
+    hymba_1_5b,
     internlm2_1_8b,
     phi3_medium_14b,
     qwen2_moe_a2_7b,
     yi_6b,
 )
 
-__all__ = ["ArchConfig", "MLAConfig", "MoEConfig", "get_arch", "list_archs", "register"]
+__all__ = ["ArchConfig", "MLAConfig", "MoEConfig", "SSMConfig", "get_arch", "list_archs",
+           "register"]

@@ -2,10 +2,13 @@
 
 Only the fields the ported decoder paths read are kept: the attention +
 gated-MLP (SwiGLU or GeGLU) decoder stack of ``block_pattern=(("attn", 1),)``
-families, the mixture-of-experts block of ``(("moe", 1),)`` families
-(``MoEConfig``, ``models/moe.py``), the multi-head latent attention + MoE
-block of ``(("mla_moe", 1),)`` families (``MLAConfig``, ``models/mla.py``),
-and the tensor-parallel flags of ``parallel/tp.py``.
+families and its sliding-window ``swa`` kind (``attn_window``), the
+mixture-of-experts block of ``(("moe", 1),)`` families (``MoEConfig``,
+``models/moe.py``), the multi-head latent attention + MoE block of
+``(("mla_moe", 1),)`` families (``MLAConfig``, ``models/mla.py``), the
+hybrid attention + Mamba blocks ``hymba_global`` / ``hymba_swa``
+(``SSMConfig``, ``attn_window``, ``n_meta_tokens``; ``models/hybrid.py``,
+``models/ssm.py``), and the tensor-parallel flags of ``parallel/tp.py``.
 """
 from __future__ import annotations
 
@@ -41,6 +44,14 @@ class MLAConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    state_size: int = 16  # per-channel state (mamba N)
+    conv_width: int = 4
+    expand: int = 2  # d_inner = expand * d_model
+    chunk_size: int = 256  # chunkwise-parallel training chunk
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
     family: str
@@ -58,8 +69,16 @@ class ArchConfig:
     dtype: str = "bfloat16"
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
+    ssm: Optional[SSMConfig] = None
     # sequence of (block_kind, repeat), expanded cyclically to n_layers
     block_pattern: tuple[tuple[str, int], ...] = (("attn", 1),)
+    attn_window: Optional[int] = None  # sliding-window size of the swa kinds
+    # learnable tokens prepended to the sequence (hymba's meta tokens)
+    n_meta_tokens: int = 0
+    # sub-quadratic in sequence length (SWA ring caches + O(1) SSM state);
+    # nothing in the port reads it: it keeps the config field for field the
+    # reference's, which the config parity tests hold
+    subquadratic: bool = False
     # --- tensor parallelism (parallel/tp.py) ---
     # When tp_axis is set, model code runs the shards of a tensor-parallel
     # group: tp_attn means q/k/v are column-parallel and wo row-parallel

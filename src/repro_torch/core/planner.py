@@ -497,9 +497,14 @@ MATERIALIZATIONS = ("dense", "packed", "planes_int8")
 # Matched against '/'-separated name components.  The norm gains "g": at
 # full width min_size admits the stacked gains, which rmsnorm multiplies
 # elementwise (ROADMAP C.4); MLA's "wk_b" / "wv_b", which the absorbed
-# decode reshapes per head (models/mla.py).  Other families' non-matmul
-# parameters join this list with their blocks.
-MATERIALIZE_DENSE_ONLY = ("g", "wk_b", "wv_b")
+# decode reshapes per head (models/mla.py); Mamba's "conv" taps (a
+# depthwise conv), "a_log" (elementwise exp) and hymba's "meta" tokens
+# (concatenated), as in the reference; and Mamba's "dt_bias" and "d_skip",
+# 1-D a layer but [count, d_inner] once a segment is stacked, so min_size
+# admits them too, and the reference then serves them as operand dicts
+# (ROADMAP C.12).  Other families' non-matmul parameters join this list
+# with their blocks.
+MATERIALIZE_DENSE_ONLY = ("g", "wk_b", "wv_b", "conv", "a_log", "meta", "dt_bias", "d_skip")
 
 
 def _dense_only(name: str) -> bool:

@@ -37,13 +37,14 @@
 // Tensor-core kernel (bf16).  Rows: the GQA group of kv head `kvh` is one
 // packed [G * Sq, D] matrix (q[b, kvh*G:(kvh+1)*G] is contiguous); packed
 // row r is at position q_offset + r % Sq.  A block owns 64 packed rows per
-// consumer warpgroup (two at D = 128, one at D = 256, where the O
+// consumer warpgroup (two at D = 64 and 128, one at D = 256, where the O
 // accumulator takes 128 f32 registers a thread), so at the serve shape
 // (G = 8, Sq = 32) two blocks cover a kv head and each K/V tile is read by
 // 128 rows, not once per q head.  Pipeline: one producer warp starts TMA
 // loads of 64-key K and V tiles (D cut into 64-column boxes, 128-byte
 // swizzle, zero fill past Sk, so the wrapper pads nothing) into a ring of
-// 3 (D = 128) or 2 (D = 256) stages guarded by full/empty mbarriers.  Each
+// 4 (D = 64: one box a tile), 3 (D = 128) or 2 (D = 256) stages guarded by
+// full/empty mbarriers.  Each
 // consumer warpgroup: S = Q.K^T by wgmma (SS, both K-major, f32
 // accumulators; q and k are exact bf16 so every product is exact), then the
 // D^-0.5 scale and the mask in f32 on the fragments, the online softmax
@@ -253,11 +254,13 @@ cudaError_t launch_d(int d, const void* q, const void* k, const void* v,
   case DD:                                                                             \
     return launch<DD>(q, k, v, q_offsets, kv_valid_len, q_offset0, kv_valid_len0,  \
                          out, b, hq, hkv, sq, sk, sk_valid, kind, window, scale, stream);
-  switch (d) {  // the dense decoders' head dims: yi/internlm2/phi3, gemma; and the
-                // reduced configs' (internlm2 and yi 16, phi3 20, gemma 32)
+  switch (d) {  // the served models' head dims: hymba 64, yi/internlm2/phi3 128,
+                // gemma 256; and the reduced configs' (internlm2, yi and hymba 16,
+                // phi3 20, gemma 32)
     FA_CASE(16)
     FA_CASE(20)
     FA_CASE(32)
+    FA_CASE(64)
     FA_CASE(128)
     FA_CASE(256)
     default:
@@ -278,7 +281,7 @@ constexpr int kBox = 64;      // bf16 columns per TMA box (one 128-byte swizzled
 template <int D>
 struct Cfg {
   static constexpr int NWG = D <= 128 ? 2 : 1;   // consumer warpgroups
-  static constexpr int STAGES = D <= 128 ? 3 : 2;
+  static constexpr int STAGES = D <= 64 ? 4 : D <= 128 ? 3 : 2;
   static constexpr int BOXES = D / kBox;          // boxes across a row of D
   static constexpr int THREADS = NWG * 128 + 32;  // + one producer warp
   static constexpr int ROWS = NWG * kRowsWG;      // packed q rows per block
@@ -456,7 +459,10 @@ fa_tc_kernel(const __grid_constant__ CUtensorMap tmq, const __grid_constant__ CU
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
       const uint64_t dv = desc_sw128(vaddr + kk * 16 * 128, C::KV_BOX, 1024);
-      if constexpr (D == 128) {
+      if constexpr (D == 64) {
+        wgmma_rs_tn_n64(o, ah[kk], dv);
+        wgmma_rs_tn_n64(o, al[kk], dv);
+      } else if constexpr (D == 128) {
         wgmma_rs_tn_n128(o, ah[kk], dv);
         wgmma_rs_tn_n128(o, al[kk], dv);
       } else {
@@ -574,6 +580,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
+    if (d == 64)
+      return tc::launch<64>(q, k, v, q_offsets, kv_valid_len, q_offset0, kv_valid_len0, out, b,
+                            hq, hkv, sq, sk, sk_valid, kind, window, scale, s);
     if (d == 128)
       return tc::launch<128>(q, k, v, q_offsets, kv_valid_len, q_offset0, kv_valid_len0, out, b,
                              hq, hkv, sq, sk, sk_valid, kind, window, scale, s);

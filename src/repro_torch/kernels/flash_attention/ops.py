@@ -15,7 +15,8 @@ B3 is forward only (the reference's Pallas kernel has no VJP either): the
 wrapper raises, on either device, while autograd records and q, k or v
 requires grad, rather than return a result without a ``grad_fn``.  The f32 FMA kernel
 takes the head dims of ``HEAD_DIMS`` (the reduced configs' 16, 20 and 32
-among them); the tensor-core kernel only ``TC_HEAD_DIMS``.
+among them); the tensor-core kernel only ``TC_HEAD_DIMS`` (64: hymba-1.5b's
+25 query heads over 5 KV heads).
 """
 from __future__ import annotations
 
@@ -37,8 +38,8 @@ from repro_torch.kernels._util import (
 from repro_torch.kernels.flash_attention import ref as fa_ref
 
 KINDS = {"causal": 0, "bidir": 1, "swa": 2}
-HEAD_DIMS = (16, 20, 32, 128, 256)  # the head dims the f32 FMA kernel is built for
-TC_HEAD_DIMS = (128, 256)  # the head dims of the bf16 tensor-core kernel
+HEAD_DIMS = (16, 20, 32, 64, 128, 256)  # the head dims the f32 FMA kernel is built for
+TC_HEAD_DIMS = (64, 128, 256)  # the head dims of the bf16 tensor-core kernel
 BQ = 32  # q rows per block of the f32 kernel (kBQ in the source)
 TMA_ALIGN = 16  # bytes: TMA's base-address alignment
 

@@ -93,12 +93,13 @@ def _params_device(params) -> torch.device:
 
 # a layer's sub-dicts whose dense leaves the model casts at use ("moe": the
 # routed expert stacks and the shared GLU; "mla": its projections, wk_b and
-# wv_b included)
-MATMUL_BLOCKS = ("attn", "mlp", "moe", "mla")
+# wv_b included; "mamba": its four projections, the conv taps and dt_bias)
+MATMUL_BLOCKS = ("attn", "mlp", "moe", "mla", "mamba")
 # entries of those sub-dicts left as they are: the MoE router (a float32
-# matmul whatever the model's dtype) and MLA's norm gains (rmsnorm reads
-# them in float32, so a bf16 copy would round them)
-KEEP_F32 = ("router", "q_norm", "kv_norm")
+# matmul whatever the model's dtype), MLA's norm gains (rmsnorm reads them
+# in float32, so a bf16 copy would round them) and Mamba's a_log and
+# d_skip (read in float32)
+KEEP_F32 = ("router", "q_norm", "kv_norm", "a_log", "d_skip")
 
 
 def _cast_matmul_weights(params, dtype: torch.dtype):

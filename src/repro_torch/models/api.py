@@ -26,7 +26,10 @@ from repro_torch.models.transformer import (  # noqa: F401
 
 def init_cache(cfg: ArchConfig, batch: int, seq_len: int, dtype=None, *, device=None,
                shards: int = 0):
-    return transformer.init_cache(cfg, batch, seq_len, dtype, device=device, shards=shards)
+    """Zero decode cache for ``seq_len`` positions; meta tokens occupy cache
+    slots before them, as in the reference."""
+    return transformer.init_cache(cfg, batch, seq_len + cfg.n_meta_tokens, dtype,
+                                  device=device, shards=shards)
 
 
 def init_paged_pools(cfg: ArchConfig, num_tokens: int, dtype=None, *, device=None,
@@ -36,11 +39,26 @@ def init_paged_pools(cfg: ArchConfig, num_tokens: int, dtype=None, *, device=Non
 
 
 def merge_prefill_cache(cfg: ArchConfig, full_cache: list, pf_cache: list) -> list:
-    """Write prefill caches (prompt length) into the full-length cache, in
-    place: positions [0, prompt) of every layer's K/V."""
+    """Write prefill caches into the full-length cache, in place (a decode
+    graph holds its buffers by address), walking nested dicts: a leaf of
+    the same shape (a ring cache, the SSM state, the conv tail) is copied
+    whole; a KV leaf differs only in its sequence axis, and the prompt's
+    positions [0, prompt) are written there."""
+    def merge(full, pf):
+        if isinstance(full, dict):
+            for name in full:
+                merge(full[name], pf[name])
+        elif full.shape == pf.shape:
+            full.copy_(pf)
+        else:
+            axes = [i for i, (a, b) in enumerate(zip(full.shape, pf.shape)) if a != b]
+            if len(axes) != 1:
+                raise ValueError(f"prefill cache {tuple(pf.shape)} does not fit "
+                                 f"{tuple(full.shape)}")
+            full.narrow(axes[0], 0, pf.shape[axes[0]]).copy_(pf)
+
     for full, pf in zip(full_cache, pf_cache):
-        for name in full:
-            full[name][..., : pf[name].shape[-2], :] = pf[name].to(full[name].dtype)
+        merge(full, pf)
     return full_cache
 
 

@@ -12,8 +12,12 @@ reference's decode does.
 
 Mask kinds: "causal", "bidir", "swa" (sliding window, causal); masked
 scores are filled with -1e30.  GQA/MQA groups queries (B, Hkv, G, S, D)
-instead of repeating KV.  The reference's ``banded_swa_attention`` (off by
-default, used by no dense config) is not ported (ROADMAP A.16).
+instead of repeating KV.
+
+``banded_swa_attention`` is the reference's sliding-window variant that
+scores only the live band, in plain PyTorch.  ``attention`` never routes
+to it: B3 applies the window mask on the card, so the reference's
+``set_attention_impl`` switch has no counterpart here.
 """
 from __future__ import annotations
 
@@ -67,6 +71,61 @@ def _block_mask(
             raise ValueError("kind='swa' needs a window")
         mask = mask & (k_pos > qp - window)
     return mask
+
+
+def banded_swa_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    window: int,
+    q_offset: int = 0,
+    block_q: int = 512,
+) -> torch.Tensor:
+    """Sliding-window attention that only computes the live band.
+
+    q is processed in blocks of ``block_q``; each block attends to a band of
+    ``window + block_q`` keys, so FLOPs and bytes are O(S * (window +
+    block_q)) instead of O(S^2).  Same contract as
+    ``blockwise_attention(kind="swa")``: k/v hold positions [0, Sk); q holds
+    positions [q_offset, q_offset + Sq).  q: (B, Hq, Sq, D); k, v: (B, Hkv,
+    Sk, D).  The softmax is f32; the probabilities are rounded to v's dtype
+    before the PV product, which sums in f32 (the reference's order).
+    """
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    dv = v.shape[-1]
+    g = hq // hkv
+    scale = d**-0.5
+    band = window + block_q
+    dev = q.device
+
+    nq = -(-sq // block_q)
+    q_pad = nq * block_q - sq
+    if q_pad:
+        q = torch.nn.functional.pad(q, (0, 0, 0, q_pad))
+    # keys padded left by `window` (so the first band exists) and right so
+    # the last band's slice is in bounds
+    pad_r = max(0, q_offset + nq * block_q - sk)
+    kp = torch.nn.functional.pad(k, (0, 0, window, pad_r))
+    vp = torch.nn.functional.pad(v, (0, 0, window, pad_r))
+    qg = q.reshape(b, hkv, g, nq * block_q, d)
+    out = []
+    for i in range(nq):
+        q_lo = i * block_q
+        qb = qg[:, :, :, q_lo:q_lo + block_q].to(torch.float32)
+        lo = q_offset + q_lo  # padded coordinates of the band's first key
+        kb = kp[:, :, lo:lo + band].to(torch.float32)
+        vb = vp[:, :, lo:lo + band]
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qb, kb) * scale
+        q_pos = q_offset + q_lo + torch.arange(block_q, device=dev)[:, None]
+        k_pos = q_offset + q_lo - window + torch.arange(band, device=dev)[None, :]
+        mask = (k_pos <= q_pos) & (k_pos > q_pos - window) & (k_pos >= 0) & (k_pos < sk)
+        s = torch.where(mask, s, NEG_INF)
+        p = torch.softmax(s, dim=-1).to(v.dtype).to(torch.float32)
+        out.append(torch.einsum("bhgqk,bhkd->bhgqd", p, vb.to(torch.float32)))
+    o = torch.stack(out, dim=3).reshape(b, hkv, g, nq * block_q, dv)
+    return o[:, :, :, :sq].reshape(b, hq, sq, dv).to(q.dtype)
 
 
 def blockwise_attention(

@@ -1,7 +1,9 @@
 """Dense transformer block: pre-norm attention + pre-norm gated MLP.
 
 Port of the attention block of ``repro.models.blocks``.  Layer params are
-one layer's slice of the segment stack.
+one layer's slice of the segment stack.  The mask kind and window thread
+through every attention call: "causal" for the ``attn`` kind, "swa" with
+``cfg.attn_window`` for the ``swa`` kind, in prefill, chunk and decode.
 The decode step writes its K/V into the cache in place (the counterpart of
 the reference's donated, functionally updated cache), at one position for
 the batch or, for the engine's ragged decode, at a (B,) position per row.
@@ -126,21 +128,24 @@ def attention_fwd(
     cfg: ArchConfig,
     x: torch.Tensor,
     *,
+    kind: str = "causal",
+    window: int | None = None,
     return_cache: bool = False,
     train: bool = False,
 ):
-    """Causal self-attention over the whole of ``x`` (positions from 0):
-    kernel B3 on the card, ``blockwise_attention`` on the CPU and, with
-    ``train=True``, on every device (the differentiable path)."""
+    """Self-attention of mask ``kind`` ("causal", or "swa" with ``window``)
+    over the whole of ``x`` (positions from 0): kernel B3 on the card,
+    ``blockwise_attention`` on the CPU and, with ``train=True``, on every
+    device (the differentiable path)."""
     return _tp_reduce(cfg, cfg.tp_attn, lambda ps, _: _attention_fwd(
-        ps, cfg, x, return_cache=return_cache, train=train), p)
+        ps, cfg, x, kind=kind, window=window, return_cache=return_cache, train=train), p)
 
 
-def _attention_fwd(p: Params, cfg: ArchConfig, x: torch.Tensor, *, return_cache: bool,
-                   train: bool):
+def _attention_fwd(p: Params, cfg: ArchConfig, x: torch.Tensor, *, kind: str,
+                   window: int | None, return_cache: bool, train: bool):
     b, s, _ = x.shape
     q, k, v = _qkv(p, cfg, x, torch.arange(s, device=x.device))
-    out = attention(q, k, v, kind="causal", train=train)
+    out = attention(q, k, v, kind=kind, window=window, train=train)
     out = out.transpose(1, 2).reshape(b, s, -1)
     y = layers.linear(p["wo"], out, x.dtype)
     return y, ({"k": k, "v": v} if return_cache else None)
@@ -171,19 +176,23 @@ def attention_step(
     x: torch.Tensor,
     cache: dict[str, torch.Tensor],
     pos: int | torch.Tensor,
+    *,
+    window: int | None = None,
 ) -> torch.Tensor:
     """x: (B, 1, d); cache k/v: (B, Hkv, S, hd), written in place at ``pos``
     by a device-indexed copy, the counterpart of the reference's
     ``dynamic_update_slice``.  ``pos``: a Python int or a 0-d int tensor
     (one position for the batch), or a (B,) int tensor of per-row positions
     (ragged continuous-batching decode), masked through ``decode_attention``'s
-    (B,) valid length."""
+    (B,) valid length.  ``window`` keeps the last ``window`` positions (the
+    plain ``swa`` kind; the reference drops it here, ROADMAP C.11)."""
     return _tp_reduce(cfg, cfg.tp_attn,
-                      lambda ps, cs: _attention_step(ps, cfg, x, cs, pos), p, cache)
+                      lambda ps, cs: _attention_step(ps, cfg, x, cs, pos, window), p, cache)
 
 
 def _attention_step(p: Params, cfg: ArchConfig, x: torch.Tensor,
-                    cache: dict[str, torch.Tensor], pos: int | torch.Tensor) -> torch.Tensor:
+                    cache: dict[str, torch.Tensor], pos: int | torch.Tensor,
+                    window: int | None) -> torch.Tensor:
     b = x.shape[0]
     if isinstance(pos, torch.Tensor) and pos.ndim == 1:
         pos = pos.to(device=x.device, dtype=torch.int64)
@@ -197,7 +206,7 @@ def _attention_step(p: Params, cfg: ArchConfig, x: torch.Tensor,
         cache["k"].index_copy_(2, idx, k.to(cache["k"].dtype))
         cache["v"].index_copy_(2, idx, v.to(cache["v"].dtype))
         valid = idx + 1
-    out = decode_attention(q, cache["k"], cache["v"], valid)
+    out = decode_attention(q, cache["k"], cache["v"], valid, window=window)
     return layers.linear(p["wo"], out.transpose(1, 2).reshape(b, 1, -1), x.dtype)
 
 
@@ -264,6 +273,9 @@ def attention_chunk_step(
     cache: dict[str, torch.Tensor],
     start: torch.Tensor,
     kv_len: torch.Tensor,
+    *,
+    kind: str = "causal",
+    window: int | None = None,
 ) -> torch.Tensor:
     """Multi-token continuation against a contiguous cache view, B rows wide.
 
@@ -273,18 +285,21 @@ def attention_chunk_step(
     write-back routes them to cells no read sees first); cache k/v:
     (B, Hkv, L, hd), written in place; start / kv_len: 0-d or (B,) int
     tensors, ``kv_len`` the valid cache length after this chunk.  The
-    attention is ``attention(..., q_offset=start, kv_valid_len=kv_len)``:
+    attention is ``attention(..., kind, window, q_offset=start,
+    kv_valid_len=kv_len)``:
     kernel B3 with per-row offsets on the card, ``blockwise_attention`` on
     the CPU (the reference calls ``blockwise_attention`` here on every
     backend).  Returns the block's attention output (B, C, d).
     """
     return _tp_reduce(cfg, cfg.tp_attn,
-                      lambda ps, cs: _attention_chunk_step(ps, cfg, x, cs, start, kv_len),
+                      lambda ps, cs: _attention_chunk_step(ps, cfg, x, cs, start, kv_len,
+                                                           kind, window),
                       p, cache)
 
 
 def _attention_chunk_step(p: Params, cfg: ArchConfig, x: torch.Tensor,
-                          cache: dict[str, torch.Tensor], start, kv_len) -> torch.Tensor:
+                          cache: dict[str, torch.Tensor], start, kv_len, kind: str,
+                          window: int | None) -> torch.Tensor:
     b, c, _ = x.shape
     start = torch.as_tensor(start, device=x.device)
     positions = (start[:, None] if start.ndim else start) + torch.arange(c, device=x.device)
@@ -292,14 +307,15 @@ def _attention_chunk_step(p: Params, cfg: ArchConfig, x: torch.Tensor,
     start_b = start.reshape(-1).expand(b)
     _write_rows(cache["k"], k, start_b)
     _write_rows(cache["v"], v, start_b)
-    out = attention(q, cache["k"], cache["v"], kind="causal", q_offset=start,
+    out = attention(q, cache["k"], cache["v"], kind=kind, window=window, q_offset=start,
                     kv_valid_len=kv_len)
     return layers.linear(p["wo"], out.transpose(1, 2).reshape(b, c, -1), x.dtype)
 
 
-def attn_block_chunk_step(p: Params, cfg: ArchConfig, x, cache, start, kv_len):
+def attn_block_chunk_step(p: Params, cfg: ArchConfig, x, cache, start, kv_len, *,
+                          kind: str = "causal", window: int | None = None):
     x = x + attention_chunk_step(p["attn"], cfg, layers.rmsnorm(p["ln1"], x), cache, start,
-                                 kv_len)
+                                 kv_len, kind=kind, window=window)
     return x + _mlp(p["mlp"], cfg, layers.rmsnorm(p["ln2"], x))
 
 
@@ -308,15 +324,21 @@ def attn_block_fwd(
     cfg: ArchConfig,
     x: torch.Tensor,
     *,
+    kind: str = "causal",
+    window: int | None = None,
     return_cache: bool = False,
     train: bool = False,
 ):
-    a, cache = attention_fwd(p["attn"], cfg, layers.rmsnorm(p["ln1"], x),
-                             return_cache=return_cache, train=train)
+    a, cache = attention_fwd(p["attn"], cfg, layers.rmsnorm(p["ln1"], x), kind=kind,
+                             window=window, return_cache=return_cache, train=train)
     x = x + a
     return x + _mlp(p["mlp"], cfg, layers.rmsnorm(p["ln2"], x)), cache
 
 
-def attn_block_step(p: Params, cfg: ArchConfig, x, cache, pos: int | torch.Tensor):
-    x = x + attention_step(p["attn"], cfg, layers.rmsnorm(p["ln1"], x), cache, pos)
+def attn_block_step(p: Params, cfg: ArchConfig, x, cache, pos: int | torch.Tensor, *,
+                    window: int | None = None):
+    """One token; with a ``window`` (the ``swa`` kind) it keeps the last
+    ``window`` positions."""
+    x = x + attention_step(p["attn"], cfg, layers.rmsnorm(p["ln1"], x), cache, pos,
+                           window=window)
     return x + _mlp(p["mlp"], cfg, layers.rmsnorm(p["ln2"], x))

@@ -44,6 +44,7 @@ def _cim_apply(w: dict, x: torch.Tensor) -> torch.Tensor:
     from repro_torch.core import simulator
 
     planes = w["splanes"] if "splanes" in w else w["planes_packed"]
+    x = x.contiguous()  # the kernels read x row-major (a column slice is a strided view)
     if planes.ndim > 4:
         return torch.stack(
             [_cim_apply({k: v[i] for k, v in w.items()}, x[i]) for i in range(x.shape[0])]

@@ -4,12 +4,19 @@
 segment's params are stacked on a leading layer axis (the reference scans
 over it), and the port walks that axis in a Python loop, handing each layer
 its slice — dense tensors and packed operand dicts alike.  The port has
-the ``attn`` kind (the dense decoders), the ``moe`` kind (attention +
-mixture-of-experts MLP, ``models/moe.py``) and the ``mla_moe`` kind
-(multi-head latent attention + MoE MLP, ``models/mla.py``); ``KINDS`` maps
-each to its init / forward / decode-step / cache functions, as the
-reference's registry does, and each segment's cache holds its kind's own
-keys ({"k", "v"}, or the latent {"c_kv", "k_rope"}).
+the ``attn`` kind (the dense decoders) and its sliding-window twin ``swa``,
+the ``moe`` kind (attention + mixture-of-experts MLP, ``models/moe.py``),
+the ``mla_moe`` kind (multi-head latent attention + MoE MLP,
+``models/mla.py``) and the hybrid ``hymba_global`` / ``hymba_swa`` kinds
+(attention beside Mamba heads, ``models/hybrid.py``); ``KINDS`` maps each
+to its init / forward / decode-step / cache functions and its attention
+mask, as the reference's registry does, and each segment's cache holds its
+kind's own keys ({"k", "v"}, the latent {"c_kv", "k_rope"}, or hymba's
+{"k", "v", "ssm": {"state", "conv"}} with a window-long ring for
+``hymba_swa``).  Meta tokens (``cfg.n_meta_tokens``) are prepended to the
+prompt by ``forward`` / ``prefill``, dropped before the logits, and occupy
+the first cache positions (the decode step runs at ``pos +
+n_meta_tokens``).
 
 Interface:
   init(key, cfg, device=)                          -> params (device: cuda default)
@@ -37,29 +44,42 @@ from torch.utils.checkpoint import (
 from repro_torch import prng
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels._util import resolve_device
-from repro_torch.models import blocks, layers, mla, moe
+from repro_torch.models import blocks, hybrid, layers, mla, moe
 from repro_torch.models.layers import Params
 
 
 class _Kind:
-    """A block kind: init(keys, cfg), fwd(p, cfg, x, return_cache=, train=)
-    -> (x, cache[, aux]), step(p, cfg, x, cache, pos) -> x and
-    init_cache(cfg, batch, seq_len, dtype, device, lead) -> the zero decode
-    cache of one layer (``lead`` stacks it); ``has_aux`` kinds return the
-    layer's aux loss from ``fwd``."""
+    """A block kind: init(keys, cfg), fwd(p, cfg, x, return_cache=, train=,
+    [kind=, window=]) -> (x, cache[, aux]), step(p, cfg, x, cache, pos,
+    [window=]) -> x and init_cache(cfg, batch, seq_len, dtype, device,
+    lead) -> the zero decode cache of one layer (``lead`` stacks it);
+    ``has_aux`` kinds return the layer's aux loss from ``fwd``.
+    ``attn_kind`` ("causal" | "swa") is the mask the kind's fwd and step
+    takes as ``kind=``, with ``window=`` (``cfg.attn_window`` for "swa",
+    else None) for fwd and step alike; None for kinds whose attention takes
+    no mask arguments."""
 
-    def __init__(self, init, fwd, step, init_cache, has_aux=False):
+    def __init__(self, init, fwd, step, init_cache, has_aux=False, attn_kind=None):
         self.init, self.fwd, self.step = init, fwd, step
-        self.init_cache, self.has_aux = init_cache, has_aux
+        self.init_cache, self.has_aux, self.attn_kind = init_cache, has_aux, attn_kind
 
 
 KINDS: dict[str, _Kind] = {
     "attn": _Kind(blocks.init_attn_block, blocks.attn_block_fwd, blocks.attn_block_step,
-                  blocks.init_attn_cache),
+                  blocks.init_attn_cache, attn_kind="causal"),
+    "swa": _Kind(blocks.init_attn_block, blocks.attn_block_fwd, blocks.attn_block_step,
+                 blocks.init_attn_cache, attn_kind="swa"),
     "moe": _Kind(moe.init_moe_block, moe.moe_block_fwd, moe.moe_block_step,
                  blocks.init_attn_cache, has_aux=True),
     "mla_moe": _Kind(mla.init_mla_moe_block, mla.mla_moe_block_fwd, mla.mla_moe_block_step,
                      mla.init_mla_cache, has_aux=True),
+    "hymba_swa": _Kind(hybrid.init_hymba_block, hybrid.hymba_block_fwd, hybrid.hymba_block_step,
+                       functools.partial(hybrid.init_hymba_cache, kind="hymba_swa"),
+                       attn_kind="swa"),
+    "hymba_global": _Kind(hybrid.init_hymba_block, hybrid.hymba_block_fwd,
+                          hybrid.hymba_block_step,
+                          functools.partial(hybrid.init_hymba_cache, kind="hymba_global"),
+                          attn_kind="causal"),
 }
 
 
@@ -76,6 +96,17 @@ def segments_of(cfg: ArchConfig) -> list[tuple[str, int]]:
         else:
             runs.append((kind, 1))
     return runs
+
+
+def _fwd_kwargs(cfg: ArchConfig, kind: str) -> dict:
+    """The mask arguments of a kind's fwd: its attention kind, and
+    ``cfg.attn_window`` for "swa" (else None).  The step takes the window
+    alone: the plain ``swa`` kind's decode keeps it, where the reference
+    drops it (ROADMAP C.11), and ``hymba_swa`` writes a ring of its length."""
+    attn_kind = KINDS[kind].attn_kind
+    if attn_kind is None:
+        return {}
+    return {"kind": attn_kind, "window": cfg.attn_window if attn_kind == "swa" else None}
 
 
 def compute_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -104,6 +135,9 @@ def init(key: torch.Tensor, cfg: ArchConfig, *, device=None) -> Params:
     params["final_norm"] = layers.init_norm(cfg.d_model, key.device)
     if not cfg.tie_embeddings:
         params["head"] = {"w": layers._dense_init(keys[-1], cfg.d_model, cfg.vocab_size)}
+    if cfg.n_meta_tokens:
+        params["meta"] = (prng.normal(keys[-2], (cfg.n_meta_tokens, cfg.d_model))
+                          * layers._f32(0.02, key.device))
     return params
 
 
@@ -114,13 +148,31 @@ def _embed_scale(d_model: int, dtype: torch.dtype) -> float:
     return float(torch.tensor(d_model**0.5, dtype=dtype))
 
 
-def _embed_inputs(params: Params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
+def _embed_tokens(params: Params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
     dtype = compute_dtype(cfg)
     x = layers.embed(params["embed"], tokens, dtype)
     if cfg.embed_scale:
         # filled on the device: no host-to-device copy in a captured step
         x = x * torch.full((), _embed_scale(cfg.d_model, dtype), dtype=dtype, device=x.device)
     return x
+
+
+def _embed_inputs(params: Params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """A whole sequence's inputs: the token embeddings with the meta tokens
+    prepended (cast to the compute dtype, shared by the batch)."""
+    x = _embed_tokens(params, cfg, tokens)
+    if cfg.n_meta_tokens:
+        meta = params["meta"].to(x.dtype)[None].expand(x.shape[0], -1, -1)
+        x = torch.cat([meta, x], dim=1)
+    return x
+
+
+def _stack_caches(layer_caches: list) -> Any:
+    """Per-layer caches (nested dicts of tensors) stacked on a layer axis."""
+    first = layer_caches[0]
+    if isinstance(first, dict):
+        return {k: _stack_caches([c[k] for c in layer_caches]) for k in first}
+    return torch.stack(layer_caches)
 
 
 def _logits(params: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
@@ -164,8 +216,8 @@ def _run_segments(params: Params, cfg: ArchConfig, x: torch.Tensor, *, return_ca
         spec = KINDS[kind]
         layer_caches = []
 
-        def layer(p_layer, xc, _spec=spec):
-            return _spec.fwd(p_layer, cfg, xc, return_cache=return_cache, train=train)
+        def layer(p_layer, xc, _spec=spec, _kw=_fwd_kwargs(cfg, kind)):
+            return _spec.fwd(p_layer, cfg, xc, return_cache=return_cache, train=train, **_kw)
 
         layer = _remat_layer(layer, remat)
         for i in range(count):
@@ -177,7 +229,7 @@ def _run_segments(params: Params, cfg: ArchConfig, x: torch.Tensor, *, return_ca
                 x, cache = out
             layer_caches.append(cache)
         if return_cache:
-            caches.append({k: torch.stack([c[k] for c in layer_caches]) for k in layer_caches[0]})
+            caches.append(_stack_caches(layer_caches))
     return x, aux, caches if return_cache else None
 
 
@@ -195,13 +247,15 @@ def forward(params: Params, cfg: ArchConfig, batch: dict, *, remat: str = "none"
         raise ValueError(f"unknown remat policy {remat!r}")
     x = _embed_inputs(params, cfg, batch["tokens"])
     x, aux, _ = _run_segments(params, cfg, x, return_cache=False, remat=remat, train=train)
-    return _logits(params, cfg, x), aux
+    return _logits(params, cfg, x[:, cfg.n_meta_tokens:]), aux
 
 
 def prefill(params: Params, cfg: ArchConfig, batch: dict) -> tuple[torch.Tensor, list]:
     """Returns (last-position logits (B, 1, V), per-segment prompt caches:
     {"k", "v": (count, B, Hkv, S, hd)}, or MLA's {"c_kv": (count, B, S, r),
-    "k_rope": (count, B, S, dr)})."""
+    "k_rope": (count, B, S, dr)}, or hymba's, meta tokens included: k/v
+    over the whole sequence (global) or the window-long ring (swa), and the
+    Mamba state and conv tail)."""
     x = _embed_inputs(params, cfg, batch["tokens"])
     x, _, caches = _run_segments(params, cfg, x, return_cache=True)
     return _logits(params, cfg, x[:, -1:]), caches
@@ -211,7 +265,9 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, dtype=None, *, device=
                shards: int = 0) -> list:
     """Zero decode cache, one stacked cache of its kind's keys per segment
     (CUDA unless ``device="cpu"``); ``shards`` > 0 adds a shard axis after
-    the layer axis (a TP plan's sharded attention: one cache per shard)."""
+    the layer axis (a TP plan's sharded attention: one cache per shard).
+    ``seq_len`` counts every cache position, meta tokens included
+    (``api.init_cache`` adds them)."""
     device = resolve_device(device)
     dtype = compute_dtype(cfg) if dtype is None else dtype
     extra = (shards,) if shards else ()
@@ -226,12 +282,16 @@ def decode_step(
 ) -> tuple[torch.Tensor, list]:
     """token: (B, 1) int; pos: absolute position, a Python int or a 0-d int
     tensor on the device (no host sync: a CUDA graph can capture the step),
-    or a (B,) int tensor of per-row positions (the engine's ragged decode).
-    Writes the caches in place and returns (logits (B, 1, V), caches)."""
-    x = _embed_inputs(params, cfg, token)
+    or a (B,) int tensor of per-row positions (the engine's ragged decode);
+    positions exclude the meta tokens, which the step adds.  Writes the
+    caches in place and returns (logits (B, 1, V), caches)."""
+    x = _embed_tokens(params, cfg, token)
+    pos = pos + cfg.n_meta_tokens if cfg.n_meta_tokens else pos
     for (kind, count), p_stack, c_stack in zip(segments_of(cfg), params["segments"], caches):
+        kw = {k: v for k, v in _fwd_kwargs(cfg, kind).items() if k == "window"}
         for i in range(count):
-            x = KINDS[kind].step(layer_slice(p_stack, i), cfg, x, layer_slice(c_stack, i), pos)
+            x = KINDS[kind].step(layer_slice(p_stack, i), cfg, x, layer_slice(c_stack, i), pos,
+                                 **kw)
     return _logits(params, cfg, x), caches
 
 
@@ -240,10 +300,10 @@ def decode_step(
 # ---------------------------------------------------------------------------
 
 def supports_paged(cfg: ArchConfig) -> bool:
-    """Paged KV serving covers pure-attention decoder stacks: the dense
-    configs; a ``moe`` or ``mla_moe`` stack is refused, as in the
-    reference."""
-    return {k for k, _ in segments_of(cfg)} <= {"attn"}
+    """Paged KV serving covers pure-attention decoder stacks without meta
+    tokens: ``attn`` and ``swa`` layers; a ``moe``, ``mla_moe`` or hymba
+    stack is refused, as in the reference."""
+    return {k for k, _ in segments_of(cfg)} <= {"attn", "swa"} and cfg.n_meta_tokens == 0
 
 
 def init_paged_pools(cfg: ArchConfig, num_tokens: int, dtype=None, *, device=None,
@@ -300,13 +360,14 @@ def chunk_on_views(params: Params, cfg: ArchConfig, caches: list, tokens: torch.
     chunk column whose logits each row emits.  Returns (logits (B, 1, V) —
     row r's column ``last_idx_r`` — and the views).
     """
-    x = _embed_inputs(params, cfg, tokens)
+    x = _embed_tokens(params, cfg, tokens)
     start = torch.as_tensor(start, device=x.device)
     kv_len = torch.as_tensor(kv_len, device=x.device)
-    for (_, count), p_stack, c_stack in zip(segments_of(cfg), params["segments"], caches):
+    for (kind, count), p_stack, c_stack in zip(segments_of(cfg), params["segments"], caches):
+        kw = _fwd_kwargs(cfg, kind)
         for i in range(count):
             x = blocks.attn_block_chunk_step(layer_slice(p_stack, i), cfg, x,
-                                             layer_slice(c_stack, i), start, kv_len)
+                                             layer_slice(c_stack, i), start, kv_len, **kw)
     last = torch.as_tensor(last_idx, device=x.device).to(torch.int64).reshape(-1, 1, 1)
     x_last = torch.gather(x, 1, last.expand(x.shape[0], 1, x.shape[-1]))
     return _logits(params, cfg, x_last), caches
