@@ -6,7 +6,7 @@ and through a persistent ``CrossbarPool`` with plane codecs, then serve it
 from the packed bits and from int8 planes, each generation's decode one
 CUDA graph (held to the eager per-token loop, greedy and sampled), and
 run the serving-throughput benchmark; plan yi-6b and serve it the same
-ways — at each model's full width with the depth cut to 4 layers; then the
+ways — at each model's full width with the depth cut to 2 layers; then the
 paper's planner figures on its models' published shapes, held to the
 reference's integers; train internlm2-1.8b at full width (2 layers) with
 checkpoints, a resume and redeploy pricing; the accuracy halves of
@@ -20,10 +20,11 @@ continuous-batching engine, every dispatch a CUDA graph; and yi-6b and
 gemma-2b split over tensor-parallel shards, deployed over per-shard pools
 and served by fleets of engine replicas under chaos; and qwen2-moe-a2.7b
 (2 layers) planned and served from its bits with every expert stack one
-grouped kernel launch; deepseek-v2-236b (1 layer) with MLA; and hymba-1.5b
+grouped kernel launch; deepseek-v2-236b (1 layer) with MLA; hymba-1.5b
 (4 layers), attention beside Mamba heads with meta tokens and
-sliding-window ring caches — and holds each hand-written kernel against
-its plain PyTorch version on the card.
+sliding-window ring caches; and xlstm-350m (8 layers), the recurrent
+mLSTM and sLSTM blocks with no attention — and holds each hand-written
+kernel against its plain PyTorch version on the card.
 Phases (one line each, any failed check exits 1):
 
   1. card + build: name and power limit, the kernels built from csrc/;
@@ -74,11 +75,11 @@ Phases (one line each, any failed check exits 1):
      loops, and the first step's Gumbel noise on the card equal to the
      CPU's bit for bit;
   5a. serve-throughput: ``benchmarks_torch.serving_throughput.run`` at
-     gemma-2b's full width (4 layers, batch 4, prompt 32, gen 16, greedy):
+     gemma-2b's full width (2 layers, batch 4, prompt 32, gen 16, greedy):
      fp / cim-dense / cim-planes_int8 / cim-packed through both loops,
      passes interleaved, best of 5; the device-busy share of one traced
      generate per loop for cim-packed and cim-planes_int8;
-  5b. yi-6b: plan at full width (4 layers), CPU re-plan of
+  5b. yi-6b: plan at full width (2 layers), CPU re-plan of
      segments/0/attn/wk; B6 planes of every planned tensor == the route
      before B6 (q = round(|w_hat| / scale)); serve fp, cim-dense,
      cim-packed and cim-planes_int8 with (7 * layers + 1) * gen B2 / B5
@@ -108,7 +109,7 @@ Phases (one line each, any failed check exits 1):
      within 1e-5, logit KL also within 5% of the reference's) and on the card-trained weights (accuracies within
      0.01 / 0.02, speedups within 1%); B3 = 272 on the FMA kernel at head
      dim 16, B1 > 0, no plain-version call;
-  5f. offset-binary: gemma-2b at full width (4 layers) planned with
+  5f. offset-binary: gemma-2b at full width (2 layers) planned with
      ``CrossbarSpec(encoding="offset_binary")`` (p_stuck 0.5, min_size
      4096), its totals beside the sign_magnitude plan's; served dense,
      packed (B2), packed const_rle (B4) and planes_int8 (B6 builds on
@@ -126,7 +127,7 @@ Phases (one line each, any failed check exits 1):
      B2/B4; whether the tokens equal the reference's is printed, not
      gated); the card's own redeploy chain's speedups within 1% of the
      reference's; B1/B2/B4 counted, no plain-version call;
-  5h. faults: gemma-2b at full width (4 layers) through a 32-crossbar pool
+  5h. faults: gemma-2b at full width (2 layers) through a 32-crossbar pool
      with stuck cells (1e-3 each way, 25% hotspots at 8x, PRNGKey(42)),
      planned with leveling none and fault beside a fault-free plan; a CPU
      pool with the same faults gives the same damage matrices, assignment,
@@ -147,7 +148,7 @@ Phases (one line each, any failed check exits 1):
      split: streams equal, a departure only at the reference's near ties;
      stats and shapes equal; run_overcommit's integers, the hot redeploy's
      and the engine scrub's counters equal); then gemma-2b at full width
-     (ENGINE_LAYERS = 2 layers, bf16) planned as phase serve plans it and
+     (ENGINE_LAYERS = 1 layer, bf16) planned as phase serve plans it and
      served by the engine (8 slots, page 16, chunk 32, quantum 8) dense, packed (B2),
      const_rle through a pool (B4) and planes_int8 (B6 builds, B5 serves),
      fused and split, on a 32-request chat trace (prompts 8-96, gen 2-64,
@@ -167,7 +168,7 @@ Phases (one line each, any failed check exits 1):
      interleaved; latency and TTFT percentiles; graphs and their memory;
      the device-busy share of one traced fused and one static pass);
   5j. tp-fleet: tensor parallelism and the fleet, yi-6b and gemma-2b at
-     full width with the depth cut to TP_LAYERS = 2.  tp_generate of yi-6b
+     full width with the depth cut to TP_LAYERS = 1.  tp_generate of yi-6b
      (bf16, packed) at n = 1, 2, 4 (plan_tp shards
      attention and MLP at each: 8 q / 1 KV head and K slices 1024 / 2752 at
      4) and planes_int8 at n = 2, gemma-2b packed and const_rle at n = 2
@@ -245,6 +246,26 @@ Phases (one line each, any failed check exits 1):
      x_proj [3200, 132] and dt_proj [100, 3200] (the kernels' non-vec
      branches) run with the kernel checks of phase 3, B3 at hymba's layout
      with phase 3's B3 cases;
+  5n. xlstm: xlstm-350m at published width (d_model 1024, 4 heads, mLSTM
+     inner width 2048 at head dim 512, sLSTM head dim 256, conv 4, chunk
+     256, vocab 50304, untied head), depth cut 24 -> 8 (XLSTM_LAYERS: seven
+     mlstm layers and one slstm): a const_rle plan through one pool served
+     raw-packed (B2) and const_rle (B4, tokens == raw-packed); one
+     stateless plan served fp, dense, packed (B2) and planes_int8 (B6
+     builds, B5 serves), each through the serve gates: (6 x mlstm + 2 x
+     slstm + 1) x gen CIM launches a generate, all but the f32 head's on
+     the tensor cores, no B3 and no blockwise_attention; ``r`` and the conv
+     taps served dense; f32 prefill logits of packed and planes_int8 within
+     dense's bound; then a packed generate of a 300-token prompt (two
+     mLSTM chunks, the second padded) through the serve gates, and the
+     decode after it and after a 2-token prompt (shorter than the conv:
+     ROADMAP C.13) against forward at every decoded position, in f32 within
+     1e-3 of forward's largest logit.  The bf16 logit comparisons are
+     printed beside 2e-2, not held: the random-weight xLSTM amplifies one
+     bf16 rounding ~30x, so any two bf16 computations that round at
+     different points part by more.  B2 / B4 / B5 at w_if [1024, 8] (the
+     narrowest N served) and wq [2048, 2048], M 4 and 128, run with the
+     kernel checks of phase 3;
   6. kernels: time, bound (the bf16 tensor-core rate for the tensor-core
      paths, the f32 rate for the FMA kernels), plain-version and library
      times; B2, B3 and B5 on both paths, B2 with plane gains at decode (f32
@@ -254,20 +275,23 @@ Phases (one line each, any failed check exits 1):
 
 The line before the last is the kernels' JSON record (B1's launches are
 those of the gemma-2b plan and the figures, train, accuracy, offset-binary,
-bench-extra, faults, engine, tp-fleet, moe, mla and hymba phases; B2's, B4's and B5's
+bench-extra, faults, engine, tp-fleet, moe, mla, hymba and xlstm phases; B2's, B4's and B5's
 those of gemma's packed, const_rle and planes_int8 generates plus the
-offset-binary, bench-extra, faults, engine, tp-fleet, moe, mla and hymba phases' (B2's
+offset-binary, bench-extra, faults, engine, tp-fleet, moe, mla, hymba and xlstm phases' (B2's
 ``launches_gain`` those with plane gains; the engines' from their graphs'
 nodes x replays plus each capture's warm-up run; ``launches_moe`` the moe
 phase's, and ``grouped_m8`` / ``grouped_m11`` the grouped launch's times
 at the expert shapes; ``launches_mla`` and ``grouped_g160_m8`` the mla
-phase's; ``launches_hymba`` the hymba phase's); the ``sws_sort`` row is the
+phase's; ``launches_hymba`` the hymba phase's; ``launches_xlstm`` on every
+TPU kernel's row the xlstm phase's, and ``xlstm_shapes`` on B2's, B4's and
+B5's the cases and max |d| of their check at xlstm's shapes); the
+``sws_sort`` row is the
 planner's sort helper (no TPU kernel), its launches the mla phase's plans';
 B3's those of yi-6b's generate and the accuracy, offset-binary, bench-extra,
-faults, engine, tp-fleet, moe and hymba phases (``launches_hymba`` /
-``launches_hymba_tc`` the hymba phase's, at D = 64); B6's yi-6b's, the
-offset-binary, the faults, the engine, the tp-fleet, the moe, the mla and
-the hymba deployments');
+faults, engine, tp-fleet, moe, hymba and xlstm phases (``launches_hymba`` /
+``launches_hymba_tc`` the hymba phase's, at D = 64; the xlstm phase's 0);
+B6's yi-6b's, the offset-binary, the faults, the engine, the tp-fleet, the
+moe, the mla, the hymba and the xlstm deployments');
 the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
 ``python3 chip_smoke.py`` (needs one CUDA card; fails without one).
@@ -290,7 +314,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-LAYERS, BATCH, PROMPT, GEN, P_STUCK = 4, 4, 32, 16, 0.5
+LAYERS, BATCH, PROMPT, GEN, P_STUCK = 2, 4, 32, 16, 0.5  # LAYERS: gemma-2b's depth cut
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 BF16_TC_FLOPS = 989e12  # H100 SXM dense bf16 on the tensor cores (B2/B4's, B3's and B5's bf16 paths)
@@ -302,7 +326,7 @@ ZERO_SHARES = (0.0, 0.25, 0.5, 0.75, 0.9)  # zero-tile shares of the synthetic B
 QUANT_MSE_RTOL = 1e-6
 F32_LOGIT_RTOL = 1e-3  # f32 prefill, packed vs dense: sums of <= 16384 terms reordered
 BF16_LOGIT_RTOL = 0.02  # bf16 prefill: dense rounds w_hat to bf16, packed keeps it exact
-YI_LAYERS = 4
+YI_LAYERS = 2
 B3_WINDOW = 256
 B3_SMALL = {  # (B, Hq, Hkv, D) of the reduced configs, f32; internlm2's is the accuracy phase's
     "internlm2/yi reduced": (8, 4, 2, 16), "phi3 reduced": (8, 4, 2, 20),
@@ -343,7 +367,7 @@ REDEPLOY_SPEEDUP_RTOL = 0.01
 FAULT_MODEL = dict(stuck0=1e-3, stuck1=1e-3, hotspot_fraction=0.25, hotspot_mult=8.0)
 FAULT_SEED = 42
 DRIFT_MODEL = dict(stuck0=1e-3, stuck1=1e-3, drift_sigma=0.05, ir_alpha=0.1)
-INTEGRITY_CFG = dict(spare_cols=2, scrub_tiles=65536)  # ~53 rounds a clean cycle at x4
+INTEGRITY_CFG = dict(spare_cols=2, scrub_tiles=65536)  # ~53 rounds a clean cycle at 4 layers
 STORM_SEED = 1729
 STORM_RATES = dict(corrupt_rate=2e-7, stuck_rate=2e-8)
 
@@ -1146,7 +1170,7 @@ def yi_phases(dev) -> dict:
     params = api.init(prng.PRNGKey(0), cfg, device=dev)
     torch.cuda.synchronize()
     n_init = sum(w.numel() for w in tree.leaves(params))
-    say(f"phase init: yi-6b x4 layers {n_init / 1e6:.1f}M params from the reference's key in "
+    say(f"phase init: yi-6b x{YI_LAYERS} layers {n_init / 1e6:.1f}M params from the reference's key in "
         f"{time.perf_counter() - t_init:.2f} s")
     spec, pcfg = planner.CrossbarSpec(), planner.PlannerConfig(p_stuck=P_STUCK)
     reset_counts()
@@ -2297,7 +2321,7 @@ ENGINE_CFG = dict(max_slots=8, page_size=16, max_seq_len=160, prefill_chunk=32, 
 ENGINE_TRACE = dict(n_requests=32, min_prompt=8, max_prompt=96, min_gen=2, max_gen=64, seed=0,
                     sample_every=4)
 ENGINE_PASSES = 3
-ENGINE_LAYERS = 2  # depth of phase engine's gemma-2b: the run's time limit bounds it
+ENGINE_LAYERS = 1  # depth of phase engine's gemma-2b: the run's time limit bounds it
 ENGINE_M = (1, 2, 4, 8, 16, 32, 64, 128, 256)  # the CIM kernels' bucketed row counts
 ENGINE_CHUNKS = (1, 2, 4, 8, 16, 32)  # B3's bucketed query widths (the fused chunk stage)
 ENGINE_PAGES = (1, 2, 4, 8, 13)  # page buckets of ENGINE_CFG (max_pages 13)
@@ -2789,7 +2813,7 @@ def engine_phase(dev) -> dict:
 
 
 TP_COUNTS = (1, 2, 4)  # yi-6b's tp_generate shard counts
-TP_LAYERS = 2  # depth of phase tp-fleet's yi-6b and gemma-2b: the run's time limit bounds it
+TP_LAYERS = 1  # depth of phase tp-fleet's yi-6b and gemma-2b: the run's time limit bounds it
 TP_ENGINE_TRACE = dict(n_requests=16, min_prompt=8, max_prompt=96, min_gen=2, max_gen=64, seed=0,
                        sample_every=4)
 TP_STORM = dict(corrupt_rate=5e-6, stuck_rate=1e-7)  # on two tensors of each shard pool
@@ -3961,11 +3985,12 @@ MAMBA_SHAPES = {"x_proj": (3200, 132), "dt_proj": (100, 3200)}
 MAMBA_M = (BATCH, BATCH * (128 + PROMPT))  # decode rows, and a served prefill's rows
 
 
-def check_mamba_kernels(dev) -> dict:
-    """B2, B4 (~half the tiles zero, const_rle flags) and B5 at hymba-1.5b's
-    x_proj and dt_proj shapes, M in MAMBA_M, bf16 x (tensor-core kernels)
-    and f32 x (FMA kernels): within the bound of the plain version, B4 ==
-    B2 bit for bit.  Returns the max |d| by kernel."""
+def check_cim_shapes(dev, label: str, shapes: dict, ms: tuple) -> dict:
+    """B2, B4 (~half the tiles zero, const_rle flags) and B5 at a model's
+    projection ``shapes`` ({name: (K, N)}), M in ``ms``, bf16 x
+    (tensor-core kernels) and f32 x (FMA kernels): within the bound of the
+    plain version, B4 == B2 bit for bit.  Returns the max |d| by kernel
+    and the number of cases ("cases")."""
     import torch
 
     from repro_torch.core import planes, simulator
@@ -3974,7 +3999,7 @@ def check_mamba_kernels(dev) -> dict:
 
     eps = torch.finfo(torch.float32).eps
     errs, n_cases = {"B2": 0.0, "B4": 0.0, "B5": 0.0}, 0
-    for name, (k, n) in MAMBA_SHAPES.items():
+    for name, (k, n) in shapes.items():
         gen = torch.Generator(device=dev).manual_seed(k + n)
         q = torch.randint(0, 1024, (k, n), dtype=torch.int32, device=dev, generator=gen)
         sg = torch.where(torch.rand(k, n, device=dev, generator=gen) < 0.5, -1, 1).to(torch.int8)
@@ -3987,7 +4012,7 @@ def check_mamba_kernels(dev) -> dict:
         args = (op["planes_packed"], op["sign_packed"], op["scale"])
         w_abs = cim_ref.unpack_weights(*args[:2], k).abs() * op["scale"]
         w8_abs = q.float() * i8["scale"]
-        for m in MAMBA_M:
+        for m in ms:
             for dtype in (torch.bfloat16, torch.float32):
                 x = torch.randn(m, k, device=dev, generator=gen).to(dtype)
                 tc = dtype == torch.bfloat16
@@ -4017,12 +4042,12 @@ def check_mamba_kernels(dev) -> dict:
                 n_cases += 1
         del op, i8, q, sg, w_abs, w8_abs
     torch.cuda.empty_cache()
-    say(f"phase mamba-kernels: B2, B4 (~50% zero tiles) and B5 at x_proj [3200, 132] and "
-        f"dt_proj [100, 3200] (the non-vec branches), M in {MAMBA_M}, bf16 x on the "
-        f"tensor-core kernels and f32 x on the FMA kernels: {n_cases} cases within "
-        f"{B2_BOUND_C}*eps*K*(|x|@|w|) of the plain versions, B4 == B2; max |d| "
-        + ", ".join(f"{k_} {v:.3e}" for k_, v in errs.items()))
-    return errs
+    say(f"phase {label}: B2, B4 (~50% zero tiles) and B5 at "
+        + " and ".join(f"{name} [{k}, {n}]" for name, (k, n) in shapes.items())
+        + f", M in {ms}, bf16 x on the tensor-core kernels and f32 x on the FMA kernels: "
+        f"{n_cases} cases within {B2_BOUND_C}*eps*K*(|x|@|w|) of the plain versions, B4 == "
+        f"B2; max |d| " + ", ".join(f"{k_} {v:.3e}" for k_, v in errs.items()))
+    return {**errs, "cases": n_cases}
 
 
 def hymba_decode_logits(cfg, params, tokens, prompt) -> tuple:
@@ -4207,6 +4232,249 @@ def hymba_phase(dev) -> dict:
     return totals
 
 
+XLSTM_ARCH = "xlstm-350m"
+XLSTM_LAYERS = 8  # depth cut 24 -> 8, the only cut: seven mlstm layers and one slstm
+XLSTM_LONG_PROMPT = 300  # two mLSTM chunks of 256, the second padded
+XLSTM_SHORT_PROMPT = 2  # shorter than conv_width - 1 (ROADMAP C.13)
+XLSTM_LOGIT_RTOL = 0.02  # bf16 decode vs forward, printed beside it (f32: F32_LOGIT_RTOL, held)
+# K x N of xlstm-350m's w_if (N = 8: the kernels' non-vec branches, the narrowest N served)
+# and wq (the mLSTM's inner width), at a generate's decode rows and its prefill's rows
+XLSTM_SHAPES = {"w_if": (1024, 8), "wq": (2048, 2048)}
+XLSTM_M = (BATCH, BATCH * PROMPT)
+
+
+def decode_departure(cfg, params, tokens, prompt) -> tuple:
+    """Eager prefill of ``tokens[:, :prompt]``, merged into a zero cache,
+    and teacher-forced decode steps over the rest: the largest |decode -
+    forward| over every position from ``prompt - 1`` on (the prefill's
+    last logits and each step's), forward's largest |logit| over the whole
+    sequence, and whether both are finite."""
+    import torch
+
+    from repro_torch.models import api
+
+    b, total = tokens.shape
+    with torch.inference_mode():
+        full, _ = api.forward(params, cfg, {"tokens": tokens})
+        logits, pf = api.prefill(params, cfg, {"tokens": tokens[:, :prompt]})
+        d = (logits[:, -1] - full[:, prompt - 1]).abs().max()
+        cache = api.merge_prefill_cache(
+            cfg, api.init_cache(cfg, b, total, device=tokens.device), pf)
+        for i in range(prompt, total - 1):
+            logits, cache = api.decode_step(params, cfg, cache, tokens[:, i:i + 1],
+                                            torch.tensor(i, device=tokens.device))
+            d = torch.maximum(d, (logits[:, 0] - full[:, i]).abs().max())
+        finite = bool(torch.isfinite(full).all()) and bool(torch.isfinite(d))
+    return d.item(), full.abs().max().item(), finite
+
+
+def xlstm_logit_check(cfg, deployments: dict, batch) -> None:
+    """Prefill logits of the dense, packed and planes_int8 deployments:
+    packed and planes_int8 within F32_LOGIT_RTOL of dense's largest logit in
+    f32, all finite.  The bf16 comparisons are printed: a random-weight
+    xLSTM amplifies one rounding of its bf16 activations or weights some
+    30x (the q . k of random 512-wide heads cancels), so two computations
+    that round at different points, dense's bf16 w_hat against the exact
+    w_hat, or one bf16 flip from a sum taken in another order, part by
+    more than BF16_LOGIT_RTOL with the program right."""
+    import torch
+
+    from repro_torch.models import api
+
+    logits = {}
+    with torch.inference_mode():
+        for dtype_name in ("bfloat16", "float32"):
+            c_ = dataclasses.replace(cfg, dtype=dtype_name)
+            for name, p in deployments.items():
+                lg, _ = api.prefill(p, c_, batch)
+                if not torch.isfinite(lg).all():
+                    fail(f"{cfg.name} non-finite {dtype_name} prefill logits of {name}")
+                logits[dtype_name, name] = lg
+    for dtype_name, rtol, a, b, held in (
+            ("float32", F32_LOGIT_RTOL, "packed", "dense", True),
+            ("float32", F32_LOGIT_RTOL, "planes_int8", "dense", True),
+            ("bfloat16", BF16_LOGIT_RTOL, "planes_int8", "packed", False),
+            ("bfloat16", BF16_LOGIT_RTOL, "packed", "dense", False),
+            ("bfloat16", BF16_LOGIT_RTOL, "planes_int8", "dense", False)):
+        want = logits[dtype_name, b]
+        d = (logits[dtype_name, a] - want).abs().max().item()
+        lim = rtol * want.abs().max().item()
+        say(f"phase logits: {cfg.name} {dtype_name} prefill {a} vs {b} max |d| {d:.4e} (bound "
+            f"{rtol:g} * max|logit| = {lim:.4e}{'' if held else ', printed'})")
+        if held and d > lim:
+            fail(f"{dtype_name} prefill logits of {a} and {b} differ by {d:.4e}")
+
+
+def xlstm_phase(dev) -> dict:
+    """xlstm-350m at its published width with the depth cut to
+    XLSTM_LAYERS (seven mlstm layers and one slstm): init from the
+    reference's key; a const_rle plan through one pool served raw-packed
+    (B2) and const_rle (B4, tokens == raw-packed); one stateless plan served
+    fp, dense, packed (B2) and planes_int8 (B6 builds, B5 serves), each
+    through the serve gates: 6 CIM matmuls an mLSTM layer (w_up, wq, wk,
+    wv, w_if, w_down), 2 an sLSTM layer (w, w_out) and the head a step, all
+    but the f32 head on the tensor cores, no B3 and no blockwise_attention
+    (the family has no attention); ``r`` and the conv taps planned and
+    served dense; f32 prefill logits of packed and planes_int8 within
+    dense's bound (``xlstm_logit_check``; bf16 printed).  Then a packed
+    generate of an XLSTM_LONG_PROMPT-token prompt (two mLSTM chunks, the
+    second padded) through the serve gates, and the packed decode after it
+    and after an XLSTM_SHORT_PROMPT-token prompt (ROADMAP C.13) against
+    forward at every decoded position: in f32 within F32_LOGIT_RTOL of
+    forward's largest logit, in bf16 printed beside XLSTM_LOGIT_RTOL.
+    Returns the phase's launches."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.configs import get_arch
+    from repro_torch.core import planner, pool
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+    from repro_torch.models.transformer import segments_of
+
+    t_phase = time.perf_counter()
+    totals = {}
+
+    def add(c):
+        for k_, v in c.items():
+            if k_ != "plain":
+                totals[k_] = totals.get(k_, 0) + v
+
+    full = get_arch(XLSTM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=XLSTM_LAYERS)
+    sc = cfg.ssm
+    kinds = cfg.layer_kinds()
+    n_m, n_s = kinds.count("mlstm"), kinds.count("slstm")
+    if segments_of(cfg) != [("mlstm", 7), ("slstm", 1)]:
+        fail(f"{XLSTM_ARCH} x{XLSTM_LAYERS}: layer kinds {kinds}")
+    di = sc.expand * cfg.d_model
+    say(f"phase xlstm-plan: {XLSTM_ARCH} d_model={cfg.d_model} heads={cfg.n_heads} mLSTM inner "
+        f"{di} (head dim {di // cfg.n_heads}), sLSTM head dim {cfg.d_model // cfg.n_heads}, "
+        f"conv {sc.conv_width}, chunk {sc.chunk_size}, vocab {cfg.vocab_size}, untied head; "
+        f"depth cut {full.n_layers} -> {XLSTM_LAYERS} (the only cut): {n_m} mlstm + {n_s} "
+        f"slstm, p_stuck={P_STUCK}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init(prng.PRNGKey(0), cfg, device=dev)
+    torch.cuda.synchronize()
+    say(f"phase init: {XLSTM_ARCH} x{XLSTM_LAYERS} {api.param_count(params) / 1e6:.1f}M params "
+        f"from the reference's key in {time.perf_counter() - t0:.2f} s")
+    spec = planner.CrossbarSpec()
+    batch = api.make_batch(cfg, prng.PRNGKey(0), BATCH, PROMPT, device=dev)
+    per_step = 6 * n_m + 2 * n_s
+    want, want_tc = (per_step + 1) * GEN, per_step * GEN
+    say(f"phase xlstm-serve: launch formula per generate: (6 x {n_m} + 2 x {n_s} + 1) x {GEN} "
+        f"= {want} CIM launches (w_up, wq, wk, wv, w_if, w_down an mLSTM layer; w, w_out an "
+        f"sLSTM layer; the head), {per_step} x {GEN} = {want_tc} on the tensor cores (the f32 "
+        f"head on FMA); no B3, no blockwise_attention")
+
+    def serve_xlstm(label, p, kernel, b=batch):
+        expect = {kernel: want, f"{kernel}_tc": want_tc} if kernel else {}
+        out = served(f"{XLSTM_ARCH} {label}", cfg, p, b, GEN, kernel, want, expect=expect)
+        add(out[3])
+        return out
+
+    def plan_timed(label, pcfg, **kw):
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0_ = time.perf_counter()
+        plan_ = planner.build_deployment(params, spec, pcfg, device=dev, **kw)
+        torch.cuda.synchronize()
+        plan_s = time.perf_counter() - t0_
+        c = counts()
+        add(c)
+        tot = plan_.totals()
+        n_w = sum(r.n_weights for r in plan_.reports.values())
+        say(f"phase {label}: {len(plan_.reports)} tensors ({n_w / 1e6:.1f}M weights) in "
+            f"{plan_s:.2f} s; sws {tot['sws_speedup']:.4f}x total {tot['total_speedup']:.4f}x; "
+            f"B1 {c['B1']}; peak CUDA memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        if c["B1"] <= 0 or any(c[k_] for k_ in c if k_ not in ("B1", "plain")) or c["plain"]:
+            fail(f"{XLSTM_ARCH} {label} launched {c}")
+        return plan_
+
+    toks, tps = {}, {}
+    pcfg_pool = planner.PlannerConfig(p_stuck=P_STUCK, codec=CODEC)
+    xbars = pool.CrossbarPool(spec, pcfg_pool.crossbars, device=dev)
+    pool_plan = plan_timed("xlstm-plan-pool", pcfg_pool, pool=xbars)
+    p_raw = planner.deploy_params(params, pool_plan, materialize="packed", codec="raw")
+    toks["raw_pool"], tps["packed (pool plan)"], _, _ = serve_xlstm("packed (pool plan)", p_raw,
+                                                                   "B2")
+    p_rle = planner.deploy_params(params, pool_plan, materialize="packed", codec=CODEC)
+    toks["rle"], tps[f"packed {CODEC}"], _, _ = serve_xlstm(f"packed {CODEC}", p_rle, "B4")
+    if not torch.equal(toks["rle"], toks["raw_pool"]):
+        fail(f"{XLSTM_ARCH} {CODEC} tokens differ from raw-packed tokens of the same plan")
+    del p_raw, p_rle, pool_plan, xbars
+
+    plan = plan_timed("xlstm-plan", planner.PlannerConfig(p_stuck=P_STUCK))
+    planned = set(plan.reports)
+    need = {f"segments/0/{w}" for w in ("w_up", "wq", "wk", "wv", "w_if", "w_down", "conv/w")}
+    need |= {f"segments/1/{w}" for w in ("w", "r", "w_out")} | {"head/w"}
+    if not need <= planned:
+        fail(f"{XLSTM_ARCH}: not planned: {sorted(need - planned)}")
+    toks["fp"], tps["fp"], _, _ = serve_xlstm("fp", params, None)
+    p_dense = planner.deploy_params(params, plan, materialize="dense")
+    toks["dense"], tps["dense"], _, _ = serve_xlstm("dense", p_dense, None)
+    p_packed = planner.deploy_params(params, plan, materialize="packed")
+    m_ops, s_ops = p_packed["segments"][0], p_packed["segments"][1]
+    if not (isinstance(s_ops["r"], torch.Tensor) and isinstance(m_ops["conv"]["w"], torch.Tensor)
+            and isinstance(m_ops["w_if"], dict)):
+        fail(f"{XLSTM_ARCH}: r / conv not served dense, or w_if not as operands")
+    say(f"phase xlstm-deploy: segments/0 operands: w_if planes "
+        f"{list(m_ops['w_if']['planes_packed'].shape)}, wq planes "
+        f"{list(m_ops['wq']['planes_packed'].shape)}; segments/1/r "
+        f"{list(s_ops['r'].shape)} and the conv taps dense w_hat")
+    toks["packed"], tps["packed"], timed, _ = serve_xlstm("packed", p_packed, "B2")
+    say(f"phase trace: {XLSTM_ARCH} cim-packed generate: {trace(timed)}")
+    del timed
+    p_int8, c6 = deploy_int8(p_dense, plan)
+    add(c6)
+    toks["planes_int8"], tps["planes_int8"], timed, _ = serve_xlstm("planes_int8", p_int8, "B5")
+    say(f"phase trace: {XLSTM_ARCH} cim-planes_int8 generate: {trace(timed)}")
+    del timed
+    xlstm_logit_check(cfg, {"dense": p_dense, "packed": p_packed, "planes_int8": p_int8}, batch)
+    del p_int8, p_dense
+    torch.cuda.empty_cache()
+    agree = {k_: (toks[k_] == toks["dense"]).float().mean().item()
+             for k_ in ("fp", "packed", "planes_int8")}
+    say(f"phase xlstm-serve: batch {BATCH} prompt {PROMPT} gen {GEN} greedy bf16, graph tok/s "
+        + ", ".join(f"{k_} {v:.1f}" for k_, v in tps.items())
+        + f"; {CODEC} tokens == raw-packed tokens; token agreement with dense {agree}; peak "
+        f"CUDA memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    # a prompt over two mLSTM chunks (the second padded), then one shorter than the conv
+    t0 = time.perf_counter()
+    long_batch = api.make_batch(cfg, prng.PRNGKey(1), BATCH, XLSTM_LONG_PROMPT, device=dev)
+    toks_long, tps_long, _, _ = serve_xlstm(f"packed prompt {XLSTM_LONG_PROMPT}", p_packed,
+                                            "B2", long_batch)
+    seq = torch.cat([long_batch["tokens"], toks_long[:, :-1].to(long_batch["tokens"].dtype)],
+                    dim=1)
+    short = api.make_batch(cfg, prng.PRNGKey(2), BATCH, XLSTM_SHORT_PROMPT + GEN,
+                           device=dev)["tokens"]
+    for dtype, rtol, held in ((torch.float32, F32_LOGIT_RTOL, True),
+                              (torch.bfloat16, XLSTM_LOGIT_RTOL, False)):
+        c_ = dataclasses.replace(cfg, dtype=str(dtype).removeprefix("torch."))
+        served_p = steps.prepare_serving_params(p_packed, dtype)
+        for label, tokens_, prompt_ in (("long", seq, XLSTM_LONG_PROMPT),
+                                        ("short", short, XLSTM_SHORT_PROMPT)):
+            d, top, finite = decode_departure(c_, served_p, tokens_, prompt_)
+            bnd = rtol * top
+            say(f"phase xlstm-{label}: packed {c_.dtype}, batch {BATCH}, prompt {prompt_}, "
+                f"{tokens_.shape[1] - prompt_ - 1} decode steps vs forward over "
+                f"{tokens_.shape[1]} positions: max |d| {d:.4e} at any decoded position (bound "
+                f"{rtol:g} * max|logit| = {bnd:.4e}{'' if held else ', printed'})")
+            if not finite or (held and d > bnd):
+                fail(f"{XLSTM_ARCH} {label} prompt {c_.dtype}: decode logits differ from "
+                     f"forward by {d:.4e} (finite: {finite})")
+        del served_p
+    say(f"phase xlstm-long: graph {tps_long:.1f} tok/s at prompt {XLSTM_LONG_PROMPT}, graph "
+        f"tokens == eager tokens; {time.perf_counter() - t0:.1f} s")
+    del p_packed, params, plan
+    torch.cuda.empty_cache()
+    say(f"phase xlstm: {time.perf_counter() - t_phase:.1f} s; launches {totals}")
+    return totals
+
+
 def main() -> None:
     import torch
 
@@ -4383,7 +4651,9 @@ def main() -> None:
         f"on the tensor-core kernel) within {B2_BOUND_C}*eps*K*(|x|@|w|), max |d| {b5_err:.3e}")
     torch.cuda.empty_cache()
 
-    mamba_err = check_mamba_kernels(dev)
+    mamba_err = check_cim_shapes(dev, "mamba-kernels", MAMBA_SHAPES, MAMBA_M)
+    xlstm_err = check_cim_shapes(dev, "xlstm-kernels", XLSTM_SHAPES, XLSTM_M)
+    shape_err = {k_: max(mamba_err[k_], xlstm_err[k_]) for k_ in ("B2", "B4", "B5")}
 
     b3_err, n3 = check_b3(dev)
     say(f"phase B3: {n3} cases within {fa_ref.TOL:g} (abs + rel; bf16 one ulp more; bf16 on "
@@ -4402,7 +4672,7 @@ def main() -> None:
     params = api.init(prng.PRNGKey(0), cfg, device=dev)
     torch.cuda.synchronize()
     n_init = sum(w.numel() for w in tree.leaves(params))
-    say(f"phase init: gemma-2b x4 layers {n_init / 1e6:.1f}M params from the reference's key in "
+    say(f"phase init: gemma-2b x{LAYERS} layers {n_init / 1e6:.1f}M params from the reference's key in "
         f"{time.perf_counter() - t_init:.2f} s")
     spec, pcfg = planner.CrossbarSpec(), planner.PlannerConfig(p_stuck=P_STUCK)
     reset_counts()
@@ -4646,6 +4916,9 @@ def main() -> None:
     # --- 5m. hymba-1.5b at published width: Mamba heads, meta tokens, ring caches ---
     hy = hymba_phase(dev)
 
+    # --- 5n. xlstm-350m at published width: mLSTM and sLSTM, no attention -----
+    xl = xlstm_phase(dev)
+
     # --- 6. kernels: time, bound, plain, library -------------------------------
     t = 1 << 20
     pairs = [tuple(torch.randint(0, 256, (t, 16, 10), dtype=torch.uint8, device=dev, generator=g)
@@ -4808,54 +5081,64 @@ def main() -> None:
         return r
 
     kernels = [
-        row("hamming_pairs", "src/repro_torch/csrc/hamming.cu",
+        {**row("hamming_pairs", "src/repro_torch/csrc/hamming.cu",
             "src/repro/kernels/hamming/kernel.py:32",
             b1_plan + figs["B1"] + trained["B1"] + acc["B1"] + ob["B1"] + bx["B1"] + fl["B1"]
             + en.get("B1", 0) + tf.get("B1", 0) + mo.get("B1", 0) + ml.get("B1", 0)
-            + hy.get("B1", 0), b1_err,
+            + hy.get("B1", 0) + xl.get("B1", 0), b1_err,
             dict(ms=b1_ms, plain_ms=b1_plain, bound_ms=b1_bound, bound_by="bytes",
                  library_ms=None)),
+         "launches_xlstm": xl.get("B1", 0)},
         {**row("cim_matmul_packed", "src/repro_torch/csrc/cim_matmul.cu",
                "src/repro/kernels/cim_matmul/kernel.py:242",
                b2_launches + ob["B2"] + bx["B2"] + fl["B2"] + en.get("B2", 0) + tf.get("B2", 0)
-               + mo.get("B2", 0) + ml.get("B2", 0) + hy.get("B2", 0),
-               max(b2_err, ee["B2"], te["B2"], me["B2"], mle["B2"], mamba_err["B2"]),
+               + mo.get("B2", 0) + ml.get("B2", 0) + hy.get("B2", 0) + xl.get("B2", 0),
+               max(b2_err, ee["B2"], te["B2"], me["B2"], mle["B2"], shape_err["B2"]),
                records["decode"],
                b2_tc + ob["B2_tc"] + bx["B2_tc"] + fl["B2_tc"] + en.get("B2_tc", 0)
                + tf.get("B2_tc", 0) + mo.get("B2_tc", 0) + ml.get("B2_tc", 0)
-               + hy.get("B2_tc", 0), grouped="B2"),
-         "launches_hymba": hy.get("B2", 0),
+               + hy.get("B2_tc", 0) + xl.get("B2_tc", 0), grouped="B2"),
+         "launches_hymba": hy.get("B2", 0), "launches_xlstm": xl.get("B2", 0),
+         "xlstm_shapes": {"cases": xlstm_err["cases"], "max_abs_err": xlstm_err["B2"]},
          "launches_gain": fl["B2_gain"],
          **{k: v for k, v in records["decode"].items() if k.startswith("gain_")}},
-        row("cim_matmul_packed_skip", "src/repro_torch/csrc/cim_matmul.cu",
+        {**row("cim_matmul_packed_skip", "src/repro_torch/csrc/cim_matmul.cu",
             "src/repro/kernels/cim_matmul/kernel.py:193",
             b4_launches + ob["B4"] + bx["B4"] + en.get("B4", 0) + tf.get("B4", 0)
-            + mo.get("B4", 0) + ml.get("B4", 0) + hy.get("B4", 0),
-            max(b4_err, ee["B4"], te["B4"], me["B4"], mle["B4"], mamba_err["B4"]),
+            + mo.get("B4", 0) + ml.get("B4", 0) + hy.get("B4", 0) + xl.get("B4", 0),
+            max(b4_err, ee["B4"], te["B4"], me["B4"], mle["B4"], shape_err["B4"]),
             records["B4 decode"],
             b4_tc + ob["B4_tc"] + bx["B4_tc"] + en.get("B4_tc", 0) + tf.get("B4_tc", 0)
-            + mo.get("B4_tc", 0) + ml.get("B4_tc", 0) + hy.get("B4_tc", 0), grouped="B4"),
-        row("cim_matmul_planes", "src/repro_torch/csrc/cim_planes.cu",
+            + mo.get("B4_tc", 0) + ml.get("B4_tc", 0) + hy.get("B4_tc", 0)
+            + xl.get("B4_tc", 0), grouped="B4"),
+         "launches_xlstm": xl.get("B4", 0),
+         "xlstm_shapes": {"cases": xlstm_err["cases"], "max_abs_err": xlstm_err["B4"]}},
+        {**row("cim_matmul_planes", "src/repro_torch/csrc/cim_planes.cu",
             "src/repro/kernels/cim_matmul/kernel.py:74",
             b5_launches + ob["B5"] + fl["B5"] + en.get("B5", 0) + tf.get("B5", 0)
-            + mo.get("B5", 0) + ml.get("B5", 0) + hy.get("B5", 0),
-            max(b5_err, ee["B5"], te["B5"], me["B5"], mle["B5"], mamba_err["B5"]),
+            + mo.get("B5", 0) + ml.get("B5", 0) + hy.get("B5", 0) + xl.get("B5", 0),
+            max(b5_err, ee["B5"], te["B5"], me["B5"], mle["B5"], shape_err["B5"]),
             records["B5 decode"],
             b5_tc + ob["B5_tc"] + fl["B5_tc"] + en.get("B5_tc", 0) + tf.get("B5_tc", 0)
-            + mo.get("B5_tc", 0) + ml.get("B5_tc", 0) + hy.get("B5_tc", 0), grouped="B5"),
+            + mo.get("B5_tc", 0) + ml.get("B5_tc", 0) + hy.get("B5_tc", 0)
+            + xl.get("B5_tc", 0), grouped="B5"),
+         "launches_xlstm": xl.get("B5", 0),
+         "xlstm_shapes": {"cases": xlstm_err["cases"], "max_abs_err": xlstm_err["B5"]}},
         {**row("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
                "src/repro/kernels/flash_attention/kernel.py:109",
                yi["B3"] + acc["B3"] + ob["B3"] + bx["B3"] + fl["B3"] + en.get("B3", 0)
-               + tf.get("B3", 0) + mo.get("B3", 0) + hy.get("B3", 0),
+               + tf.get("B3", 0) + mo.get("B3", 0) + hy.get("B3", 0) + xl.get("B3", 0),
                max(b3_err, ee["B3"], te["B3"]), rec_b3,
                yi["B3_tc"] + ob["B3_tc"] + bx["B3_tc"] + fl["B3_tc"] + en.get("B3_tc", 0)
                + tf.get("B3_tc", 0) + mo.get("B3_tc", 0) + hy.get("B3_tc", 0)),
          "launches_hymba": hy.get("B3", 0), "launches_hymba_tc": hy.get("B3_tc", 0),
+         "launches_xlstm": xl.get("B3", 0),
          "d64_serve": rec_b3["d64_serve"], "d64_2048": rec_b3["d64_2048"]},
-        row("bitslice", "src/repro_torch/csrc/bitslice.cu",
+        {**row("bitslice", "src/repro_torch/csrc/bitslice.cu",
             "src/repro/kernels/bitslice/kernel.py:35",
             yi["B6"] + ob["B6"] + fl["B6"] + en.get("B6", 0) + tf.get("B6", 0) + mo.get("B6", 0)
-            + ml.get("B6", 0) + hy.get("B6", 0), 0.0, rec_b6),
+            + ml.get("B6", 0) + hy.get("B6", 0) + xl.get("B6", 0), 0.0, rec_b6),
+         "launches_xlstm": xl.get("B6", 0)},
         # a planner helper, not a TPU kernel: the reference sorts on the host; its launches
         # are phase mla's plans' (the other phases' plans launch it too, uncounted)
         row("sws_sort", "src/repro_torch/csrc/sws_sort.cu",
@@ -4882,6 +5165,9 @@ def main() -> None:
                   f" SDPA {r[k_]['library_ms']:.4f})" for k_ in ("d64_serve", "d64_2048")
                   if k_ in r)
         + (f" launches_hymba={r['launches_hymba']}" if "launches_hymba" in r else "")
+        + (f" launches_xlstm={r['launches_xlstm']}" if "launches_xlstm" in r else "")
+        + (f" xlstm_shapes={r['xlstm_shapes']['cases']} cases max_abs_err="
+           f"{r['xlstm_shapes']['max_abs_err']:.3e}" if "xlstm_shapes" in r else "")
         + f" max_abs_err={r['max_abs_err']:.3e} "
         f"ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f}"
         + (f" library_ms={r['library_ms']:.4f}" if r["library_ms"] is not None else "")
@@ -4901,7 +5187,7 @@ def ab_time(root: Path) -> None:
     """One turn of ``--ab``: time the port of the tree at ``root`` and
     print one JSON line.  B2 bf16 decode (M = 4) at gemma-2b's wi_gate over
     4 cycled operand copies, B6 at cols 10 on the B6_TIMED shapes, and three
-    walls of a yi-6b (4 layers) planes_int8 deployment of one plan."""
+    walls of a yi-6b (YI_LAYERS layers) planes_int8 deployment of one plan."""
     sys.path.insert(0, str(root / "src"))  # ahead of this tree's port
     import torch
 

@@ -17,6 +17,7 @@ from repro_torch.configs import (  # noqa: F401  (registration side effect)
     internlm2_1_8b,
     phi3_medium_14b,
     qwen2_moe_a2_7b,
+    xlstm_350m,
     yi_6b,
 )
 

@@ -8,7 +8,9 @@ mixture-of-experts block of ``(("moe", 1),)`` families (``MoEConfig``,
 ``(("mla_moe", 1),)`` families (``MLAConfig``, ``models/mla.py``), the
 hybrid attention + Mamba blocks ``hymba_global`` / ``hymba_swa``
 (``SSMConfig``, ``attn_window``, ``n_meta_tokens``; ``models/hybrid.py``,
-``models/ssm.py``), and the tensor-parallel flags of ``parallel/tp.py``.
+``models/ssm.py``), the recurrent ``mlstm`` / ``slstm`` blocks of the
+xLSTM family (``SSMConfig``; ``models/ssm.py``), and the tensor-parallel
+flags of ``parallel/tp.py``.
 """
 from __future__ import annotations
 

@@ -502,9 +502,11 @@ MATERIALIZATIONS = ("dense", "packed", "planes_int8")
 # (concatenated), as in the reference; and Mamba's "dt_bias" and "d_skip",
 # 1-D a layer but [count, d_inner] once a segment is stacked, so min_size
 # admits them too, and the reference then serves them as operand dicts
-# (ROADMAP C.12).  Other families' non-matmul parameters join this list
-# with their blocks.
-MATERIALIZE_DENSE_ONLY = ("g", "wk_b", "wv_b", "conv", "a_log", "meta", "dt_bias", "d_skip")
+# (ROADMAP C.12); and the sLSTM's recurrent kernel "r" [H, dh, 4 dh]
+# (a per-head einsum), as in the reference.  Other families' non-matmul
+# parameters join this list with their blocks.
+MATERIALIZE_DENSE_ONLY = ("g", "wk_b", "wv_b", "conv", "a_log", "meta", "dt_bias", "d_skip",
+                          "r")
 
 
 def _dense_only(name: str) -> bool:

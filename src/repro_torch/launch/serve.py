@@ -19,9 +19,10 @@ integrity layer (``core/integrity.py``), and ``--scrub-storm`` corrupts the
 deployed bits, scrubs to convergence and prices the repair against a full
 reprogram.  Archs: the dense decoders gemma-2b, yi-6b, internlm2-1.8b,
 phi3-medium-14b, the MoE decoders qwen2-moe-a2.7b and deepseek-v2-236b
-(each expert stack one grouped launch of B2 / B4 / B5), and the hybrid
+(each expert stack one grouped launch of B2 / B4 / B5), the hybrid
 hymba-1.5b (attention beside Mamba heads, meta tokens, sliding-window ring
-caches); prefill attention runs kernel B3 on the card.
+caches) and the recurrent xlstm-350m (mLSTM and sLSTM blocks, no
+attention); prefill attention runs kernel B3 on the card.
 
 Decode loop (``--loop``): ``scan`` (default) runs the whole generation as
 one dispatch, a CUDA graph of every decode step replayed once a generation
@@ -38,6 +39,8 @@ Usage (on the card):
       --cim --materialize packed --codec const_rle
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b --layers 4 \
       --cim --materialize packed
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m --layers 8 \
+      --cim --materialize packed --codec const_rle
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b --layers 4 \
       --cim --fault-rate 2e-3 --fault-hotspot 0.25 --pool-leveling fault \
       --scrub --scrub-tiles 65536 --scrub-storm 2e-7

@@ -91,30 +91,35 @@ def _params_device(params) -> torch.device:
     return None
 
 
-# a layer's sub-dicts whose dense leaves the model casts at use ("moe": the
-# routed expert stacks and the shared GLU; "mla": its projections, wk_b and
-# wv_b included; "mamba": its four projections, the conv taps and dt_bias)
-MATMUL_BLOCKS = ("attn", "mlp", "moe", "mla", "mamba")
+# a layer's entries whose dense leaves the model casts at use: sub-dicts
+# ("moe": the routed expert stacks and the shared GLU; "mla": its
+# projections, wk_b and wv_b included; "mamba": its four projections, the
+# conv taps and dt_bias) and the xLSTM blocks' own leaves (the mLSTM's six
+# projections and conv taps, the sLSTM's two projections)
+MATMUL_BLOCKS = ("attn", "mlp", "moe", "mla", "mamba",
+                 "w_up", "conv", "wq", "wk", "wv", "w_if", "w_down", "w", "w_out")
 # entries of those sub-dicts left as they are: the MoE router (a float32
 # matmul whatever the model's dtype), MLA's norm gains (rmsnorm reads them
 # in float32, so a bf16 copy would round them) and Mamba's a_log and
-# d_skip (read in float32)
+# d_skip (read in float32).  The sLSTM's "r" is not cast either: its einsum
+# takes the float32 state.
 KEEP_F32 = ("router", "q_norm", "kv_norm", "a_log", "d_skip")
 
 
 def _cast_matmul_weights(params, dtype: torch.dtype):
     """The dense matmul weights of every layer cast to ``dtype``: the bytes
-    ``layers.linear`` (and MLA's per-head ``wk_b`` / ``wv_b``) make at every
-    call.  The embedding table (read in f32 by ``unembed``), the norm gains,
-    the LM head and the MoE router (f32 matmuls) stay as they are, as do
-    operand dicts."""
-    def cast_block(block):
-        return {k: v if k in KEEP_F32 or simulator.is_cim_operands(v)
-                else v.to(dtype) if isinstance(v, torch.Tensor)
-                else cast_block(v) if isinstance(v, dict) else v
-                for k, v in block.items()}
+    ``layers.linear`` (and MLA's per-head ``wk_b`` / ``wv_b``, the conv
+    taps) make at every call.  The embedding table (read in f32 by
+    ``unembed``), the norm gains, the LM head, the MoE router (f32 matmuls)
+    and the sLSTM's ``r`` stay as they are, as do operand dicts."""
+    def cast(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(dtype)
+        if isinstance(v, dict) and not simulator.is_cim_operands(v):
+            return {k: w if k in KEEP_F32 else cast(w) for k, w in v.items()}
+        return v
 
-    segs = [{k: cast_block(v) if k in MATMUL_BLOCKS else v for k, v in seg.items()}
+    segs = [{k: cast(v) if k in MATMUL_BLOCKS else v for k, v in seg.items()}
             for seg in params["segments"]]
     return {**params, "segments": segs}
 

@@ -7,16 +7,18 @@ its slice — dense tensors and packed operand dicts alike.  The port has
 the ``attn`` kind (the dense decoders) and its sliding-window twin ``swa``,
 the ``moe`` kind (attention + mixture-of-experts MLP, ``models/moe.py``),
 the ``mla_moe`` kind (multi-head latent attention + MoE MLP,
-``models/mla.py``) and the hybrid ``hymba_global`` / ``hymba_swa`` kinds
-(attention beside Mamba heads, ``models/hybrid.py``); ``KINDS`` maps each
-to its init / forward / decode-step / cache functions and its attention
-mask, as the reference's registry does, and each segment's cache holds its
-kind's own keys ({"k", "v"}, the latent {"c_kv", "k_rope"}, or hymba's
-{"k", "v", "ssm": {"state", "conv"}} with a window-long ring for
-``hymba_swa``).  Meta tokens (``cfg.n_meta_tokens``) are prepended to the
-prompt by ``forward`` / ``prefill``, dropped before the logits, and occupy
-the first cache positions (the decode step runs at ``pos +
-n_meta_tokens``).
+``models/mla.py``), the hybrid ``hymba_global`` / ``hymba_swa`` kinds
+(attention beside Mamba heads, ``models/hybrid.py``) and the recurrent
+``mlstm`` / ``slstm`` kinds of the xLSTM family (``models/ssm.py``, no
+attention); ``KINDS`` maps each to its init / forward / decode-step / cache
+functions and its attention mask, as the reference's registry does, and
+each segment's cache holds its kind's own keys ({"k", "v"}, the latent
+{"c_kv", "k_rope"}, hymba's {"k", "v", "ssm": {"state", "conv"}} with a
+window-long ring for ``hymba_swa``, the mLSTM's {"state", "norm", "conv"}
+or the sLSTM's {"h", "c", "n", "m"}).  Meta tokens (``cfg.n_meta_tokens``)
+are prepended to the prompt by ``forward`` / ``prefill``, dropped before
+the logits, and occupy the first cache positions (the decode step runs at
+``pos + n_meta_tokens``).
 
 Interface:
   init(key, cfg, device=)                          -> params (device: cuda default)
@@ -44,7 +46,7 @@ from torch.utils.checkpoint import (
 from repro_torch import prng
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels._util import resolve_device
-from repro_torch.models import blocks, hybrid, layers, mla, moe
+from repro_torch.models import blocks, hybrid, layers, mla, moe, ssm
 from repro_torch.models.layers import Params
 
 
@@ -64,6 +66,13 @@ class _Kind:
         self.init_cache, self.has_aux, self.attn_kind = init_cache, has_aux, attn_kind
 
 
+def _state_cache(init_cache):
+    """A recurrent kind's cache: its state has no sequence axis, so the
+    cache length is not read."""
+    return lambda cfg, batch, seq_len, dtype, device, lead=(): init_cache(cfg, batch, dtype,
+                                                                          device, lead)
+
+
 KINDS: dict[str, _Kind] = {
     "attn": _Kind(blocks.init_attn_block, blocks.attn_block_fwd, blocks.attn_block_step,
                   blocks.init_attn_cache, attn_kind="causal"),
@@ -80,6 +89,10 @@ KINDS: dict[str, _Kind] = {
                           hybrid.hymba_block_step,
                           functools.partial(hybrid.init_hymba_cache, kind="hymba_global"),
                           attn_kind="causal"),
+    "mlstm": _Kind(ssm.init_mlstm_block, ssm.mlstm_block_fwd, ssm.mlstm_block_step,
+                   _state_cache(ssm.init_mlstm_cache)),
+    "slstm": _Kind(ssm.init_slstm_block, ssm.slstm_block_fwd, ssm.slstm_block_step,
+                   _state_cache(ssm.init_slstm_cache)),
 }
 
 
@@ -255,7 +268,7 @@ def prefill(params: Params, cfg: ArchConfig, batch: dict) -> tuple[torch.Tensor,
     {"k", "v": (count, B, Hkv, S, hd)}, or MLA's {"c_kv": (count, B, S, r),
     "k_rope": (count, B, S, dr)}, or hymba's, meta tokens included: k/v
     over the whole sequence (global) or the window-long ring (swa), and the
-    Mamba state and conv tail)."""
+    Mamba state and conv tail, or the xLSTM kinds' recurrent states)."""
     x = _embed_inputs(params, cfg, batch["tokens"])
     x, _, caches = _run_segments(params, cfg, x, return_cache=True)
     return _logits(params, cfg, x[:, -1:]), caches
@@ -301,8 +314,8 @@ def decode_step(
 
 def supports_paged(cfg: ArchConfig) -> bool:
     """Paged KV serving covers pure-attention decoder stacks without meta
-    tokens: ``attn`` and ``swa`` layers; a ``moe``, ``mla_moe`` or hymba
-    stack is refused, as in the reference."""
+    tokens: ``attn`` and ``swa`` layers; a ``moe``, ``mla_moe``, hymba or
+    xLSTM stack is refused, as in the reference."""
     return {k for k, _ in segments_of(cfg)} <= {"attn", "swa"} and cfg.n_meta_tokens == 0
 
 

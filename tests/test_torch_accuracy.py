@@ -26,6 +26,14 @@ from benchmarks_torch import accuracy_e2e, fig9_p_sweep, fig10_columns, trained_
 GOLDEN = Path(__file__).resolve().parents[1] / "benchmarks_torch" / "golden"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def gold():
     return json.loads((GOLDEN / "reference.json").read_text())["accuracy"]

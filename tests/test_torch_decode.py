@@ -37,6 +37,14 @@ GEN = 6
 TINY = np.finfo(np.float32).tiny
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True))
 

@@ -37,6 +37,14 @@ LOGIT_TOL = 2e-5
 PLAN = dict(p_stuck=0.5, min_size=1024)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True))
 

@@ -60,6 +60,14 @@ SEEDS = (0, 1, 2**31 - 1)
 SMALL_CAP = 4096
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True))
 

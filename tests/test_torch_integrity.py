@@ -32,6 +32,14 @@ from repro_torch.core import integrity, nonideal, planner, pool
 ROWS, COLS = 64, 8
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _pcfg(mod, **kw):
     return mod.PlannerConfig(**{"p_stuck": 1.0, "crossbars": 4, **kw})
 

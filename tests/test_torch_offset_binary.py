@@ -54,6 +54,14 @@ FLOAT_TOL = 1e-5
 F32_EPS = torch.finfo(torch.float32).eps
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True))
 

@@ -35,6 +35,14 @@ from repro_torch.kernels.hamming import ref as ham_ref
 QUANT_MSE_RTOL = 1e-6
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True))
 

@@ -43,6 +43,14 @@ BK = 64  # keys per tile of B3's tensor-core kernel
 WINDOW = 16
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _planes(rng, k, n, cols):
     q = torch.from_numpy(rng.integers(0, 2**cols, (k, n)).astype(np.int32))
     sign = torch.from_numpy(rng.choice(np.array([-1, 1], np.int8), (k, n)))

@@ -59,6 +59,14 @@ ARCH = "internlm2-1.8b"
 OPT = dict(lr=3e-3, warmup_steps=10, total_steps=120)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np_tree(t):
     return jax.tree.map(np.asarray, t)
 
