@@ -6,7 +6,7 @@ and through a persistent ``CrossbarPool`` with plane codecs, then serve it
 from the packed bits and from int8 planes, each generation's decode one
 CUDA graph (held to the eager per-token loop, greedy and sampled), and
 run the serving-throughput benchmark; plan yi-6b and serve it the same
-ways — at each model's full width with the depth cut to 2 layers; then the
+ways — at each model's full width with the depth cut to 1 layer; then the
 paper's planner figures on its models' published shapes, held to the
 reference's integers; train internlm2-1.8b at full width (2 layers) with
 checkpoints, a resume and redeploy pricing; the accuracy halves of
@@ -19,12 +19,15 @@ and repaired after a fault storm; gemma-2b served by the
 continuous-batching engine, every dispatch a CUDA graph; and yi-6b and
 gemma-2b split over tensor-parallel shards, deployed over per-shard pools
 and served by fleets of engine replicas under chaos; and qwen2-moe-a2.7b
-(2 layers) planned and served from its bits with every expert stack one
+(1 layer) planned and served from its bits with every expert stack one
 grouped kernel launch; deepseek-v2-236b (1 layer) with MLA; hymba-1.5b
-(4 layers), attention beside Mamba heads with meta tokens and
-sliding-window ring caches; and xlstm-350m (8 layers), the recurrent
-mLSTM and sLSTM blocks with no attention — and holds each hand-written
-kernel against its plain PyTorch version on the card.
+(2 layers), attention beside Mamba heads with meta tokens and
+sliding-window ring caches; xlstm-350m (8 layers), the recurrent mLSTM
+and sLSTM blocks with no attention; seamless-m4t-medium (2 + 2 layers),
+the encoder-decoder with a cross-attention cache;
+and internvl2-76b (1 layer) behind its 256-position patch-embedding
+prefix — and holds each hand-written kernel against its plain PyTorch
+version on the card.
 Phases (one line each, any failed check exits 1):
 
   1. card + build: name and power limit, the kernels built from csrc/;
@@ -75,11 +78,11 @@ Phases (one line each, any failed check exits 1):
      loops, and the first step's Gumbel noise on the card equal to the
      CPU's bit for bit;
   5a. serve-throughput: ``benchmarks_torch.serving_throughput.run`` at
-     gemma-2b's full width (2 layers, batch 4, prompt 32, gen 16, greedy):
+     gemma-2b's full width (1 layer, batch 4, prompt 32, gen 16, greedy):
      fp / cim-dense / cim-planes_int8 / cim-packed through both loops,
      passes interleaved, best of 5; the device-busy share of one traced
      generate per loop for cim-packed and cim-planes_int8;
-  5b. yi-6b: plan at full width (2 layers), CPU re-plan of
+  5b. yi-6b: plan at full width (1 layer), CPU re-plan of
      segments/0/attn/wk; B6 planes of every planned tensor == the route
      before B6 (q = round(|w_hat| / scale)); serve fp, cim-dense,
      cim-packed and cim-planes_int8 with (7 * layers + 1) * gen B2 / B5
@@ -109,7 +112,7 @@ Phases (one line each, any failed check exits 1):
      within 1e-5, logit KL also within 5% of the reference's) and on the card-trained weights (accuracies within
      0.01 / 0.02, speedups within 1%); B3 = 272 on the FMA kernel at head
      dim 16, B1 > 0, no plain-version call;
-  5f. offset-binary: gemma-2b at full width (2 layers) planned with
+  5f. offset-binary: gemma-2b at full width (1 layer) planned with
      ``CrossbarSpec(encoding="offset_binary")`` (p_stuck 0.5, min_size
      4096), its totals beside the sign_magnitude plan's; served dense,
      packed (B2), packed const_rle (B4) and planes_int8 (B6 builds on
@@ -127,7 +130,7 @@ Phases (one line each, any failed check exits 1):
      B2/B4; whether the tokens equal the reference's is printed, not
      gated); the card's own redeploy chain's speedups within 1% of the
      reference's; B1/B2/B4 counted, no plain-version call;
-  5h. faults: gemma-2b at full width (2 layers) through a 32-crossbar pool
+  5h. faults: gemma-2b at full width (1 layer) through a 32-crossbar pool
      with stuck cells (1e-3 each way, 25% hotspots at 8x, PRNGKey(42)),
      planned with leveling none and fault beside a fault-free plan; a CPU
      pool with the same faults gives the same damage matrices, assignment,
@@ -151,7 +154,7 @@ Phases (one line each, any failed check exits 1):
      (ENGINE_LAYERS = 1 layer, bf16) planned as phase serve plans it and
      served by the engine (8 slots, page 16, chunk 32, quantum 8) dense, packed (B2),
      const_rle through a pool (B4) and planes_int8 (B6 builds, B5 serves),
-     fused and split, on a 32-request chat trace (prompts 8-96, gen 2-64,
+     fused and split, on a 16-request chat trace (prompts 8-96, gen 2-64,
      every fourth request sampled) with every arrival at 0.0: each stream
      equal to the request's solo generate and fused equal to split, a
      departure allowed only where the top-2 gap (logits + Gumbel noise for
@@ -194,8 +197,8 @@ Phases (one line each, any failed check exits 1):
      the golden file;
   5k. moe: qwen2-moe-a2.7b at published width (d_model 2048, 16 heads, 60
      routed experts allocated as 64 + 4 shared, top-4, d_expert 1408, vocab
-     151936, untied head), depth cut 24 -> 2: one stateless plan (the
-     [2, 64, 2048, 1408] expert stacks and the [2, 2048, 60] router planned
+     151936, untied head), depth cut 24 -> 1: one stateless plan (the
+     [1, 64, 2048, 1408] expert stacks and the [1, 2048, 60] router planned
      whole; the router re-planned on the CPU, report and w_hat equal)
      served fp, dense, packed (B2) and planes_int8 (B6 builds, B5 serves),
      then a const_rle plan through one pool served raw-packed (B2) and
@@ -230,8 +233,8 @@ Phases (one line each, any failed check exits 1):
   5m. hymba: hymba-1.5b at published width (d_model 1600, 25 heads over 5
      KV heads at head dim 64, d_ff 5504, vocab 32001, untied head, SSM
      state 16, conv 4, expand 2, chunk 16, window 1024, 128 meta tokens),
-     depth cut 32 -> 4 (HYMBA_LAYERS: one hymba_global layer, three
-     hymba_swa): a const_rle plan through one pool served raw-packed (B2)
+     depth cut 32 -> 2 (HYMBA_LAYERS: one hymba_global layer, one
+     hymba_swa; min_size HYMBA_MIN_SIZE): a const_rle plan through one pool served raw-packed (B2)
      and const_rle (B4, tokens == raw-packed); one stateless plan served
      fp, dense, packed (B2) and planes_int8 (B6 builds, B5 serves), each
      through the serve gates: (11 x layers + 1) x gen CIM launches a
@@ -266,6 +269,41 @@ Phases (one line each, any failed check exits 1):
      different points part by more.  B2 / B4 / B5 at w_if [1024, 8] (the
      narrowest N served) and wq [2048, 2048], M 4 and 128, run with the
      kernel checks of phase 3;
+  5o. seamless: seamless-m4t-medium at published width (d_model 1024, 16
+     heads over 16 KV heads at D 64, d_ff 4096, vocab 256206, untied head;
+     the audio frontend stubbed by make_batch's src_embeds, 32 frames),
+     depth cut 12 + 12 -> 2 + 2 (SEAMLESS_LAYERS, both stacks): a
+     const_rle plan through one pool served raw-packed (B2) and const_rle
+     (B4, tokens == raw-packed); one stateless plan served fp, dense,
+     packed (B2) and planes_int8 (B6 builds, B5 serves), each through the
+     serve gates: a prefill 1 + 7 x enc + 11 x dec + 1 CIM launches
+     (src_proj, the encoder's 7 a layer, the decoder's self 4 + cross 4 +
+     MLP 3, the head), each decode step 9 x dec + 1 (the cross K/V
+     cached), all but the f32 head's on the tensor cores; B3 = B3_tc = enc
+     (bidir) + dec (causal) a prefill at D = 64; the cross-attention's
+     blockwise_attention once a decoder layer a prefill (the reference's
+     direct call) the only plain call; f32 prefill logits of packed and
+     planes_int8 within 1e-3 of dense's largest and the packed decode
+     against forward at every decoded position within 1e-3 of forward's
+     largest (bf16 printed: at 12 + 12 layers the bf16 packed / int8 vs
+     dense gap crossed 2e-2, dense's bf16 w_hat amplified through 24
+     random layers).  B2 / B4 / B5 at the f32 head [1024, 256206] (N % 4 = 2,
+     the non-vec branch) and the MLP's [1024, 4096] and [4096, 1024], M 4
+     and 128, and B3 bidir at D = 64 with a group of 1, run with the
+     kernel checks of phase 3;
+  5p. internvl2: internvl2-76b at published width (d_model 8192, 64 heads
+     over 8 KV heads at D 128, d_ff 28672, vocab 128256, untied head, 256
+     prefix positions of patch embeddings), depth cut 80 -> 1
+     (INTERNVL2_LAYERS): one stateless plan (the head 1.05 G weights)
+     served fp, dense, packed (B2) and planes_int8 (B6 builds, B5 serves)
+     on a 256 + 32-position prompt, each through the serve gates: (7 x
+     layers + 1) x gen CIM launches, 7 x layers x gen on the tensor cores,
+     B3 = B3_tc = layers at D = 128; prefill logits within dense's bound;
+     the packed decode against forward (f32 held, bf16 printed); the pool
+     plan and const_rle are phase seamless's (the time limit).  B2 / B4 /
+     B5 at the MLP's [8192, 28672] and [28672, 8192] and the f32 head
+     [8192, 128256], M 4 and 1152, and B3 at its layout, run with the
+     kernel checks of phase 3;
   6. kernels: time, bound (the bf16 tensor-core rate for the tensor-core
      paths, the f32 rate for the FMA kernels), plain-version and library
      times; B2, B3 and B5 on both paths, B2 with plane gains at decode (f32
@@ -277,21 +315,26 @@ The line before the last is the kernels' JSON record (B1's launches are
 those of the gemma-2b plan and the figures, train, accuracy, offset-binary,
 bench-extra, faults, engine, tp-fleet, moe, mla, hymba and xlstm phases; B2's, B4's and B5's
 those of gemma's packed, const_rle and planes_int8 generates plus the
-offset-binary, bench-extra, faults, engine, tp-fleet, moe, mla, hymba and xlstm phases' (B2's
+offset-binary, bench-extra, faults, engine, tp-fleet, moe, mla, hymba, xlstm, seamless and
+internvl2 phases' (B2's
 ``launches_gain`` those with plane gains; the engines' from their graphs'
 nodes x replays plus each capture's warm-up run; ``launches_moe`` the moe
 phase's, and ``grouped_m8`` / ``grouped_m11`` the grouped launch's times
 at the expert shapes; ``launches_mla`` and ``grouped_g160_m8`` the mla
-phase's; ``launches_hymba`` the hymba phase's; ``launches_xlstm`` on every
-TPU kernel's row the xlstm phase's, and ``xlstm_shapes`` on B2's, B4's and
-B5's the cases and max |d| of their check at xlstm's shapes); the
+phase's; ``launches_hymba`` the hymba phase's; ``launches_xlstm``,
+``launches_seamless`` and ``launches_internvl2`` on every TPU kernel's row
+those phases', and ``xlstm_shapes``, ``seamless_shapes`` and
+``internvl2_shapes`` on B2's, B4's and B5's the cases and max |d| of their
+checks at those models' shapes); the
 ``sws_sort`` row is the
 planner's sort helper (no TPU kernel), its launches the mla phase's plans';
 B3's those of yi-6b's generate and the accuracy, offset-binary, bench-extra,
-faults, engine, tp-fleet, moe, hymba and xlstm phases (``launches_hymba`` /
-``launches_hymba_tc`` the hymba phase's, at D = 64; the xlstm phase's 0);
+faults, engine, tp-fleet, moe, hymba, xlstm, seamless and internvl2 phases
+(``launches_hymba`` / ``launches_hymba_tc`` the hymba phase's, at D = 64;
+the xlstm phase's 0; ``launches_seamless_tc`` the seamless phase's);
 B6's yi-6b's, the offset-binary, the faults, the engine, the tp-fleet, the
-moe, the mla, the hymba and the xlstm deployments');
+moe, the mla, the hymba, the xlstm, the seamless and the internvl2
+deployments');
 the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
 ``python3 chip_smoke.py`` (needs one CUDA card; fails without one).
@@ -314,7 +357,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-LAYERS, BATCH, PROMPT, GEN, P_STUCK = 2, 4, 32, 16, 0.5  # LAYERS: gemma-2b's depth cut
+LAYERS, BATCH, PROMPT, GEN, P_STUCK = 1, 4, 32, 16, 0.5  # LAYERS: gemma-2b's depth cut
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 BF16_TC_FLOPS = 989e12  # H100 SXM dense bf16 on the tensor cores (B2/B4's, B3's and B5's bf16 paths)
@@ -326,7 +369,7 @@ ZERO_SHARES = (0.0, 0.25, 0.5, 0.75, 0.9)  # zero-tile shares of the synthetic B
 QUANT_MSE_RTOL = 1e-6
 F32_LOGIT_RTOL = 1e-3  # f32 prefill, packed vs dense: sums of <= 16384 terms reordered
 BF16_LOGIT_RTOL = 0.02  # bf16 prefill: dense rounds w_hat to bf16, packed keeps it exact
-YI_LAYERS = 2
+YI_LAYERS = 1
 B3_WINDOW = 256
 B3_SMALL = {  # (B, Hq, Hkv, D) of the reduced configs, f32; internlm2's is the accuracy phase's
     "internlm2/yi reduced": (8, 4, 2, 16), "phi3 reduced": (8, 4, 2, 20),
@@ -335,6 +378,8 @@ B3_LONG = 2048  # the long-prefill check and timing length
 # hymba-1.5b's attention at its serve shape: 25 query heads over 5 KV heads at D = 64, its
 # window, and the prefill length of a served prompt (128 meta tokens + PROMPT)
 B3_HYMBA = dict(layout=(BATCH, 25, 5, 64), window=1024, s=128 + PROMPT)
+B3_SEAMLESS = (BATCH, 16, 16, 64)  # seamless-m4t-medium: MHA (a GQA group of 1) at D = 64
+B3_INTERNVL2 = (BATCH, 64, 8, 128)  # internvl2-76b at S = 256 prefix positions + PROMPT
 B6_CASES = (  # (shape, element offset of w): the vector path, then the element path
     ((4, 4096, 11008), 0), ((4, 4096, 11008), 1), ((7, 333), 0), ((5, 1), 0),
     ((3, 64, 96), 1), ((2, 33000, 16), 0), ((65537, 1, 5), 0),
@@ -981,8 +1026,10 @@ def live_pairs(b, s, sk, kind, kvl, off, window):
 def check_b3(dev):
     """B3 against its plain version in every case (bf16 on the tensor-core
     kernel, f32 on the FMA kernel, which the launch counts must show), at
-    yi-6b's, gemma-2b's and hymba-1.5b's serve shapes (hymba: D = 64, 25
-    query heads over 5 KV heads, S = 160, swa at its window 1024) and a
+    yi-6b's, gemma-2b's, hymba-1.5b's, seamless-m4t-medium's and
+    internvl2-76b's serve shapes (hymba: D = 64, 25 query heads over 5 KV
+    heads, S = 160, swa at its window 1024; seamless: D = 64, 16 heads over
+    16, a GQA group of 1; internvl2: D = 128, 64 over 8, S = 288) and a
     2048-token prefill of each; returns the max |d| and the number of
     cases."""
     import torch
@@ -992,7 +1039,9 @@ def check_b3(dev):
 
     layouts = {"yi-6b": ((4, 32, 4, 128), PROMPT, B3_WINDOW),
                "gemma-2b": ((4, 8, 1, 256), PROMPT, B3_WINDOW),
-               "hymba-1.5b": (B3_HYMBA["layout"], B3_HYMBA["s"], B3_HYMBA["window"])}
+               "hymba-1.5b": (B3_HYMBA["layout"], B3_HYMBA["s"], B3_HYMBA["window"]),
+               "seamless-m4t-medium": (B3_SEAMLESS, PROMPT, B3_WINDOW),
+               "internvl2-76b": (B3_INTERNVL2, 256 + PROMPT, B3_WINDOW)}
     worst, n = 0.0, 0
     for name, (layout, serve_s, swa_window) in layouts.items():
         for s in (serve_s, B3_LONG):
@@ -2318,7 +2367,7 @@ def faults_phase(dev) -> dict:
 # phase engine: gemma-2b x LAYERS (bf16) served by the continuous-batching
 # engine, and the reduced f32 gemma-2b's parity cell held to the golden file
 ENGINE_CFG = dict(max_slots=8, page_size=16, max_seq_len=160, prefill_chunk=32, decode_quantum=8)
-ENGINE_TRACE = dict(n_requests=32, min_prompt=8, max_prompt=96, min_gen=2, max_gen=64, seed=0,
+ENGINE_TRACE = dict(n_requests=16, min_prompt=8, max_prompt=96, min_gen=2, max_gen=64, seed=0,
                     sample_every=4)
 ENGINE_PASSES = 3
 ENGINE_LAYERS = 1  # depth of phase engine's gemma-2b: the run's time limit bounds it
@@ -3307,7 +3356,7 @@ def tp_fleet_phase(dev) -> dict:
 
 
 MOE_ARCH = "qwen2-moe-a2.7b"
-MOE_LAYERS = 2  # depth cut 24 -> 2, the only cut
+MOE_LAYERS = 1  # depth cut 24 -> 1, the only cut
 MOE_M = (8, 11)  # expert-buffer rows: decode capacity (t = 4) and prefill capacity (t = 128)
 MOE_SHAPES = ((2048, 1408), (1408, 2048))  # K x N of wi_gate / wi_up, and of wo
 MOE_ROUTER = "segments/0/moe/router"  # the tensor re-planned on the CPU
@@ -3975,8 +4024,61 @@ def mla_phase(dev) -> dict:
     return {**totals, "err": kern["err"], "records": kern["records"], "sort": sort_rec}
 
 
+def plan_counted(label, arch, params, spec, pcfg, dev, **kw):
+    """``build_deployment`` on the card, timed, with its launches: B1 > 0
+    and nothing else.  Returns the plan and the counts."""
+    import torch
+
+    from repro_torch.core import planner
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan = planner.build_deployment(params, spec, pcfg, device=dev, **kw)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    c = counts()
+    tot = plan.totals()
+    n_w = sum(r.n_weights for r in plan.reports.values())
+    say(f"phase {label}: {len(plan.reports)} tensors ({n_w / 1e6:.1f}M weights) in "
+        f"{plan_s:.2f} s; sws {tot['sws_speedup']:.4f}x total {tot['total_speedup']:.4f}x; "
+        f"B1 {c['B1']}; peak CUDA memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if c["B1"] <= 0 or any(c[k_] for k_ in c if k_ not in ("B1", "plain")) or c["plain"]:
+        fail(f"{arch} {label} launched {c}")
+    return plan, c
+
+
+def family_decode_check(cfg, p_packed, tokens, prompt, extra, label) -> None:
+    """The packed deployment's decode after ``prompt`` positions against
+    forward at every decoded position: in f32 within F32_LOGIT_RTOL of
+    forward's largest logit (held), in bf16 printed beside
+    BF16_LOGIT_RTOL."""
+    import torch
+
+    from repro_torch.launch import steps
+
+    for dtype, rtol, held in ((torch.float32, F32_LOGIT_RTOL, True),
+                              (torch.bfloat16, BF16_LOGIT_RTOL, False)):
+        c_ = dataclasses.replace(cfg, dtype=str(dtype).removeprefix("torch."))
+        served_p = steps.prepare_serving_params(p_packed, dtype)
+        d, top, finite = decode_departure(c_, served_p, tokens, prompt, extra)
+        bnd = rtol * top
+        say(f"phase {label}: packed {c_.dtype}, batch {tokens.shape[0]}, prompt {prompt}, "
+            f"{tokens.shape[1] - prompt - 1} decode steps vs forward over {tokens.shape[1]} "
+            f"positions: max |d| {d:.4e} at any decoded position (bound {rtol:g} * max|logit| "
+            f"= {bnd:.4e}{'' if held else ', printed'})")
+        if not finite or (held and d > bnd):
+            fail(f"{cfg.name} {c_.dtype}: decode logits differ from forward by {d:.4e} "
+                 f"(finite: {finite})")
+        del served_p
+
+
 HYMBA_ARCH = "hymba-1.5b"
-HYMBA_LAYERS = 4  # depth cut 32 -> 4, the only cut: [global, swa, swa, swa]
+HYMBA_LAYERS = 2  # depth cut 32 -> 2, the only cut (the run's time limit): [global, swa]
+# a one-layer segment's dt_bias and d_skip are [1, 3200]: planned (and served dense, ROADMAP
+# C.12) from this size, as the default 4096 plans a two-layer segment's
+HYMBA_MIN_SIZE = 3200
 HYMBA_LONG_PROMPT = 1024  # + 128 meta tokens: past the 1024 window, the ring wraps
 HYMBA_LOGIT_RTOL = 0.02  # the long generate's last decode logits vs forward, bf16
 # K x N of the Mamba projections no other served model reaches: x_proj (N = 132, not a
@@ -3985,12 +4087,13 @@ MAMBA_SHAPES = {"x_proj": (3200, 132), "dt_proj": (100, 3200)}
 MAMBA_M = (BATCH, BATCH * (128 + PROMPT))  # decode rows, and a served prefill's rows
 
 
-def check_cim_shapes(dev, label: str, shapes: dict, ms: tuple) -> dict:
+def check_cim_shapes(dev, label: str, shapes: dict, ms: tuple, f32_only=()) -> dict:
     """B2, B4 (~half the tiles zero, const_rle flags) and B5 at a model's
     projection ``shapes`` ({name: (K, N)}), M in ``ms``, bf16 x
-    (tensor-core kernels) and f32 x (FMA kernels): within the bound of the
-    plain version, B4 == B2 bit for bit.  Returns the max |d| by kernel
-    and the number of cases ("cases")."""
+    (tensor-core kernels) and f32 x (FMA kernels; the names in
+    ``f32_only``, an LM head served on f32 x, f32 x alone): within the
+    bound of the plain version, B4 == B2 bit for bit.  Returns the max |d|
+    by kernel and the number of cases ("cases")."""
     import torch
 
     from repro_torch.core import planes, simulator
@@ -4013,7 +4116,8 @@ def check_cim_shapes(dev, label: str, shapes: dict, ms: tuple) -> dict:
         w_abs = cim_ref.unpack_weights(*args[:2], k).abs() * op["scale"]
         w8_abs = q.float() * i8["scale"]
         for m in ms:
-            for dtype in (torch.bfloat16, torch.float32):
+            for dtype in ((torch.float32,) if name in f32_only else
+                          (torch.bfloat16, torch.float32)):
                 x = torch.randn(m, k, device=dev, generator=gen).to(dtype)
                 tc = dtype == torch.bfloat16
                 cim_ops.reset_launches()
@@ -4044,7 +4148,8 @@ def check_cim_shapes(dev, label: str, shapes: dict, ms: tuple) -> dict:
     torch.cuda.empty_cache()
     say(f"phase {label}: B2, B4 (~50% zero tiles) and B5 at "
         + " and ".join(f"{name} [{k}, {n}]" for name, (k, n) in shapes.items())
-        + f", M in {ms}, bf16 x on the tensor-core kernels and f32 x on the FMA kernels: "
+        + f", M in {ms}, bf16 x on the tensor-core kernels and f32 x on the FMA kernels"
+        + (f" ({', '.join(f32_only)}: f32 x only)" if f32_only else "") + ": "
         f"{n_cases} cases within {B2_BOUND_C}*eps*K*(|x|@|w|) of the plain versions, B4 == "
         f"B2; max |d| " + ", ".join(f"{k_} {v:.3e}" for k_, v in errs.items()))
     return {**errs, "cases": n_cases}
@@ -4073,7 +4178,7 @@ def hymba_decode_logits(cfg, params, tokens, prompt) -> tuple:
 
 def hymba_phase(dev) -> dict:
     """hymba-1.5b at its published width with the depth cut to
-    HYMBA_LAYERS (one hymba_global layer, three hymba_swa): init from the
+    HYMBA_LAYERS (one hymba_global layer, one hymba_swa): init from the
     reference's key; a const_rle plan through one pool served raw-packed
     (B2) and const_rle (B4, tokens == raw-packed); one stateless plan served
     fp, dense, packed (B2) and planes_int8 (B6 builds, B5 serves), each
@@ -4135,26 +4240,12 @@ def hymba_phase(dev) -> dict:
         return out
 
     def plan_timed(label, pcfg, **kw):
-        reset_counts()
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        t0_ = time.perf_counter()
-        plan_ = planner.build_deployment(params, spec, pcfg, device=dev, **kw)
-        torch.cuda.synchronize()
-        plan_s = time.perf_counter() - t0_
-        c = counts()
+        plan_, c = plan_counted(label, HYMBA_ARCH, params, spec, pcfg, dev, **kw)
         add(c)
-        tot = plan_.totals()
-        n_w = sum(r.n_weights for r in plan_.reports.values())
-        say(f"phase {label}: {len(plan_.reports)} tensors ({n_w / 1e6:.1f}M weights) in "
-            f"{plan_s:.2f} s; sws {tot['sws_speedup']:.4f}x total {tot['total_speedup']:.4f}x; "
-            f"B1 {c['B1']}; peak CUDA memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-        if c["B1"] <= 0 or any(c[k_] for k_ in c if k_ not in ("B1", "plain")) or c["plain"]:
-            fail(f"{HYMBA_ARCH} {label} launched {c}")
         return plan_
 
     toks, tps = {}, {}
-    pcfg_pool = planner.PlannerConfig(p_stuck=P_STUCK, codec=CODEC)
+    pcfg_pool = planner.PlannerConfig(p_stuck=P_STUCK, codec=CODEC, min_size=HYMBA_MIN_SIZE)
     xbars = pool.CrossbarPool(spec, pcfg_pool.crossbars, device=dev)
     pool_plan = plan_timed("hymba-plan-pool", pcfg_pool, pool=xbars)
     p_raw = planner.deploy_params(params, pool_plan, materialize="packed", codec="raw")
@@ -4166,12 +4257,13 @@ def hymba_phase(dev) -> dict:
         fail(f"{HYMBA_ARCH} {CODEC} tokens differ from raw-packed tokens of the same plan")
     del p_raw, p_rle, pool_plan, xbars
 
-    plan = plan_timed("hymba-plan", planner.PlannerConfig(p_stuck=P_STUCK))
-    planned = set(plan.reports)
-    mamba = {f"segments/1/mamba/{w}" for w in ("in_proj", "x_proj", "dt_proj", "out_proj",
-                                                "conv/w", "a_log", "dt_bias")}
-    if not mamba | {"meta", "head/w"} <= planned:
-        fail(f"{HYMBA_ARCH}: not planned: {sorted(mamba | {'meta', 'head/w'} - planned)}")
+    plan = plan_timed("hymba-plan", planner.PlannerConfig(p_stuck=P_STUCK,
+                                                          min_size=HYMBA_MIN_SIZE))
+    need = {f"segments/1/mamba/{w}" for w in ("in_proj", "x_proj", "dt_proj", "out_proj",
+                                               "conv/w", "a_log", "dt_bias", "d_skip")}
+    need |= {"meta", "head/w"}
+    if not need <= set(plan.reports):
+        fail(f"{HYMBA_ARCH}: not planned: {sorted(need - set(plan.reports))}")
     toks["fp"], tps["fp"], _, _ = serve_hymba("fp", params, None)
     p_dense = planner.deploy_params(params, plan, materialize="dense")
     toks["dense"], tps["dense"], _, _ = serve_hymba("dense", p_dense, None)
@@ -4236,30 +4328,32 @@ XLSTM_ARCH = "xlstm-350m"
 XLSTM_LAYERS = 8  # depth cut 24 -> 8, the only cut: seven mlstm layers and one slstm
 XLSTM_LONG_PROMPT = 300  # two mLSTM chunks of 256, the second padded
 XLSTM_SHORT_PROMPT = 2  # shorter than conv_width - 1 (ROADMAP C.13)
-XLSTM_LOGIT_RTOL = 0.02  # bf16 decode vs forward, printed beside it (f32: F32_LOGIT_RTOL, held)
 # K x N of xlstm-350m's w_if (N = 8: the kernels' non-vec branches, the narrowest N served)
 # and wq (the mLSTM's inner width), at a generate's decode rows and its prefill's rows
 XLSTM_SHAPES = {"w_if": (1024, 8), "wq": (2048, 2048)}
 XLSTM_M = (BATCH, BATCH * PROMPT)
 
 
-def decode_departure(cfg, params, tokens, prompt) -> tuple:
+def decode_departure(cfg, params, tokens, prompt, extra=None) -> tuple:
     """Eager prefill of ``tokens[:, :prompt]``, merged into a zero cache,
     and teacher-forced decode steps over the rest: the largest |decode -
     forward| over every position from ``prompt - 1`` on (the prefill's
     last logits and each step's), forward's largest |logit| over the whole
-    sequence, and whether both are finite."""
+    sequence, and whether both are finite.  ``extra``: the batch's
+    modality inputs (``src_embeds`` or ``prefix_embeds``), given to both."""
     import torch
 
     from repro_torch.models import api
 
+    extra = extra or {}
     b, total = tokens.shape
+    src_len = extra["src_embeds"].shape[1] if "src_embeds" in extra else None
     with torch.inference_mode():
-        full, _ = api.forward(params, cfg, {"tokens": tokens})
-        logits, pf = api.prefill(params, cfg, {"tokens": tokens[:, :prompt]})
+        full, _ = api.forward(params, cfg, {"tokens": tokens, **extra})
+        logits, pf = api.prefill(params, cfg, {"tokens": tokens[:, :prompt], **extra})
         d = (logits[:, -1] - full[:, prompt - 1]).abs().max()
         cache = api.merge_prefill_cache(
-            cfg, api.init_cache(cfg, b, total, device=tokens.device), pf)
+            cfg, api.init_cache(cfg, b, total, device=tokens.device, src_len=src_len), pf)
         for i in range(prompt, total - 1):
             logits, cache = api.decode_step(params, cfg, cache, tokens[:, i:i + 1],
                                             torch.tensor(i, device=tokens.device))
@@ -4268,15 +4362,16 @@ def decode_departure(cfg, params, tokens, prompt) -> tuple:
     return d.item(), full.abs().max().item(), finite
 
 
-def xlstm_logit_check(cfg, deployments: dict, batch) -> None:
+def f32_logit_check(cfg, deployments: dict, batch) -> None:
     """Prefill logits of the dense, packed and planes_int8 deployments:
     packed and planes_int8 within F32_LOGIT_RTOL of dense's largest logit in
-    f32, all finite.  The bf16 comparisons are printed: a random-weight
-    xLSTM amplifies one rounding of its bf16 activations or weights some
-    30x (the q . k of random 512-wide heads cancels), so two computations
-    that round at different points, dense's bf16 w_hat against the exact
-    w_hat, or one bf16 flip from a sum taken in another order, part by
-    more than BF16_LOGIT_RTOL with the program right."""
+    f32, all finite.  The bf16 comparisons are printed, for the models whose
+    random weights amplify one bf16 rounding past BF16_LOGIT_RTOL with the
+    program right: the xLSTM some 30x (the q . k of random 512-wide heads
+    cancels), seamless-m4t-medium's 24 layers (its encoder's output feeds
+    every decoder layer's cross-attention), so two computations that round
+    at different points, dense's bf16 w_hat against the exact w_hat, or one
+    bf16 flip from a sum taken in another order, part by more."""
     import torch
 
     from repro_torch.models import api
@@ -4316,19 +4411,19 @@ def xlstm_phase(dev) -> dict:
     but the f32 head on the tensor cores, no B3 and no blockwise_attention
     (the family has no attention); ``r`` and the conv taps planned and
     served dense; f32 prefill logits of packed and planes_int8 within
-    dense's bound (``xlstm_logit_check``; bf16 printed).  Then a packed
+    dense's bound (``f32_logit_check``; bf16 printed).  Then a packed
     generate of an XLSTM_LONG_PROMPT-token prompt (two mLSTM chunks, the
     second padded) through the serve gates, and the packed decode after it
     and after an XLSTM_SHORT_PROMPT-token prompt (ROADMAP C.13) against
     forward at every decoded position: in f32 within F32_LOGIT_RTOL of
-    forward's largest logit, in bf16 printed beside XLSTM_LOGIT_RTOL.
+    forward's largest logit, in bf16 printed beside BF16_LOGIT_RTOL
+    (``family_decode_check``).
     Returns the phase's launches."""
     import torch
 
     from repro_torch import prng
     from repro_torch.configs import get_arch
     from repro_torch.core import planner, pool
-    from repro_torch.launch import steps
     from repro_torch.models import api
     from repro_torch.models.transformer import segments_of
 
@@ -4375,22 +4470,8 @@ def xlstm_phase(dev) -> dict:
         return out
 
     def plan_timed(label, pcfg, **kw):
-        reset_counts()
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        t0_ = time.perf_counter()
-        plan_ = planner.build_deployment(params, spec, pcfg, device=dev, **kw)
-        torch.cuda.synchronize()
-        plan_s = time.perf_counter() - t0_
-        c = counts()
+        plan_, c = plan_counted(label, XLSTM_ARCH, params, spec, pcfg, dev, **kw)
         add(c)
-        tot = plan_.totals()
-        n_w = sum(r.n_weights for r in plan_.reports.values())
-        say(f"phase {label}: {len(plan_.reports)} tensors ({n_w / 1e6:.1f}M weights) in "
-            f"{plan_s:.2f} s; sws {tot['sws_speedup']:.4f}x total {tot['total_speedup']:.4f}x; "
-            f"B1 {c['B1']}; peak CUDA memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-        if c["B1"] <= 0 or any(c[k_] for k_ in c if k_ not in ("B1", "plain")) or c["plain"]:
-            fail(f"{XLSTM_ARCH} {label} launched {c}")
         return plan_
 
     toks, tps = {}, {}
@@ -4432,7 +4513,7 @@ def xlstm_phase(dev) -> dict:
     toks["planes_int8"], tps["planes_int8"], timed, _ = serve_xlstm("planes_int8", p_int8, "B5")
     say(f"phase trace: {XLSTM_ARCH} cim-planes_int8 generate: {trace(timed)}")
     del timed
-    xlstm_logit_check(cfg, {"dense": p_dense, "packed": p_packed, "planes_int8": p_int8}, batch)
+    f32_logit_check(cfg, {"dense": p_dense, "packed": p_packed, "planes_int8": p_int8}, batch)
     del p_int8, p_dense
     torch.cuda.empty_cache()
     agree = {k_: (toks[k_] == toks["dense"]).float().mean().item()
@@ -4451,27 +4532,255 @@ def xlstm_phase(dev) -> dict:
                     dim=1)
     short = api.make_batch(cfg, prng.PRNGKey(2), BATCH, XLSTM_SHORT_PROMPT + GEN,
                            device=dev)["tokens"]
-    for dtype, rtol, held in ((torch.float32, F32_LOGIT_RTOL, True),
-                              (torch.bfloat16, XLSTM_LOGIT_RTOL, False)):
-        c_ = dataclasses.replace(cfg, dtype=str(dtype).removeprefix("torch."))
-        served_p = steps.prepare_serving_params(p_packed, dtype)
-        for label, tokens_, prompt_ in (("long", seq, XLSTM_LONG_PROMPT),
-                                        ("short", short, XLSTM_SHORT_PROMPT)):
-            d, top, finite = decode_departure(c_, served_p, tokens_, prompt_)
-            bnd = rtol * top
-            say(f"phase xlstm-{label}: packed {c_.dtype}, batch {BATCH}, prompt {prompt_}, "
-                f"{tokens_.shape[1] - prompt_ - 1} decode steps vs forward over "
-                f"{tokens_.shape[1]} positions: max |d| {d:.4e} at any decoded position (bound "
-                f"{rtol:g} * max|logit| = {bnd:.4e}{'' if held else ', printed'})")
-            if not finite or (held and d > bnd):
-                fail(f"{XLSTM_ARCH} {label} prompt {c_.dtype}: decode logits differ from "
-                     f"forward by {d:.4e} (finite: {finite})")
-        del served_p
+    for label, tokens_, prompt_ in (("long", seq, XLSTM_LONG_PROMPT),
+                                    ("short", short, XLSTM_SHORT_PROMPT)):
+        family_decode_check(cfg, p_packed, tokens_, prompt_, None, f"xlstm-{label}")
     say(f"phase xlstm-long: graph {tps_long:.1f} tok/s at prompt {XLSTM_LONG_PROMPT}, graph "
         f"tokens == eager tokens; {time.perf_counter() - t0:.1f} s")
     del p_packed, params, plan
     torch.cuda.empty_cache()
     say(f"phase xlstm: {time.perf_counter() - t_phase:.1f} s; launches {totals}")
+    return totals
+
+
+SEAMLESS_ARCH = "seamless-m4t-medium"
+SEAMLESS_LAYERS = 2  # depth cut 12 + 12 -> 2 + 2, the only cut (the run's time limit)
+# K x N of seamless-m4t-medium's f32 LM head (N = 256206, N % 4 = 2: the FMA kernels'
+# non-vec branch at the widest N served) and of its bf16 MLP projections
+SEAMLESS_SHAPES = {"head": (1024, 256206), "wi_gate": (1024, 4096), "mlp/wo": (4096, 1024)}
+SEAMLESS_M = (BATCH, BATCH * PROMPT)
+INTERNVL2_ARCH = "internvl2-76b"
+INTERNVL2_LAYERS = 1  # depth cut 80 -> 1, the only cut
+INTERNVL2_PREFIX = 256  # the patch-embedding positions (stub_prefix_len) before the text
+# K x N of internvl2-76b's MLP projections and its f32 LM head (1.05 G weights)
+INTERNVL2_SHAPES = {"wi_gate": (8192, 28672), "mlp/wo": (28672, 8192), "head": (8192, 128256)}
+INTERNVL2_M = (BATCH, BATCH * (INTERNVL2_PREFIX + PROMPT))
+
+
+def seamless_phase(dev) -> dict:
+    """seamless-m4t-medium (the encoder-decoder, audio frontend stubbed) at
+    its published width with both stacks cut to SEAMLESS_LAYERS: init
+    from the reference's key; a const_rle plan through one
+    pool served raw-packed (B2) and const_rle (B4, tokens == raw-packed);
+    one stateless plan served fp, dense, packed (B2) and planes_int8 (B6
+    builds, B5 serves), each through the serve gates on BATCH x PROMPT
+    source frames and tokens: a prefill launches src_proj, 7 CIM matmuls an
+    encoder layer, 11 a decoder layer (self 4, cross 4, MLP 3) and the
+    head, each decode step 9 a decoder layer (the cross K/V are cached) and
+    the head; all but the f32 head's on the tensor cores; B3 = B3_tc =
+    encoder (bidir) + decoder (causal) layers a prefill at D = 64, and the
+    cross-attention's blockwise_attention once a decoder layer (the
+    reference's direct call) the only plain call; f32 prefill logits of
+    packed and planes_int8 within 1e-3 of dense's largest (bf16 printed:
+    ``f32_logit_check``); the packed decode against forward at every
+    decoded position (f32 held, bf16 printed).  Returns the phase's
+    launches."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.configs import get_arch
+    from repro_torch.core import planner, pool
+    from repro_torch.models import api
+
+    t_phase = time.perf_counter()
+    totals = {}
+
+    def add(c):
+        for k_, v in c.items():
+            if k_ != "plain":
+                totals[k_] = totals.get(k_, 0) + v
+
+    full = get_arch(SEAMLESS_ARCH)
+    cfg = dataclasses.replace(full, n_layers=SEAMLESS_LAYERS, n_enc_layers=SEAMLESS_LAYERS)
+    le, ld = cfg.n_enc_layers, cfg.n_layers
+    say(f"phase seamless-plan: {SEAMLESS_ARCH} d_model={cfg.d_model} heads={cfg.n_heads} "
+        f"kv={cfg.n_kv_heads} head_dim={cfg.resolved_head_dim} d_ff={cfg.d_ff} "
+        f"vocab={cfg.vocab_size}, untied head; depth cut {full.n_enc_layers} + "
+        f"{full.n_layers} -> {le} encoder + {ld} decoder layers (the only cut), "
+        f"p_stuck={P_STUCK}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init(prng.PRNGKey(0), cfg, device=dev)
+    torch.cuda.synchronize()
+    say(f"phase init: {SEAMLESS_ARCH} {le}+{ld} {api.param_count(params) / 1e6:.1f}M params "
+        f"from the reference's key in {time.perf_counter() - t0:.2f} s")
+    spec = planner.CrossbarSpec()
+    batch = api.make_batch(cfg, prng.PRNGKey(0), BATCH, PROMPT, device=dev)
+    prefill_n, step_n = 1 + 7 * le + 11 * ld + 1, 9 * ld + 1
+    want = prefill_n + (GEN - 1) * step_n
+    want_tc = want - GEN  # the f32 head on FMA, once a step
+    b3 = le + ld
+    say(f"phase seamless-serve: launch formula per generate: prefill 1 + 7 x {le} + 11 x {ld} + "
+        f"1 = {prefill_n} (src_proj; wq, wk, wv, wo, the MLP's 3 an encoder layer; self 4, "
+        f"cross 4, MLP 3 a decoder layer; the head), each of {GEN - 1} decode steps 9 x {ld} + "
+        f"1 = {step_n} (self 4, cross wq and wo, MLP 3; the head): {want} CIM launches, "
+        f"{want_tc} on the tensor cores; B3 = B3_tc = {le} bidir + {ld} causal a prefill (D = "
+        f"64, S = {PROMPT}); blockwise_attention {ld} a prefill (the cross-attention)")
+
+    def serve_seamless(label, p, kernel):
+        expect = {"B3": b3, "B3_tc": b3,
+                  **({kernel: want, f"{kernel}_tc": want_tc} if kernel else {})}
+        out = served(f"{SEAMLESS_ARCH} {label}", cfg, p, batch, GEN, kernel, want,
+                     expect=expect, blockwise=ld)
+        add(out[3])
+        return out
+
+    toks, tps = {}, {}
+    pcfg_pool = planner.PlannerConfig(p_stuck=P_STUCK, codec=CODEC)
+    xbars = pool.CrossbarPool(spec, pcfg_pool.crossbars, device=dev)
+    pool_plan, c = plan_counted("seamless-plan-pool", SEAMLESS_ARCH, params, spec, pcfg_pool,
+                                dev, pool=xbars)
+    add(c)
+    p_raw = planner.deploy_params(params, pool_plan, materialize="packed", codec="raw")
+    toks["raw_pool"], tps["packed (pool plan)"], _, _ = serve_seamless("packed (pool plan)",
+                                                                      p_raw, "B2")
+    p_rle = planner.deploy_params(params, pool_plan, materialize="packed", codec=CODEC)
+    toks["rle"], tps[f"packed {CODEC}"], _, _ = serve_seamless(f"packed {CODEC}", p_rle, "B4")
+    if not torch.equal(toks["rle"], toks["raw_pool"]):
+        fail(f"{SEAMLESS_ARCH} {CODEC} tokens differ from raw-packed tokens of the same plan")
+    del p_raw, p_rle, pool_plan, xbars
+
+    plan, c = plan_counted("seamless-plan", SEAMLESS_ARCH, params, spec,
+                           planner.PlannerConfig(p_stuck=P_STUCK), dev)
+    add(c)
+    need = {"src_proj/w", "head/w"} | {f"encoder/{s_}/{w}" for s_, w in (
+        ("attn", "wq"), ("attn", "wo"), ("mlp", "wi_gate"))} | {f"decoder/{s_}/{w}" for s_, w in (
+            ("self", "wk"), ("cross", "wq"), ("cross", "wv"), ("mlp", "wo"))}
+    if not need <= set(plan.reports):
+        fail(f"{SEAMLESS_ARCH}: not planned: {sorted(need - set(plan.reports))}")
+    toks["fp"], tps["fp"], _, _ = serve_seamless("fp", params, None)
+    p_dense = planner.deploy_params(params, plan, materialize="dense")
+    del params
+    toks["dense"], tps["dense"], _, _ = serve_seamless("dense", p_dense, None)
+    p_packed = planner.deploy_params(p_dense, plan, materialize="packed")
+    if not all(isinstance(w, dict) for w in (
+            p_packed["src_proj"]["w"], p_packed["decoder"]["cross"]["wk"], p_packed["head"]["w"])):
+        fail(f"{SEAMLESS_ARCH}: src_proj / cross / head not served as operands")
+    toks["packed"], tps["packed"], timed, _ = serve_seamless("packed", p_packed, "B2")
+    say(f"phase trace: {SEAMLESS_ARCH} cim-packed generate: {trace(timed)}")
+    del timed
+    seq = torch.cat([batch["tokens"], toks["packed"][:, :-1].to(batch["tokens"].dtype)], dim=1)
+    # the source frames stay those of the prompt: the cross cache holds PROMPT frames
+    family_decode_check(cfg, p_packed, seq, PROMPT, {"src_embeds": batch["src_embeds"]},
+                        "seamless-decode")
+    p_int8, c6 = deploy_int8(p_dense, plan)
+    add(c6)
+    toks["planes_int8"], tps["planes_int8"], timed, _ = serve_seamless("planes_int8", p_int8,
+                                                                      "B5")
+    say(f"phase trace: {SEAMLESS_ARCH} cim-planes_int8 generate: {trace(timed)}")
+    del timed
+    f32_logit_check(cfg, {"dense": p_dense, "packed": p_packed, "planes_int8": p_int8}, batch)
+    del p_int8, p_packed, p_dense, plan
+    torch.cuda.empty_cache()
+    agree = {k_: (toks[k_] == toks["dense"]).float().mean().item()
+             for k_ in ("fp", "packed", "planes_int8")}
+    say(f"phase seamless-serve: batch {BATCH}, {PROMPT} source frames, prompt {PROMPT}, gen "
+        f"{GEN}, greedy bf16, graph tok/s " + ", ".join(f"{k_} {v:.1f}" for k_, v in tps.items())
+        + f"; {CODEC} tokens == raw-packed tokens; token agreement with dense {agree}; peak "
+        f"CUDA memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    say(f"phase seamless: {time.perf_counter() - t_phase:.1f} s; launches {totals}")
+    return totals
+
+
+def internvl2_phase(dev) -> dict:
+    """internvl2-76b (a dense GQA decoder behind a 256-position
+    patch-embedding prefix, the InternViT frontend stubbed) at its
+    published width with the depth cut to INTERNVL2_LAYERS: init from the
+    reference's key; one stateless plan (the [8192, 128256] head: 1.05 G
+    weights) served fp, dense, packed (B2) and planes_int8 (B6 builds, B5
+    serves), each through the serve gates on a prompt of INTERNVL2_PREFIX
+    prefix positions + PROMPT text tokens: (7 x layers + 1) x gen CIM
+    launches, 7 x layers x gen on the tensor cores (the f32 head on FMA),
+    B3 = B3_tc = layers a prefill at D = 128, no plain-version call;
+    prefill logits of packed and planes_int8 within dense's bound; the
+    packed decode against forward at every decoded position (f32 held,
+    bf16 printed).  The pool plan and the const_rle way are left to phase
+    seamless (the time limit); each deployment is freed before the next
+    but dense.  Returns the phase's launches."""
+    import torch
+
+    from repro_torch import prng
+    from repro_torch.configs import get_arch
+    from repro_torch.core import planner
+    from repro_torch.models import api
+
+    t_phase = time.perf_counter()
+    totals = {}
+
+    def add(c):
+        for k_, v in c.items():
+            if k_ != "plain":
+                totals[k_] = totals.get(k_, 0) + v
+
+    full = get_arch(INTERNVL2_ARCH)
+    cfg = dataclasses.replace(full, n_layers=INTERNVL2_LAYERS)
+    if cfg.stub_prefix_len != INTERNVL2_PREFIX:
+        fail(f"{INTERNVL2_ARCH}: stub_prefix_len {cfg.stub_prefix_len}")
+    prompt = INTERNVL2_PREFIX + PROMPT
+    say(f"phase internvl2-plan: {INTERNVL2_ARCH} d_model={cfg.d_model} heads={cfg.n_heads} "
+        f"kv={cfg.n_kv_heads} head_dim={cfg.resolved_head_dim} d_ff={cfg.d_ff} "
+        f"vocab={cfg.vocab_size}, untied head, {cfg.stub_prefix_len} prefix positions; depth "
+        f"cut {full.n_layers} -> {INTERNVL2_LAYERS} (the only cut), p_stuck={P_STUCK}; the pool "
+        f"plan and const_rle are phase seamless's (time limit)")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init(prng.PRNGKey(0), cfg, device=dev)
+    torch.cuda.synchronize()
+    say(f"phase init: {INTERNVL2_ARCH} x{INTERNVL2_LAYERS} {api.param_count(params) / 1e6:.1f}M "
+        f"params from the reference's key in {time.perf_counter() - t0:.2f} s")
+    batch = api.make_batch(cfg, prng.PRNGKey(0), BATCH, prompt, device=dev)
+    want = (7 * INTERNVL2_LAYERS + 1) * GEN
+    want_tc = 7 * INTERNVL2_LAYERS * GEN
+    say(f"phase internvl2-serve: launch formula per generate: (7 x {INTERNVL2_LAYERS} + 1) x "
+        f"{GEN} = {want} CIM launches, {want_tc} on the tensor cores (the f32 head on FMA); B3 "
+        f"= B3_tc = {INTERNVL2_LAYERS} a prefill (D = 128, S = {prompt})")
+
+    def serve_internvl2(label, p, kernel):
+        out = served(f"{INTERNVL2_ARCH} {label}", cfg, p, batch, GEN, kernel, want,
+                     want_tc=want_tc if kernel else 0)
+        add(out[3])
+        return out
+
+    toks, tps = {}, {}
+    toks["fp"], tps["fp"], _, _ = serve_internvl2("fp", params, None)
+    plan, c = plan_counted("internvl2-plan", INTERNVL2_ARCH, params, planner.CrossbarSpec(),
+                           planner.PlannerConfig(p_stuck=P_STUCK), dev)
+    add(c)
+    need = {f"segments/0/attn/{w}" for w in ("wq", "wk", "wv", "wo")} | {
+        f"segments/0/mlp/{w}" for w in ("wi_gate", "wi_up", "wo")} | {"head/w"}
+    if not need <= set(plan.reports):
+        fail(f"{INTERNVL2_ARCH}: not planned: {sorted(need - set(plan.reports))}")
+    p_dense = planner.deploy_params(params, plan, materialize="dense")
+    del params
+    torch.cuda.empty_cache()
+    toks["dense"], tps["dense"], _, _ = serve_internvl2("dense", p_dense, None)
+    p_packed = planner.deploy_params(p_dense, plan, materialize="packed")
+    toks["packed"], tps["packed"], timed, _ = serve_internvl2("packed", p_packed, "B2")
+    say(f"phase trace: {INTERNVL2_ARCH} cim-packed generate: {trace(timed)}")
+    del timed
+    logit_check(cfg, p_dense, p_packed, batch, "packed")
+    seq = torch.cat([batch["tokens"], toks["packed"][:, :-1].to(batch["tokens"].dtype)], dim=1)
+    family_decode_check(cfg, p_packed, seq, prompt, {"prefix_embeds": batch["prefix_embeds"]},
+                        "internvl2-decode")
+    del p_packed
+    torch.cuda.empty_cache()
+    p_int8, c6 = deploy_int8(p_dense, plan)
+    add(c6)
+    toks["planes_int8"], tps["planes_int8"], timed, _ = serve_internvl2("planes_int8", p_int8,
+                                                                       "B5")
+    say(f"phase trace: {INTERNVL2_ARCH} cim-planes_int8 generate: {trace(timed)}")
+    del timed
+    logit_check(cfg, p_dense, p_int8, batch, "planes_int8")
+    del p_int8, p_dense, plan
+    torch.cuda.empty_cache()
+    agree = {k_: (toks[k_] == toks["dense"]).float().mean().item()
+             for k_ in ("fp", "packed", "planes_int8")}
+    say(f"phase internvl2-serve: batch {BATCH}, prompt {INTERNVL2_PREFIX} prefix + {PROMPT} "
+        f"text, gen {GEN}, greedy bf16, graph tok/s "
+        + ", ".join(f"{k_} {v:.1f}" for k_, v in tps.items())
+        + f"; token agreement with dense {agree}; peak CUDA memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    say(f"phase internvl2: {time.perf_counter() - t_phase:.1f} s; launches {totals}")
     return totals
 
 
@@ -4653,7 +4962,12 @@ def main() -> None:
 
     mamba_err = check_cim_shapes(dev, "mamba-kernels", MAMBA_SHAPES, MAMBA_M)
     xlstm_err = check_cim_shapes(dev, "xlstm-kernels", XLSTM_SHAPES, XLSTM_M)
-    shape_err = {k_: max(mamba_err[k_], xlstm_err[k_]) for k_ in ("B2", "B4", "B5")}
+    seamless_err = check_cim_shapes(dev, "seamless-kernels", SEAMLESS_SHAPES, SEAMLESS_M,
+                                    f32_only=("head",))
+    internvl2_err = check_cim_shapes(dev, "internvl2-kernels", INTERNVL2_SHAPES, INTERNVL2_M,
+                                     f32_only=("head",))
+    shape_err = {k_: max(e[k_] for e in (mamba_err, xlstm_err, seamless_err, internvl2_err))
+                 for k_ in ("B2", "B4", "B5")}
 
     b3_err, n3 = check_b3(dev)
     say(f"phase B3: {n3} cases within {fa_ref.TOL:g} (abs + rel; bf16 one ulp more; bf16 on "
@@ -4821,8 +5135,9 @@ def main() -> None:
         f"calls 0")
     say(f"phase trace: cim-packed-{CODEC} generate: {trace(timed_rle)}")
     del timed_rle, p_raw_pool
-    rle_ops = [{k: v[i] for k, v in p_rle["segments"][0]["mlp"]["wi_gate"].items()}
-               for i in range(LAYERS)]
+    # two or more weight copies (2 x 46 MB) so each timed launch finds L2 cold
+    rle_ops = [{k: v[i] for k, v in p_rle["segments"][0]["mlp"][w].items()}
+               for i in range(LAYERS) for w in ("wi_gate", "wi_up")]
     del p_rle, pool_plan, params
     torch.cuda.empty_cache()
 
@@ -4919,6 +5234,12 @@ def main() -> None:
     # --- 5n. xlstm-350m at published width: mLSTM and sLSTM, no attention -----
     xl = xlstm_phase(dev)
 
+    # --- 5o. seamless-m4t-medium at published width: the encoder-decoder ------
+    se = seamless_phase(dev)
+
+    # --- 5p. internvl2-76b at published width: the modality-stub prefix ------
+    iv = internvl2_phase(dev)
+
     # --- 6. kernels: time, bound, plain, library -------------------------------
     t = 1 << 20
     pairs = [tuple(torch.randint(0, 256, (t, 16, 10), dtype=torch.uint8, device=dev, generator=g)
@@ -4984,8 +5305,8 @@ def main() -> None:
             f"bound {b:.4f} by {by}); f32 x on the FMA kernel {ms_f32:.4f} ms (bound "
             f"{b32:.4f} by {by32}); plain {plain:.4f}, torch.matmul on dense f32 {library:.4f}")
 
-        # B4 on the const_rle deployment's wi_gate, one copy per layer
-        nxt = cycle(LAYERS)
+        # B4 on the const_rle deployment's wi_gate and wi_up, one copy each a layer
+        nxt = cycle(len(rle_ops))
 
         def b4_call(op):
             return cim_ops.cim_matmul_packed(x, op["planes_packed"], op["sign_packed"], op["scale"],
@@ -5002,7 +5323,7 @@ def main() -> None:
         b, by = bound(m * k * 2 + payload + m * n * 4, 2 * m * k * n, BF16_TC_FLOPS)
         records[f"B4 {label}"] = dict(ms=ms4, plain_ms=plain4, library_ms=library4, bound_ms=b,
                                       bound_by=by)
-        say(f"phase kernels: B4 {label} M={m} on the {CODEC} wi_gate operands (all tiles "
+        say(f"phase kernels: B4 {label} M={m} on the {CODEC} wi_gate / wi_up operands (all tiles "
             f"live): {ms4:.4f} ms, B2 on the same {ms2:.4f} ms (bound {b:.4f} by {by}, plain "
             f"{plain4:.4f}, torch.matmul {library4:.4f})")
         del ops, dense, dense4
@@ -5080,65 +5401,80 @@ def main() -> None:
                 r[f"grouped_g160_m{m}"] = {k_: mla_rec[f"{grouped} M={m}"][k_] for k_ in keys}
         return r
 
+    def phase_launches(kernel):
+        """The family phases' own launches of ``kernel`` (each also in the total)."""
+        return {f"launches_{name}": ph.get(kernel, 0)
+                for name, ph in (("xlstm", xl), ("seamless", se), ("internvl2", iv))}
+
+    def shape_cases(kernel):
+        """The cases and max |d| of ``kernel``'s checks at the families' shapes."""
+        return {f"{name}_shapes": {"cases": e["cases"], "max_abs_err": e[kernel]}
+                for name, e in (("xlstm", xlstm_err), ("seamless", seamless_err),
+                                ("internvl2", internvl2_err))}
+
     kernels = [
         {**row("hamming_pairs", "src/repro_torch/csrc/hamming.cu",
             "src/repro/kernels/hamming/kernel.py:32",
             b1_plan + figs["B1"] + trained["B1"] + acc["B1"] + ob["B1"] + bx["B1"] + fl["B1"]
             + en.get("B1", 0) + tf.get("B1", 0) + mo.get("B1", 0) + ml.get("B1", 0)
-            + hy.get("B1", 0) + xl.get("B1", 0), b1_err,
+            + hy.get("B1", 0) + xl.get("B1", 0) + se.get("B1", 0) + iv.get("B1", 0), b1_err,
             dict(ms=b1_ms, plain_ms=b1_plain, bound_ms=b1_bound, bound_by="bytes",
                  library_ms=None)),
-         "launches_xlstm": xl.get("B1", 0)},
+         **phase_launches("B1")},
         {**row("cim_matmul_packed", "src/repro_torch/csrc/cim_matmul.cu",
                "src/repro/kernels/cim_matmul/kernel.py:242",
                b2_launches + ob["B2"] + bx["B2"] + fl["B2"] + en.get("B2", 0) + tf.get("B2", 0)
-               + mo.get("B2", 0) + ml.get("B2", 0) + hy.get("B2", 0) + xl.get("B2", 0),
+               + mo.get("B2", 0) + ml.get("B2", 0) + hy.get("B2", 0) + xl.get("B2", 0)
+               + se.get("B2", 0) + iv.get("B2", 0),
                max(b2_err, ee["B2"], te["B2"], me["B2"], mle["B2"], shape_err["B2"]),
                records["decode"],
                b2_tc + ob["B2_tc"] + bx["B2_tc"] + fl["B2_tc"] + en.get("B2_tc", 0)
                + tf.get("B2_tc", 0) + mo.get("B2_tc", 0) + ml.get("B2_tc", 0)
-               + hy.get("B2_tc", 0) + xl.get("B2_tc", 0), grouped="B2"),
-         "launches_hymba": hy.get("B2", 0), "launches_xlstm": xl.get("B2", 0),
-         "xlstm_shapes": {"cases": xlstm_err["cases"], "max_abs_err": xlstm_err["B2"]},
+               + hy.get("B2_tc", 0) + xl.get("B2_tc", 0) + se.get("B2_tc", 0)
+               + iv.get("B2_tc", 0), grouped="B2"),
+         "launches_hymba": hy.get("B2", 0), **phase_launches("B2"), **shape_cases("B2"),
          "launches_gain": fl["B2_gain"],
          **{k: v for k, v in records["decode"].items() if k.startswith("gain_")}},
         {**row("cim_matmul_packed_skip", "src/repro_torch/csrc/cim_matmul.cu",
             "src/repro/kernels/cim_matmul/kernel.py:193",
             b4_launches + ob["B4"] + bx["B4"] + en.get("B4", 0) + tf.get("B4", 0)
-            + mo.get("B4", 0) + ml.get("B4", 0) + hy.get("B4", 0) + xl.get("B4", 0),
+            + mo.get("B4", 0) + ml.get("B4", 0) + hy.get("B4", 0) + xl.get("B4", 0)
+            + se.get("B4", 0) + iv.get("B4", 0),
             max(b4_err, ee["B4"], te["B4"], me["B4"], mle["B4"], shape_err["B4"]),
             records["B4 decode"],
             b4_tc + ob["B4_tc"] + bx["B4_tc"] + en.get("B4_tc", 0) + tf.get("B4_tc", 0)
             + mo.get("B4_tc", 0) + ml.get("B4_tc", 0) + hy.get("B4_tc", 0)
-            + xl.get("B4_tc", 0), grouped="B4"),
-         "launches_xlstm": xl.get("B4", 0),
-         "xlstm_shapes": {"cases": xlstm_err["cases"], "max_abs_err": xlstm_err["B4"]}},
+            + xl.get("B4_tc", 0) + se.get("B4_tc", 0) + iv.get("B4_tc", 0), grouped="B4"),
+         **phase_launches("B4"), **shape_cases("B4")},
         {**row("cim_matmul_planes", "src/repro_torch/csrc/cim_planes.cu",
             "src/repro/kernels/cim_matmul/kernel.py:74",
             b5_launches + ob["B5"] + fl["B5"] + en.get("B5", 0) + tf.get("B5", 0)
-            + mo.get("B5", 0) + ml.get("B5", 0) + hy.get("B5", 0) + xl.get("B5", 0),
+            + mo.get("B5", 0) + ml.get("B5", 0) + hy.get("B5", 0) + xl.get("B5", 0)
+            + se.get("B5", 0) + iv.get("B5", 0),
             max(b5_err, ee["B5"], te["B5"], me["B5"], mle["B5"], shape_err["B5"]),
             records["B5 decode"],
             b5_tc + ob["B5_tc"] + fl["B5_tc"] + en.get("B5_tc", 0) + tf.get("B5_tc", 0)
             + mo.get("B5_tc", 0) + ml.get("B5_tc", 0) + hy.get("B5_tc", 0)
-            + xl.get("B5_tc", 0), grouped="B5"),
-         "launches_xlstm": xl.get("B5", 0),
-         "xlstm_shapes": {"cases": xlstm_err["cases"], "max_abs_err": xlstm_err["B5"]}},
+            + xl.get("B5_tc", 0) + se.get("B5_tc", 0) + iv.get("B5_tc", 0), grouped="B5"),
+         **phase_launches("B5"), **shape_cases("B5")},
         {**row("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
                "src/repro/kernels/flash_attention/kernel.py:109",
                yi["B3"] + acc["B3"] + ob["B3"] + bx["B3"] + fl["B3"] + en.get("B3", 0)
-               + tf.get("B3", 0) + mo.get("B3", 0) + hy.get("B3", 0) + xl.get("B3", 0),
+               + tf.get("B3", 0) + mo.get("B3", 0) + hy.get("B3", 0) + xl.get("B3", 0)
+               + se.get("B3", 0) + iv.get("B3", 0),
                max(b3_err, ee["B3"], te["B3"]), rec_b3,
                yi["B3_tc"] + ob["B3_tc"] + bx["B3_tc"] + fl["B3_tc"] + en.get("B3_tc", 0)
-               + tf.get("B3_tc", 0) + mo.get("B3_tc", 0) + hy.get("B3_tc", 0)),
+               + tf.get("B3_tc", 0) + mo.get("B3_tc", 0) + hy.get("B3_tc", 0)
+               + se.get("B3_tc", 0) + iv.get("B3_tc", 0)),
          "launches_hymba": hy.get("B3", 0), "launches_hymba_tc": hy.get("B3_tc", 0),
-         "launches_xlstm": xl.get("B3", 0),
+         **phase_launches("B3"), "launches_seamless_tc": se.get("B3_tc", 0),
          "d64_serve": rec_b3["d64_serve"], "d64_2048": rec_b3["d64_2048"]},
         {**row("bitslice", "src/repro_torch/csrc/bitslice.cu",
             "src/repro/kernels/bitslice/kernel.py:35",
             yi["B6"] + ob["B6"] + fl["B6"] + en.get("B6", 0) + tf.get("B6", 0) + mo.get("B6", 0)
-            + ml.get("B6", 0) + hy.get("B6", 0) + xl.get("B6", 0), 0.0, rec_b6),
-         "launches_xlstm": xl.get("B6", 0)},
+            + ml.get("B6", 0) + hy.get("B6", 0) + xl.get("B6", 0) + se.get("B6", 0)
+            + iv.get("B6", 0), 0.0, rec_b6),
+         **phase_launches("B6")},
         # a planner helper, not a TPU kernel: the reference sorts on the host; its launches
         # are phase mla's plans' (the other phases' plans launch it too, uncounted)
         row("sws_sort", "src/repro_torch/csrc/sws_sort.cu",
@@ -5165,9 +5501,11 @@ def main() -> None:
                   f" SDPA {r[k_]['library_ms']:.4f})" for k_ in ("d64_serve", "d64_2048")
                   if k_ in r)
         + (f" launches_hymba={r['launches_hymba']}" if "launches_hymba" in r else "")
-        + (f" launches_xlstm={r['launches_xlstm']}" if "launches_xlstm" in r else "")
-        + (f" xlstm_shapes={r['xlstm_shapes']['cases']} cases max_abs_err="
-           f"{r['xlstm_shapes']['max_abs_err']:.3e}" if "xlstm_shapes" in r else "")
+        + "".join(f" launches_{f}={r[f'launches_{f}']}" for f in ("xlstm", "seamless", "internvl2")
+                  if f"launches_{f}" in r)
+        + "".join(f" {f}_shapes={r[f'{f}_shapes']['cases']} cases max_abs_err="
+                  f"{r[f'{f}_shapes']['max_abs_err']:.3e}" for f in ("xlstm", "seamless", "internvl2")
+                  if f"{f}_shapes" in r)
         + f" max_abs_err={r['max_abs_err']:.3e} "
         f"ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f}"
         + (f" library_ms={r['library_ms']:.4f}" if r["library_ms"] is not None else "")

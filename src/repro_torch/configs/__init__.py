@@ -15,8 +15,10 @@ from repro_torch.configs import (  # noqa: F401  (registration side effect)
     gemma_2b,
     hymba_1_5b,
     internlm2_1_8b,
+    internvl2_76b,
     phi3_medium_14b,
     qwen2_moe_a2_7b,
+    seamless_m4t_medium,
     xlstm_350m,
     yi_6b,
 )

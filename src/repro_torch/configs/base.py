@@ -9,8 +9,12 @@ mixture-of-experts block of ``(("moe", 1),)`` families (``MoEConfig``,
 hybrid attention + Mamba blocks ``hymba_global`` / ``hymba_swa``
 (``SSMConfig``, ``attn_window``, ``n_meta_tokens``; ``models/hybrid.py``,
 ``models/ssm.py``), the recurrent ``mlstm`` / ``slstm`` blocks of the
-xLSTM family (``SSMConfig``; ``models/ssm.py``), and the tensor-parallel
-flags of ``parallel/tp.py``.
+xLSTM family (``SSMConfig``; ``models/ssm.py``), the encoder-decoder of
+``encdec`` families (``n_enc_layers``; ``models/encdec.py``), the
+modality-stub prefix of ``stub_prefix_len`` (``models/transformer.py``),
+and the tensor-parallel flags of ``parallel/tp.py``.  The reference's
+``norm`` and ``global_layer_every`` are left out: none of its modules
+reads them.
 """
 from __future__ import annotations
 
@@ -75,6 +79,13 @@ class ArchConfig:
     # sequence of (block_kind, repeat), expanded cyclically to n_layers
     block_pattern: tuple[tuple[str, int], ...] = (("attn", 1),)
     attn_window: Optional[int] = None  # sliding-window size of the swa kinds
+    # encoder-decoder: an n_enc_layers bidirectional encoder over the source
+    # embeddings, and n_layers decoder layers with cross-attention into it
+    encdec: bool = False
+    n_enc_layers: int = 0
+    # modality frontend stub: precomputed embeddings (vlm patches) replace the
+    # token embeddings of the first stub_prefix_len positions
+    stub_prefix_len: int = 0
     # learnable tokens prepended to the sequence (hymba's meta tokens)
     n_meta_tokens: int = 0
     # sub-quadratic in sequence length (SWA ring caches + O(1) SSM state);

@@ -21,8 +21,13 @@ reprogram.  Archs: the dense decoders gemma-2b, yi-6b, internlm2-1.8b,
 phi3-medium-14b, the MoE decoders qwen2-moe-a2.7b and deepseek-v2-236b
 (each expert stack one grouped launch of B2 / B4 / B5), the hybrid
 hymba-1.5b (attention beside Mamba heads, meta tokens, sliding-window ring
-caches) and the recurrent xlstm-350m (mLSTM and sLSTM blocks, no
-attention); prefill attention runs kernel B3 on the card.
+caches), the recurrent xlstm-350m (mLSTM and sLSTM blocks, no
+attention), the encoder-decoder seamless-m4t-medium (source frames from
+``make_batch``'s ``src_embeds``, a cross-attention cache over them) and
+internvl2-76b (a dense decoder whose first 256 positions are the batch's
+``prefix_embeds``: a shorter prompt raises, ROADMAP C.14); prefill
+attention runs kernel B3 on the card (the encoder-decoder's
+cross-attention is ``blockwise_attention``, as in the reference).
 
 Decode loop (``--loop``): ``scan`` (default) runs the whole generation as
 one dispatch, a CUDA graph of every decode step replayed once a generation
@@ -41,6 +46,10 @@ Usage (on the card):
       --cim --materialize packed
   PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m --layers 8 \
       --cim --materialize packed --codec const_rle
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch seamless-m4t-medium \
+      --layers 4 --cim --materialize packed
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-76b --layers 1 \
+      --prompt-len 288 --cim --materialize planes_int8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b --layers 4 \
       --cim --fault-rate 2e-3 --fault-hotspot 0.25 --pool-leveling fault \
       --scrub --scrub-tiles 65536 --scrub-storm 2e-7
@@ -120,7 +129,10 @@ def generator_on_prepared(
     dev = tokens_in.device
     b, prompt_len = tokens_in.shape
     prefill = wrap(make_prefill_step(cfg))
-    cache = api.init_cache(cfg, b, prompt_len + gen_len, device=dev, shards=cache_shards)
+    # an encoder-decoder's cross cache holds the source frames
+    src_len = batch["src_embeds"].shape[1] if cfg.encdec else None
+    cache = api.init_cache(cfg, b, prompt_len + gen_len, device=dev, shards=cache_shards,
+                           src_len=src_len)
     key = prng.PRNGKey(seed, device=dev)
     pos0 = torch.full((), prompt_len, dtype=torch.int64, device=dev)
     if loop == "scan":
@@ -272,7 +284,9 @@ def main(argv: list[str] | None = None) -> None:
     full_f32_matmuls()
     cfg = get_arch(args.arch, reduced=args.reduced)
     if args.layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+        # an encoder-decoder's encoder is cut with its decoder
+        cfg = dataclasses.replace(cfg, n_layers=args.layers,
+                                  **({"n_enc_layers": args.layers} if cfg.encdec else {}))
     params = api.init(prng.PRNGKey(args.seed), cfg, device=dev)
     batch = api.make_batch(cfg, prng.PRNGKey(args.seed), args.batch, args.prompt_len,
                            device=dev)

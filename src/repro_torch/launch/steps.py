@@ -51,12 +51,21 @@ from repro_torch.optim import AdamWConfig, adamw_update
 
 def loss_fn(params, cfg: ArchConfig, batch: dict, remat: str = "none") -> tuple[torch.Tensor, dict]:
     """Mean next-token NLL (+ the model's aux loss, 0 for the dense decoders),
-    through the training forward (``train=True``: the differentiable attention)."""
+    through the training forward (``train=True``: the differentiable
+    attention).  The modality-stub positions (``stub_prefix_len``) carry no
+    next-token target: their NLL is masked out of the mean, as in the
+    reference."""
     logits, aux = api.forward(params, cfg, batch, remat=remat, train=True)
     targets = batch["tokens"][:, 1:].long()
     lp = F.log_softmax(logits[:, :-1].to(torch.float32), dim=-1)
     nll = -torch.gather(lp, -1, targets[..., None])[..., 0]
-    loss = torch.mean(nll)
+    if cfg.stub_prefix_len:
+        mask = (torch.arange(nll.shape[1], device=nll.device) >= cfg.stub_prefix_len)
+        mask = mask.to(torch.float32)[None]
+        nll = nll * mask
+        loss = torch.sum(nll) / torch.clamp(torch.sum(mask) * nll.shape[0], min=1.0)
+    else:
+        loss = torch.mean(nll)
     return loss + aux, {"nll": loss, "aux": aux}
 
 
@@ -94,9 +103,10 @@ def _params_device(params) -> torch.device:
 # a layer's entries whose dense leaves the model casts at use: sub-dicts
 # ("moe": the routed expert stacks and the shared GLU; "mla": its
 # projections, wk_b and wv_b included; "mamba": its four projections, the
-# conv taps and dt_bias) and the xLSTM blocks' own leaves (the mLSTM's six
-# projections and conv taps, the sLSTM's two projections)
-MATMUL_BLOCKS = ("attn", "mlp", "moe", "mla", "mamba",
+# conv taps and dt_bias; an encoder-decoder's "self" and "cross" attention)
+# and the xLSTM blocks' own leaves (the mLSTM's six projections and conv
+# taps, the sLSTM's two projections)
+MATMUL_BLOCKS = ("attn", "mlp", "moe", "mla", "mamba", "self", "cross",
                  "w_up", "conv", "wq", "wk", "wv", "w_if", "w_down", "w", "w_out")
 # entries of those sub-dicts left as they are: the MoE router (a float32
 # matmul whatever the model's dtype), MLA's norm gains (rmsnorm reads them
@@ -107,11 +117,12 @@ KEEP_F32 = ("router", "q_norm", "kv_norm", "a_log", "d_skip")
 
 
 def _cast_matmul_weights(params, dtype: torch.dtype):
-    """The dense matmul weights of every layer cast to ``dtype``: the bytes
-    ``layers.linear`` (and MLA's per-head ``wk_b`` / ``wv_b``, the conv
-    taps) make at every call.  The embedding table (read in f32 by
-    ``unembed``), the norm gains, the LM head, the MoE router (f32 matmuls)
-    and the sLSTM's ``r`` stay as they are, as do operand dicts."""
+    """The dense matmul weights of every layer (and an encoder-decoder's
+    ``src_proj``) cast to ``dtype``: the bytes ``layers.linear`` (and MLA's
+    per-head ``wk_b`` / ``wv_b``, the conv taps) make at every call.  The
+    embedding table (read in f32 by ``unembed``), the norm gains, the LM
+    head, the MoE router (f32 matmuls) and the sLSTM's ``r`` stay as they
+    are, as do operand dicts."""
     def cast(v):
         if isinstance(v, torch.Tensor):
             return v.to(dtype)
@@ -119,9 +130,14 @@ def _cast_matmul_weights(params, dtype: torch.dtype):
             return {k: w if k in KEEP_F32 else cast(w) for k, w in v.items()}
         return v
 
-    segs = [{k: cast(v) if k in MATMUL_BLOCKS else v for k, v in seg.items()}
-            for seg in params["segments"]]
-    return {**params, "segments": segs}
+    def cast_layers(stack):
+        return {k: cast(v) if k in MATMUL_BLOCKS else v for k, v in stack.items()}
+
+    if "segments" not in params:  # an encoder-decoder
+        return {**params, "src_proj": cast(params["src_proj"]),
+                "encoder": cast_layers(params["encoder"]),
+                "decoder": cast_layers(params["decoder"])}
+    return {**params, "segments": [cast_layers(seg) for seg in params["segments"]]}
 
 
 def prepare_serving_params(params, dtype: torch.dtype | None = None):

@@ -1,5 +1,7 @@
-"""Model API used by ``launch/`` (port of ``repro.models.api``, decoder-only),
-with the paged-KV half the continuous-batching engine serves through."""
+"""Model API used by ``launch/`` (port of ``repro.models.api``): the
+decoder-only families (``models.transformer``) and the encoder-decoder
+(``models.encdec``, ``cfg.encdec``), with the paged-KV half the
+continuous-batching engine serves through (decoder-only)."""
 from __future__ import annotations
 
 from typing import Any
@@ -9,25 +11,42 @@ import torch
 from repro_torch import prng, tree
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels._util import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.transformer import (  # noqa: F401
     chunk_on_views,
-    decode_step,
     decode_step_paged,
-    forward,
-    init,
     paged_view,
     paged_writeback,
-    prefill,
     prefill_chunk,
     supports_paged,
 )
 
 
+def init(key: torch.Tensor, cfg: ArchConfig, *, device=None):
+    return (encdec.init(key, cfg, device=device) if cfg.encdec
+            else transformer.init(key, cfg, device=device))
+
+
+def forward(params, cfg: ArchConfig, batch: dict, *, remat: str = "none", train: bool = False):
+    model = encdec if cfg.encdec else transformer
+    return model.forward(params, cfg, batch, remat=remat, train=train)
+
+
+def prefill(params, cfg: ArchConfig, batch: dict):
+    return (encdec if cfg.encdec else transformer).prefill(params, cfg, batch)
+
+
+def decode_step(params, cfg: ArchConfig, cache, token: torch.Tensor, pos):
+    return (encdec if cfg.encdec else transformer).decode_step(params, cfg, cache, token, pos)
+
+
 def init_cache(cfg: ArchConfig, batch: int, seq_len: int, dtype=None, *, device=None,
-               shards: int = 0):
+               shards: int = 0, src_len: int | None = None):
     """Zero decode cache for ``seq_len`` positions; meta tokens occupy cache
-    slots before them, as in the reference."""
+    slots before them, as in the reference.  An encoder-decoder's cross
+    cache holds ``src_len`` source frames (``seq_len`` if not given)."""
+    if cfg.encdec:
+        return encdec.init_cache(cfg, batch, seq_len, src_len or seq_len, dtype, device=device)
     return transformer.init_cache(cfg, batch, seq_len + cfg.n_meta_tokens, dtype,
                                   device=device, shards=shards)
 
@@ -35,19 +54,26 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, dtype=None, *, device=
 def init_paged_pools(cfg: ArchConfig, num_tokens: int, dtype=None, *, device=None,
                      shards: int = 0) -> list:
     """Token-major physical KV pools (``num_tokens`` = num_blocks * page)."""
+    if cfg.encdec:
+        raise NotImplementedError("paged KV serving: decoder-only models")
     return transformer.init_paged_pools(cfg, num_tokens, dtype, device=device, shards=shards)
 
 
-def merge_prefill_cache(cfg: ArchConfig, full_cache: list, pf_cache: list) -> list:
+def merge_prefill_cache(cfg: ArchConfig, full_cache, pf_cache):
     """Write prefill caches into the full-length cache, in place (a decode
-    graph holds its buffers by address), walking nested dicts: a leaf of
-    the same shape (a ring cache, the SSM state, the conv tail) is copied
-    whole; a KV leaf differs only in its sequence axis, and the prompt's
-    positions [0, prompt) are written there."""
+    graph holds its buffers by address), walking lists (the decoder-only
+    segments) and nested dicts (an encoder-decoder's {"self", "cross_k",
+    "cross_v"}): a leaf of the same shape (a ring cache, the SSM state, the
+    conv tail, the cross K/V) is copied whole; a KV leaf differs only in its
+    sequence axis, and the prompt's positions [0, prompt) are written
+    there.  Returns ``full_cache``."""
     def merge(full, pf):
         if isinstance(full, dict):
             for name in full:
                 merge(full[name], pf[name])
+        elif isinstance(full, list):
+            for f, p in zip(full, pf, strict=True):
+                merge(f, p)
         elif full.shape == pf.shape:
             full.copy_(pf)
         else:
@@ -57,19 +83,27 @@ def merge_prefill_cache(cfg: ArchConfig, full_cache: list, pf_cache: list) -> li
                                  f"{tuple(full.shape)}")
             full.narrow(axes[0], 0, pf.shape[axes[0]]).copy_(pf)
 
-    for full, pf in zip(full_cache, pf_cache):
-        merge(full, pf)
+    merge(full_cache, pf_cache)
     return full_cache
 
 
 def make_batch(cfg: ArchConfig, key: torch.Tensor, batch: int, seq_len: int, *,
                device=None) -> dict[str, Any]:
     """Random int32 token batch (smoke runs / examples), on CUDA unless
-    ``device="cpu"``: the reference's draw bit for bit, ``prng.randint``
-    from the first half of ``prng.split(key)``."""
+    ``device="cpu"``: the reference's draws bit for bit, ``prng.randint``
+    from the first half of ``prng.split(key)`` and the modality inputs,
+    ``src_embeds`` (B, seq_len, d) of an encoder-decoder or
+    ``prefix_embeds`` (B, stub_prefix_len, d), ``prng.normal`` from the
+    second half."""
+    transformer.check_prompt(cfg, seq_len)
     device = resolve_device(device)
-    kt, _ = prng.split(key.to(device)).unbind(-2)
-    return {"tokens": prng.randint(kt, (batch, seq_len), 0, cfg.vocab_size)}
+    kt, kp = prng.split(key.to(device)).unbind(-2)
+    out = {"tokens": prng.randint(kt, (batch, seq_len), 0, cfg.vocab_size)}
+    if cfg.encdec:
+        out["src_embeds"] = prng.normal(kp, (batch, seq_len, cfg.d_model))
+    elif cfg.stub_prefix_len:
+        out["prefix_embeds"] = prng.normal(kp, (batch, cfg.stub_prefix_len, cfg.d_model))
+    return out
 
 
 def param_count(params) -> int:

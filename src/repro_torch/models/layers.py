@@ -30,6 +30,10 @@ def _dense_init(key: torch.Tensor, in_dim: int, out_dim: int, scale: float = 1.0
     return w * _f32(std, key.device)
 
 
+def init_dense(key: torch.Tensor, in_dim: int, out_dim: int, scale: float = 1.0) -> Params:
+    return {"w": _dense_init(key, in_dim, out_dim, scale)}
+
+
 def _cim_apply(w: dict, x: torch.Tensor) -> torch.Tensor:
     """Crossbar operand dict @ activations, any rank.
 
@@ -70,6 +74,10 @@ def linear(w, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     if isinstance(w, dict):
         return _cim_apply(w, x).to(dtype)
     return x @ w.to(dtype)
+
+
+def dense(p: Params, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return linear(p["w"], x, dtype)
 
 
 def init_norm(dim: int, device, lead: tuple[int, ...] = ()) -> Params:

@@ -18,11 +18,16 @@ window-long ring for ``hymba_swa``, the mLSTM's {"state", "norm", "conv"}
 or the sLSTM's {"h", "c", "n", "m"}).  Meta tokens (``cfg.n_meta_tokens``)
 are prepended to the prompt by ``forward`` / ``prefill``, dropped before
 the logits, and occupy the first cache positions (the decode step runs at
-``pos + n_meta_tokens``).
+``pos + n_meta_tokens``).  A modality-stub config (``cfg.stub_prefix_len``
+P, internvl2's patch embeddings) takes the batch's ``prefix_embeds`` in
+place of the first P token embeddings; a prompt shorter than P raises
+(:func:`check_prompt`, ROADMAP C.14).  The encoder-decoder is
+``models/encdec.py``; ``models/api.py`` dispatches on ``cfg.encdec``.
 
 Interface:
   init(key, cfg, device=)                          -> params (device: cuda default)
-  forward(params, cfg, batch, remat=, train=)      -> (logits, aux: summed over MoE layers)
+  forward(params, cfg, batch, remat=, train=)      -> (logits, aux: summed over MoE layers);
+                                                      batch {"tokens", ["prefix_embeds"]}
   prefill(params, cfg, batch)                      -> (logits, cache)
   decode_step(params, cfg, cache, token, pos)      -> (logits, cache); pos int, 0-d or (B,) tensor
   init_cache(cfg, batch, seq_len, dtype=, device=) -> cache
@@ -161,19 +166,41 @@ def _embed_scale(d_model: int, dtype: torch.dtype) -> float:
     return float(torch.tensor(d_model**0.5, dtype=dtype))
 
 
-def _embed_tokens(params: Params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
+def _embed_tokens(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
+                  prefix: torch.Tensor | None = None) -> torch.Tensor:
+    """The token embeddings; a ``prefix`` (B, P, d) takes the place of the
+    first P positions' (the modality frontend stub)."""
     dtype = compute_dtype(cfg)
-    x = layers.embed(params["embed"], tokens, dtype)
+    if prefix is None:
+        x = layers.embed(params["embed"], tokens, dtype)
+    else:
+        x = torch.cat([prefix.to(dtype),
+                       layers.embed(params["embed"], tokens[:, prefix.shape[1]:], dtype)], dim=1)
     if cfg.embed_scale:
         # filled on the device: no host-to-device copy in a captured step
         x = x * torch.full((), _embed_scale(cfg.d_model, dtype), dtype=dtype, device=x.device)
     return x
 
 
-def _embed_inputs(params: Params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """A whole sequence's inputs: the token embeddings with the meta tokens
-    prepended (cast to the compute dtype, shared by the batch)."""
-    x = _embed_tokens(params, cfg, tokens)
+def check_prompt(cfg: ArchConfig, prompt_len: int) -> None:
+    """A modality-stub config needs a prompt at least as long as its
+    prefix: the reference serves a shorter one silently with every text
+    token dropped (ROADMAP C.14), the port refuses it."""
+    if prompt_len < cfg.stub_prefix_len:
+        raise ValueError(f"{cfg.name}: a prompt of {prompt_len} positions is shorter than the "
+                         f"stub_prefix_len of {cfg.stub_prefix_len} (ROADMAP C.14)")
+
+
+def _embed_inputs(params: Params, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+    """A whole sequence's inputs: the token embeddings, the batch's
+    ``prefix_embeds`` in place of the first ``stub_prefix_len`` positions
+    (the modality frontend stub), and the meta tokens prepended (cast to
+    the compute dtype, shared by the batch)."""
+    tokens, prefix = batch["tokens"], None
+    if cfg.stub_prefix_len:
+        check_prompt(cfg, tokens.shape[1])
+        prefix = batch["prefix_embeds"]
+    x = _embed_tokens(params, cfg, tokens, prefix)
     if cfg.n_meta_tokens:
         meta = params["meta"].to(x.dtype)[None].expand(x.shape[0], -1, -1)
         x = torch.cat([meta, x], dim=1)
@@ -248,7 +275,8 @@ def _run_segments(params: Params, cfg: ArchConfig, x: torch.Tensor, *, return_ca
 
 def forward(params: Params, cfg: ArchConfig, batch: dict, *, remat: str = "none",
             train: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
-    """batch: {"tokens": (B, S) int}.  Returns (logits (B, S, V) f32, aux
+    """batch: {"tokens": (B, S) int, ["prefix_embeds": (B, P, d)]}.  Returns
+    (logits (B, S, V) f32, aux
     f32: the MoE layers' load-balance losses summed, 0 for the dense kinds).
 
     ``train=True`` is the differentiable forward of ``launch.steps.loss_fn``:
@@ -258,7 +286,7 @@ def forward(params: Params, cfg: ArchConfig, batch: dict, *, remat: str = "none"
     """
     if remat not in REMATS:
         raise ValueError(f"unknown remat policy {remat!r}")
-    x = _embed_inputs(params, cfg, batch["tokens"])
+    x = _embed_inputs(params, cfg, batch)
     x, aux, _ = _run_segments(params, cfg, x, return_cache=False, remat=remat, train=train)
     return _logits(params, cfg, x[:, cfg.n_meta_tokens:]), aux
 
@@ -269,7 +297,7 @@ def prefill(params: Params, cfg: ArchConfig, batch: dict) -> tuple[torch.Tensor,
     "k_rope": (count, B, S, dr)}, or hymba's, meta tokens included: k/v
     over the whole sequence (global) or the window-long ring (swa), and the
     Mamba state and conv tail, or the xLSTM kinds' recurrent states)."""
-    x = _embed_inputs(params, cfg, batch["tokens"])
+    x = _embed_inputs(params, cfg, batch)
     x, _, caches = _run_segments(params, cfg, x, return_cache=True)
     return _logits(params, cfg, x[:, -1:]), caches
 
@@ -314,9 +342,11 @@ def decode_step(
 
 def supports_paged(cfg: ArchConfig) -> bool:
     """Paged KV serving covers pure-attention decoder stacks without meta
-    tokens: ``attn`` and ``swa`` layers; a ``moe``, ``mla_moe``, hymba or
-    xLSTM stack is refused, as in the reference."""
-    return {k for k, _ in segments_of(cfg)} <= {"attn", "swa"} and cfg.n_meta_tokens == 0
+    tokens or a modality-stub prefix: ``attn`` and ``swa`` layers; a
+    ``moe``, ``mla_moe``, hymba or xLSTM stack, an encoder-decoder and a
+    ``stub_prefix_len`` config are refused, as in the reference."""
+    return ({k for k, _ in segments_of(cfg)} <= {"attn", "swa"} and cfg.n_meta_tokens == 0
+            and not cfg.encdec and cfg.stub_prefix_len == 0)
 
 
 def init_paged_pools(cfg: ArchConfig, num_tokens: int, dtype=None, *, device=None,
