@@ -1,13 +1,17 @@
-"""Planner throughput on the port: the packed planner on the card vs the CPU.
+"""Planner throughput on the port: the packed planner against the bool
+oracle, and the card against the CPU.
 
 Prices a gemma-2b-scale weight pytree end-to-end with ``build_deployment``
-twice — on ``device`` (CUDA by default: B1 prices every schedule) and on the
-CPU (B1's plain version) — requires the two plans to be identical (every
-``TensorReport`` integer and the bytes of every deployed ``w_hat``) and
-reports both walls, the plan's totals, its report integers and a digest
-of each ``w_hat``.  The reference's copy compares its seed bool impl with
-its packed impl; the port has only the packed planner, so its comparison is
-card against CPU.
+three times — ``PlannerConfig(impl="packed")`` on ``device`` (CUDA by
+default: B1 prices every schedule), ``impl="bool"`` on the same device (the
+reference's eager oracle: bool planes, per-chain loops, the step-by-step
+stucking walk; plain torch, no kernel) and ``impl="packed"`` on the CPU
+(B1's plain version) — requires the three plans to be identical (every
+``TensorReport`` integer and the bytes of every deployed ``w_hat``), and
+reports the walls: ``time_packed_s``, ``time_bool_s`` and ``speedup`` (bool
+over packed) as the reference's benchmark does, and ``time_cpu_s`` with
+``cpu_speedup`` (CPU over card).  The bool oracle's walk is a few small
+launches a programming step on the card, all chains of a tensor at once.
 
 The weights are the reference's (``prng.normal`` draws what
 ``jax.random.normal`` draws), so the plan's integers equal the reference's
@@ -78,10 +82,10 @@ def same_plans(a, b) -> bool:
     )
 
 
-def plan(params: dict, p_stuck: float = 0.5, device=None):
-    """The packed plan of ``params`` on ``device`` -> (plan, wall seconds)."""
+def plan(params: dict, p_stuck: float = 0.5, device=None, impl: str = "packed"):
+    """The ``impl`` plan of ``params`` on ``device`` -> (plan, wall seconds)."""
     dev = resolve_device(device)
-    cfg = PlannerConfig(p_stuck=p_stuck, min_size=1024)
+    cfg = PlannerConfig(p_stuck=p_stuck, min_size=1024, impl=impl)
     with Timer(dev) as t:
         out = build_deployment(params, SPEC, cfg, device=dev)
     return out, t.seconds
@@ -100,10 +104,16 @@ def run(max_elems: int = 750_000, layers: int | None = 6, p_stuck: float = 0.5,
         device=None) -> dict:
     dev = resolve_device(device)
     params = gemma_scale_params(max_elems=max_elems, layers=layers, device=dev)
+    # untimed warm-up of both impls on one small tensor (kernel builds, first calls)
+    first = next(iter(next(iter(params.values())).values()))
+    for impl in ("packed", "bool"):
+        plan({"w": first[:8]}, p_stuck, dev, impl=impl)
     n_elems = sum(int(w.numel()) for l in params.values() for w in l.values())
     plan_dev, t_dev = plan(params, p_stuck, dev)
+    plan_bool, t_bool = plan(params, p_stuck, dev, impl="bool")
     params_cpu = {n: {k: w.cpu() for k, w in l.items()} for n, l in params.items()}
     plan_cpu, t_cpu = plan(params_cpu, p_stuck, "cpu")
+    bool_exact = same_plans(plan_dev, plan_bool)
     return {
         "arch": ARCH,
         "device": str(dev),
@@ -112,10 +122,13 @@ def run(max_elems: int = 750_000, layers: int | None = 6, p_stuck: float = 0.5,
         "n_elements": n_elems,
         "max_elems": max_elems,
         "p_stuck": p_stuck,
-        "time_device_s": t_dev,
+        "time_packed_s": t_dev,
+        "time_bool_s": t_bool,
+        "speedup": t_bool / max(t_dev, 1e-9),
         "time_cpu_s": t_cpu,
-        "speedup": t_cpu / max(t_dev, 1e-9),
-        "bit_exact": same_plans(plan_dev, plan_cpu),
+        "cpu_speedup": t_cpu / max(t_dev, 1e-9),
+        "bool_exact": bool_exact,
+        "bit_exact": bool_exact and same_plans(plan_dev, plan_cpu),
         **plan_record(plan_dev),
     }
 
@@ -129,15 +142,19 @@ def main() -> None:
     layers = args.layers if args.layers is not None else (None if args.full else 6)
     max_elems = 2_000_000 if args.full else 750_000
 
-    banner("Planner throughput — packed planner, card vs CPU")
+    banner("Planner throughput — packed planner vs the bool oracle, card vs CPU")
     r = run(max_elems=max_elems, layers=layers, device=args.device)
     print(
         f"  {r['arch']} x{r['layers']} layers ({r['n_tensors']} tensors, "
         f"{r['n_elements']/1e6:.1f}M weights) on {r['device']}"
     )
     print(
-        f"  {r['device']} {r['time_device_s']:.2f}s  cpu {r['time_cpu_s']:.2f}s  "
-        f"-> {r['speedup']:.2f}x  bit_exact={r['bit_exact']}"
+        f"  packed {r['time_packed_s']:.2f}s  bool {r['time_bool_s']:.2f}s  -> "
+        f"{r['speedup']:.2f}x  bool_exact={r['bool_exact']}"
+    )
+    print(
+        f"  {r['device']} {r['time_packed_s']:.2f}s  cpu {r['time_cpu_s']:.2f}s  "
+        f"-> {r['cpu_speedup']:.2f}x  bit_exact={r['bit_exact']}"
     )
     save_json("BENCH_planner", r)
 

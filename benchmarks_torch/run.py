@@ -115,7 +115,7 @@ def main() -> None:
     save_json("accuracy_e2e", re2e)
     summary["accuracy_e2e"] = {k: re2e[k] for k in ("accuracy_drop_pct", "total_speedup")}
 
-    banner("Planner throughput — packed planner, card vs CPU")
+    banner("Planner throughput — packed planner vs the bool oracle, card vs CPU")
     rpt = planner_throughput.run(
         max_elems=2_000_000 if args.full else 750_000,
         layers=None if args.full else 6,
@@ -123,8 +123,9 @@ def main() -> None:
     )
     print(
         f"  {rpt['arch']} x{rpt['layers']} layers ({rpt['n_elements']/1e6:.1f}M weights): "
-        f"{rpt['device']} {rpt['time_device_s']:.1f}s vs cpu {rpt['time_cpu_s']:.1f}s "
-        f"-> {rpt['speedup']:.2f}x  bit_exact={rpt['bit_exact']}"
+        f"packed {rpt['time_packed_s']:.1f}s vs bool {rpt['time_bool_s']:.1f}s "
+        f"-> {rpt['speedup']:.2f}x; {rpt['device']} {rpt['time_packed_s']:.1f}s vs cpu "
+        f"{rpt['time_cpu_s']:.1f}s -> {rpt['cpu_speedup']:.2f}x  bit_exact={rpt['bit_exact']}"
     )
     save_json("BENCH_planner", rpt)
     summary["planner_throughput"] = {"speedup": rpt["speedup"], "bit_exact": rpt["bit_exact"]}

@@ -94,6 +94,13 @@ Phases (one line each, any failed check exits 1):
      integer equal to the reference's and every speedup the same float; B1
      launches > 0, nothing else, no plain-version call; the planner's CPU
      plan identical to the card's; B1 timed at the figures' pair shape;
+     bool-oracle: the planner's impl="bool" oracle (bool planes, per-chain
+     loops, the step-by-step stucking walk; plain torch, no kernel and no
+     plain-version call) on the card at BOOL_PLAN (gemma-2b x1, 750k
+     weights a tensor), stateless (planner_throughput.run: packed, bool and
+     the CPU's packed plan, reports and w_hat bytes identical) and through a
+     persistent lpt pool each (reports, w_hat bytes, pool state and wear
+     identical); both walls printed;
   5d. train: launch.train's loop at internlm2-1.8b's full width (2 layers,
      bf16 on f32 masters, lm task, batch 8 x 128, 8 steps, checkpoints and
      redeploy pricing every 4): losses finite and falling, each within
@@ -212,6 +219,16 @@ Phases (one line each, any failed check exits 1):
      version, bit-equal to 64 single launches on the same launch plan, B4
      == B2; timed (bf16, wi_gate's shape) beside 64 single launches,
      torch.bmm on dense bf16 weights and the byte bound;
+     moe-sharded: the sharded MoE dispatch (models.moe.set_moe_distribution)
+     at MOE_MESHES, both EP (16 of the 64 experts a shard, the shared GLU's
+     5632 -> 1408): fp and dense served through the serve gates (the
+     decode one CUDA graph, its nodes counted, B3 = layers, no CIM
+     launch) with the f32 prefill logits equal to the unsharded prefill of
+     each data shard's rows alone within F32_LOGIT_RTOL of the largest
+     logit, and the bf16 tokens equal to the unsharded generate of each data
+     shard's rows but at near ties (tp-fleet's rule); a packed deployment
+     under a mesh raises ValueError (ROADMAP C.15); the decode graph's node
+     count beside the unsharded one's;
   5l. mla: deepseek-v2-236b at published width (d_model 5120, 128 heads,
      MLA q_lora 1536 / kv_lora 512 / nope 128 / rope 64 / v 128, 160 routed
      experts + 2 shared, top-6, d_expert 1536, vocab 102400, untied head),
@@ -228,8 +245,13 @@ Phases (one line each, any failed check exits 1):
      ONE grouped launch), 10 x layers x gen on the tensor cores, no B3 (the
      prefill's attention is blockwise_attention, once a layer, as the
      reference's); prefill logits within dense's bound (bf16: the rows
-     whose last token kept its experts); then the grouped B2, B4 and B5 at
-     G 160, M 8, K x N 5120 x 1536 and 1536 x 5120;
+     whose last token kept its experts); the fp generate under MLA_MESH
+     (expert-TP: 160 % 3 != 0, d_expert 1536 -> 512 and the shared 3072 ->
+     1024 a shard) through the serve gates, as in moe-sharded; whether the
+     batched @ copies an expert-TP shard's strided view (torch.profiler's
+     op records of one call, timed against a contiguous copy); then the
+     grouped B2, B4 and B5 at G 160, M 8, K x N 5120 x 1536 and 1536 x
+     5120;
   5m. hymba: hymba-1.5b at published width (d_model 1600, 25 heads over 5
      KV heads at head dim 64, d_ff 5504, vocab 32001, untied head, SSM
      state 16, conv 4, expand 2, chunk 16, window 1024, 128 meta tokens),
@@ -1437,7 +1459,66 @@ def figures_phase(dev) -> dict:
     wall = time.perf_counter() - t_phase
     say(f"phase figures: wall {wall:.1f} s")
     figures_breakdown(dev)
-    return {"B1": c["B1"], "wall_s": wall}
+    return {"B1": c["B1"] + bool_oracle_check(dev), "wall_s": wall}
+
+
+BOOL_PLAN = dict(max_elems=750_000, layers=1)  # the bool oracle's size: gemma-2b x1, 7 tensors
+
+
+def bool_oracle_check(dev) -> int:
+    """The planner's and the pool's ``impl="bool"`` oracle on the card at
+    BOOL_PLAN: ``planner_throughput.run`` (the packed plan, the bool plan
+    and the CPU's packed plan, reports and w_hat bytes identical; both
+    walls), then the same weights streamed through one persistent lpt pool
+    per impl (reports, w_hat bytes, pool state, wear and stats identical).
+    The bool runs launch no kernel and call no plain version.  Returns the
+    packed plans' B1 launches."""
+    import numpy as np
+    import torch
+
+    from benchmarks_torch import planner_throughput
+    from repro_torch.core import planner, pool
+    from repro_torch.kernels.sws_sort import ops as sort_ops
+
+    t0 = time.perf_counter()
+    reset_counts()
+    r = planner_throughput.run(**BOOL_PLAN, device=dev)
+    b1 = counts()["B1"]
+    if not (r["bool_exact"] and r["bit_exact"]):
+        fail(f"the bool oracle's plan differs from the packed plan (bool_exact "
+             f"{r['bool_exact']}, bit_exact {r['bit_exact']})")
+    params = planner_throughput.gemma_scale_params(**BOOL_PLAN, device=dev)
+    plans, pools, walls = {}, {}, {}
+    for impl in ("packed", "bool"):
+        cfg = planner.PlannerConfig(p_stuck=0.5, min_size=1024, impl=impl, pool_leveling="lpt")
+        pools[impl] = pool.CrossbarPool(planner_throughput.SPEC, cfg.crossbars, device=dev)
+        reset_counts()
+        sorts = sort_ops.LAUNCHES["SORT"]
+        t1 = time.perf_counter()
+        plans[impl] = planner.build_deployment(params, planner_throughput.SPEC, cfg,
+                                               pool=pools[impl], device=dev)
+        torch.cuda.synchronize()
+        walls[impl] = time.perf_counter() - t1
+        c = counts()
+        if impl == "bool" and (any(c.values()) or sort_ops.LAUNCHES["SORT"] != sorts):
+            fail(f"the bool oracle's pool plan launched {c} (want no kernel, no plain version)")
+        b1 += c["B1"] if impl == "packed" else 0
+    a, b = pools["packed"], pools["bool"]
+    if not (planner_throughput.same_plans(plans["packed"], plans["bool"])
+            and np.array_equal(a.wear, b.wear) and np.array_equal(a.state, b.state)
+            and a.stats() == b.stats()):
+        fail("the bool oracle's pool walk differs from the packed one")
+    say(f"phase bool-oracle: gemma-2b x{r['layers']} at {r['max_elems']} weights a tensor "
+        f"({r['n_tensors']} tensors, {r['n_elements'] / 1e6:.2f}M weights, p_stuck "
+        f"{r['p_stuck']}): stateless packed {r['time_packed_s']:.3f} s, bool "
+        f"{r['time_bool_s']:.3f} s ({r['speedup']:.2f}x), the CPU's packed "
+        f"{r['time_cpu_s']:.3f} s: reports and w_hat bytes identical; through one lpt pool "
+        f"each: packed {walls['packed']:.3f} s, bool {walls['bool']:.3f} s: reports, w_hat "
+        f"bytes, pool state and wear identical (total writes {a.stats().total_writes}); the "
+        f"bool runs launched no kernel; {time.perf_counter() - t0:.1f} s")
+    del params, plans, pools
+    torch.cuda.empty_cache()
+    return b1
 
 
 def figures_breakdown(dev) -> None:
@@ -3428,6 +3509,157 @@ def moe_logit_check(got: dict, want: dict, label: str, gate: tuple, arch=MOE_ARC
             fail(f"{dtype_name} prefill logits of {label} differ by {d_held:.4e}")
 
 
+MOE_MESHES = ((1, 4), (2, 4))  # (data, model): EP, 16 of the 64 allocated experts a shard
+MLA_MESH = (1, 3)  # expert-TP: 160 % 3 != 0, d_expert 1536 -> 512 a shard
+
+
+def mesh_line(cfg, shape) -> str:
+    """How a (data, model) mesh splits a MoE config."""
+    m, n = cfg.moe, shape[-1]
+    shared = m.n_shared * m.d_expert
+    split = (f"EP, {m.n_alloc // n} of the {m.n_alloc} allocated experts a shard"
+             if m.n_alloc % n == 0 else
+             f"expert-TP ({m.n_alloc} % {n} != 0), d_expert {m.d_expert} -> {m.d_expert // n}")
+    return f"(data {shape[0]}, model {n}): {split}, shared GLU {shared} -> {shared // n} a shard"
+
+
+def f32_prefill(cfg, params, batch):
+    """The float32 prefill logits of ``params`` (f32 compute)."""
+    import torch
+
+    from repro_torch.models import api
+
+    with torch.inference_mode():
+        return api.prefill(params, dataclasses.replace(cfg, dtype="float32"), batch)[0].float()
+
+
+def sharded_served(label, cfg, params, batch, shape, want=None, blockwise=0):
+    """Serve ``params`` under the (data, model) ``shape`` mesh through the
+    serve gates (graph and eager loop, launches from the graph's nodes: B3 =
+    layers a prefill, or MLA's ``blockwise`` attention, no CIM kernel), and
+    hold it to the unsharded path on each data shard's rows alone: the f32
+    prefill logits within F32_LOGIT_RTOL of the largest logit (the data
+    shards are row-independent but for the capacity, which each takes from
+    its own rows), and the bf16 tokens equal but at near ties
+    (``tp_departures``).  ``want``: the unsharded tokens of the whole batch
+    where there is one data shard.  Returns (tokens, tok/s, counts, the
+    decode graph's node count, the logit |d|, departures)."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
+
+    rows = BATCH // shape[0]
+    parts = [{"tokens": batch["tokens"][i * rows:(i + 1) * rows]} for i in range(shape[0])]
+    plain = torch.cat([f32_prefill(cfg, params, b) for b in parts])
+    if want is None or shape[0] > 1:
+        want = torch.cat([serve.generate(cfg, params, b, gen_len=GEN)[0] for b in parts])
+    what = f"{label} under the {shape} mesh"
+    moe.set_moe_distribution(make_mesh(shape, ("data", "model")))
+    try:
+        got = f32_prefill(cfg, params, batch)
+        toks, tps, timed, c = served(what, cfg, params, batch, GEN, None, 0,
+                                     expect={} if blockwise else None, blockwise=blockwise)
+        nodes = len(timed.decode.node_labels())
+    finally:
+        moe.set_moe_distribution(None)
+    d = (got - plain).abs().max().item()
+    lim = F32_LOGIT_RTOL * plain.abs().max().item()
+    if not d <= lim:
+        fail(f"{what}: f32 prefill logits depart from the unsharded prefill of each data "
+             f"shard's rows by {d:.4e} (bound {lim:.4e})")
+    dep = sum(tp_departures(cfg, params, b, toks[i * rows:(i + 1) * rows],
+                            want[i * rows:(i + 1) * rows], what) for i, b in enumerate(parts))
+    say(f"phase moe-sharded: {what} {mesh_line(cfg, shape)}: f32 prefill logits vs the "
+        f"unsharded prefill of each data shard's rows max |d| {d:.4e} (bound {lim:.4e}); bf16 "
+        f"tokens vs the unsharded generate of each data shard's rows: {dep} near-tie "
+        f"departure(s) of {toks.shape[0]} rows; decode one CUDA graph of {nodes} nodes, "
+        f"{timed.decode.replays} replays; graph {tps:.1f} tok/s")
+    return toks, tps, c, nodes, d, dep
+
+
+def moe_sharded_phase(dev, cfg, params, p_dense, p_packed, batch, toks, fp_nodes, add) -> dict:
+    """Phase moe's sharded half: fp and dense at every mesh of MOE_MESHES
+    (``sharded_served``), and the packed deployment refused under a mesh
+    (ROADMAP C.15: the reference's shard_map refuses operand dicts)."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import api, moe
+
+    t0 = time.perf_counter()
+    out = {}
+    for shape in MOE_MESHES:
+        for name, p in (("fp", params), ("dense", p_dense)):
+            got = sharded_served(f"{MOE_ARCH} {name}", cfg, p, batch, shape,
+                                 want=toks[name])
+            add(got[2])
+            out[f"{name} {shape}"] = got
+    moe.set_moe_distribution(make_mesh(MOE_MESHES[0], ("data", "model")))
+    try:
+        api.prefill(p_packed, cfg, batch)
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        fail(f"{MOE_ARCH}: a packed deployment served under a mesh (the sharded dispatch takes "
+             f"dense weights, ROADMAP C.15)")
+    finally:
+        moe.set_moe_distribution(None)
+    say(f"phase moe-sharded: packed deployment under the {MOE_MESHES[0]} mesh refused: "
+        f"{refusal}")
+    say(f"phase moe-sharded: {time.perf_counter() - t0:.1f} s; decode graph nodes: unsharded fp "
+        f"{fp_nodes}, " + ", ".join(f"{k_} {v[3]}" for k_, v in out.items())
+        + "; max f32 logit |d| " + f"{max(v[4] for v in out.values()):.4e}; near-tie departures "
+        + ", ".join(f"{k_} {v[5]}" for k_, v in out.items()))
+    return out
+
+
+def check_expert_tp_views(dev) -> None:
+    """The batched ``@`` copies no expert-TP shard's strided view: MLA's
+    wi_gate [160, 5120, 1536] sliced to 512 columns and wo [160, 1536, 5120]
+    to 512 rows (bf16, M 8 a group): torch.profiler's
+    op records of one ``layers.linear`` call (a copy shows as aten::copy_,
+    aten::clone or aten::contiguous) and its time against the same product
+    on a contiguous copy of the view.  The sharded dispatch slices its
+    shards per call and relies on this, so a copy fails the phase."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import layers
+
+    g_, k, n = 160, 5120, 1536
+    nl = n // MLA_MESH[-1]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    bf = torch.bfloat16
+    w = torch.randn(g_, k, n, device=dev, dtype=bf, generator=gen)
+    wo = torch.randn(g_, n, k, device=dev, dtype=bf, generator=gen)
+    cases = {"wi_gate[..., :512]": (torch.randn(g_, 8, k, device=dev, dtype=bf, generator=gen),
+                                    w[..., :nl]),
+             "wo[:, :512]": (torch.randn(g_, 8, nl, device=dev, dtype=bf, generator=gen),
+                             wo[:, :nl])}
+    for name, (x, view) in cases.items():
+        layers.linear(view, x, bf)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            y = layers.linear(view, x, bf)
+            torch.cuda.synchronize()
+        copies = sum(e.count for e in prof.key_averages()
+                     if e.key in ("aten::copy_", "aten::clone", "aten::contiguous"))
+        dense = view.contiguous()
+        if not torch.equal(y, layers.linear(dense, x, bf)):
+            fail(f"the batched @ on the strided {name} view differs from it on a copy")
+        ms_view = cuda_ms(lambda: layers.linear(view, x, bf))
+        ms_dense = cuda_ms(lambda: layers.linear(dense, x, bf))
+        say(f"phase mla-views: {name} {list(view.shape)} strides {list(view.stride())}: copy "
+            f"ops a call {copies}; {ms_view:.4f} ms on the view, {ms_dense:.4f} ms on a "
+            f"contiguous copy")
+        if copies:
+            fail(f"the batched @ copies the strided expert-TP view {name} on every call "
+                 f"({copies} copy ops); cut contiguous shards once instead")
+        del dense
+    del w, wo, cases
+    torch.cuda.empty_cache()
+
+
 def moe_stacks(dev, g_, k, n, seed):
     """Expert stacks of one matmul (G = ``g_``, a config's n_alloc):
     packed operands with every tile live, the same with about half of the
@@ -3672,8 +3904,9 @@ def moe_phase(dev) -> dict:
         f"wi_gate / wi_up / wo as one grouped launch each, a layer; the head), 10 x {MOE_LAYERS} "
         f"x {GEN} = {want_tc} on the tensor cores; B3 = {MOE_LAYERS} a prefill")
     tps, toks = {}, {}
-    toks["fp"], tps["fp"], _, c = served(f"{MOE_ARCH} fp", cfg, params, batch, GEN, None, 0)
+    toks["fp"], tps["fp"], timed, c = served(f"{MOE_ARCH} fp", cfg, params, batch, GEN, None, 0)
     add(c)
+    fp_nodes = len(timed.decode.node_labels())
     p_dense = planner.deploy_params(params, plan, materialize="dense")
     toks["dense"], tps["dense"], _, c = served(f"{MOE_ARCH} dense", cfg, p_dense, batch, GEN,
                                                None, 0)
@@ -3688,6 +3921,7 @@ def moe_phase(dev) -> dict:
     say(f"phase trace: {MOE_ARCH} cim-packed generate: {trace(timed)}")
     pf = {"dense": moe_prefill(cfg, p_dense, batch), "packed": moe_prefill(cfg, p_packed, batch)}
     moe_logit_check(pf["packed"], pf["dense"], "packed vs dense", ("float32",))
+    moe_sharded_phase(dev, cfg, params, p_dense, p_packed, batch, toks, fp_nodes, add)
     del timed, p_packed, op
     torch.cuda.empty_cache()
     p_int8, c6 = deploy_int8(params, plan)
@@ -3979,7 +4213,15 @@ def mla_phase(dev) -> dict:
         f"equal, w_hat bytes identical")
     del w_cpu, w_hat_cpu
 
-    toks["fp"], tps["fp"], _, _ = serve_mla("fp", params, None)
+    toks["fp"], tps["fp"], timed, _ = serve_mla("fp", params, None)
+    fp_nodes = len(timed.decode.node_labels())
+    say(f"phase mla-sharded: {MLA_ARCH} {mesh_line(cfg, MLA_MESH)}")
+    got = sharded_served(f"{MLA_ARCH} fp", cfg, params, batch, MLA_MESH, want=toks["fp"],
+                         blockwise=MLA_LAYERS)
+    add(got[2])
+    say(f"phase mla-sharded: decode graph nodes: unsharded fp {fp_nodes}, {MLA_MESH} {got[3]}")
+    check_expert_tp_views(dev)
+    del timed
     p_dense = planner.deploy_params(params, plan, materialize="dense")
     toks["dense"], tps["dense"], _, _ = serve_mla("dense", p_dense, None)
     p_packed = planner.deploy_params(params, plan, materialize="packed")

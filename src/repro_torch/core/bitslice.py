@@ -106,6 +106,19 @@ def dequantize(qt: Quantized) -> torch.Tensor:
     return mag + qt.offset
 
 
+def dequantize_from_planes(planes: torch.Tensor, sign: torch.Tensor, scale: torch.Tensor,
+                           offset: torch.Tensor) -> torch.Tensor:
+    """Weights from (possibly stuck) bit planes bool/int[..., cols] (plane 0
+    = LSB): the integer magnitude, then ``q * scale * sign + offset`` as
+    separate multiplies and one add, the reference's operation order (a
+    fused multiply-add would change the last bit).  The bool oracle's
+    dequantization; the packed planner rebuilds q from packed words."""
+    cols = planes.shape[-1]
+    weights_of_two = 2 ** torch.arange(cols, dtype=torch.int32, device=planes.device)
+    q = torch.sum(planes.to(torch.int32) * weights_of_two, dim=-1, dtype=torch.int32)
+    return q.to(torch.float32) * scale * sign.to(torch.float32) + offset
+
+
 def bitplanes(q: torch.Tensor, cols: int) -> torch.Tensor:
     """Extract bit planes: int[...] -> bool[..., cols]; plane 0 = LSB."""
     shifts = torch.arange(cols, dtype=q.dtype, device=q.device)
@@ -193,3 +206,24 @@ def section(flat: torch.Tensor, rows: int) -> tuple[torch.Tensor, int]:
 def unsection(sections: torch.Tensor, n: int) -> torch.Tensor:
     """Inverse of :func:`section`: drop padding, return flat[n]."""
     return sections.reshape(-1)[:n]
+
+
+def section_planes(q: torch.Tensor, rows: int, cols: int) -> tuple[torch.Tensor, int]:
+    """int32[n] magnitudes -> (bool[S, rows, cols] section bit planes, n)."""
+    sec, n = section(q, rows)
+    return bitplanes(sec, cols), n
+
+
+def encode_planes(packed: torch.Tensor, codec: str = "raw", *, chains=None, pin_cols: int = 0):
+    """Canonical packed planes -> stored :class:`~repro_torch.core.planes.PlaneSet`
+    (``planes.encode``); ``decode_planes(encode_planes(p, c))`` is ``p``
+    byte for byte for every codec."""
+    from repro_torch.core import planes  # deferred: planes imports schedule -> bitslice
+
+    return planes.encode(packed, codec, chains=chains, pin_cols=pin_cols)
+
+
+def decode_planes(plane_set) -> torch.Tensor:
+    """Stored ``PlaneSet`` -> canonical packed uint8[S, ceil(rows/8), cols]
+    planes."""
+    return plane_set.decode()

@@ -31,8 +31,18 @@ program from the pristine crossbar out of every transition count and
 lockstep time, as the reference's stateless path does; ``w_hat`` does not
 depend on it.  A pool prices physical seam programs, so with ``pool=`` (or a
 non-raw codec, which the reference also routes through a pool) it is a
-``ValueError``, as in the reference.  The ``impl="bool"`` oracle is not
-ported and raises ``NotImplementedError``.
+``ValueError``, as in the reference.
+
+``impl="bool"`` is the reference's eager parity oracle: bool planes
+``[S, rows, cols]``, the SWS permutation from ``torch.argsort(stable=True)``,
+per-chain loops of XOR sums (``schedule.schedule_job_costs_looped``), the
+step-by-step stucking walk (``stucking.walk_bool``, the packed walk's
+masks) and ``bitslice.dequantize_from_planes``: plain torch on the tensor's
+device, no kernel, no chunking.  Like the packed path it is programmed
+through a pool, with ``program(impl="bool")``: an ephemeral pristine one
+without ``pool=`` gives the reference's stateless ``_analyze_tensor_bool``
+accounting.  Its reports and ``w_hat`` bytes equal the packed path's.  A non-raw codec needs ``impl="packed"`` (``ValueError``,
+as in the reference: the codecs encode packed words).
 """
 from __future__ import annotations
 
@@ -42,6 +52,7 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch import prng, tree
 from repro_torch.core import bitslice, planes, schedule, sws
@@ -74,7 +85,7 @@ class PlannerConfig:
     min_ndim: int = 2
     exclude: tuple[str, ...] = ("embed", "embedding", "lm_head", "pos_emb")
     seed: int = 0
-    impl: str = "packed"  # "bool" (the reference's eager oracle) is not ported
+    impl: str = "packed"  # "packed" (the fast path) | "bool" (the eager parity oracle)
     # chain -> crossbar leveling when streaming through a CrossbarPool:
     # "none" | "rotate" | "lpt" | "fault"; None defers to the pool's own setting
     pool_leveling: str | None = None
@@ -137,16 +148,13 @@ class DeploymentPlan:
 
 
 SECTION_ORDERS = ("magnitude", "tsp")
+IMPLS = ("packed", "bool")
 
 
 def _check_supported(config: PlannerConfig, pool: CrossbarPool | None = None) -> None:
     if config.codec not in planes.CODECS:
         raise ValueError(f"unknown plane codec {config.codec!r}; choose from {planes.CODECS}")
-    if config.impl == "bool":
-        raise NotImplementedError(
-            "impl='bool' is the JAX reference's parity oracle and is not ported; use 'packed'"
-        )
-    if config.impl != "packed":
+    if config.impl not in IMPLS:
         raise ValueError(f"unknown planner impl: {config.impl!r}")
     if config.section_order not in SECTION_ORDERS:
         raise ValueError(
@@ -362,6 +370,58 @@ def _w_hat(achieved: torch.Tensor, prep: _Prep, w: torch.Tensor, rows: int):
     return flat, flat.reshape(w.shape).to(w.dtype)
 
 
+def _perm_full_bool(flat_padded: torch.Tensor, spec: CrossbarSpec, config: PlannerConfig,
+                    q_padded: torch.Tensor) -> torch.Tensor:
+    """The bool oracle's slot -> source permutation (int64): a stable
+    ``torch.argsort`` of the SWS keys, then the TSP section walk if asked;
+    the identity without SWS.  Stable, so it is the permutation of the
+    packed path's sort."""
+    if not config.sws:
+        return torch.arange(flat_padded.shape[0], device=flat_padded.device)
+    perm = torch.argsort(_sort_key(flat_padded, spec.encoding), stable=True)
+    if config.section_order == "tsp":
+        order = sws.tsp_greedy_order(
+            bitslice.section_planes_packed(q_padded[perm], spec.rows, spec.cols))
+        slot = order[:, None] * spec.rows + torch.arange(spec.rows, device=order.device)
+        perm = perm[slot.reshape(-1)]
+    return perm
+
+
+def _prep_bool(w: torch.Tensor, spec: CrossbarSpec, config: PlannerConfig) -> _Prep:
+    """The bool oracle's prep (the reference's ``_prep_bool``): quantize
+    the whole tensor, pad, price the unsorted baseline on bool planes by the
+    per-chain loop, sort, and pack the sorted bool planes."""
+    rows, cols = spec.rows, spec.cols
+    flat = w.reshape(-1).to(torch.float32)
+    n = flat.shape[0]
+    pad = (-n) % rows
+    s = (n + pad) // rows
+    chains = schedule.make_chains(s, max(1, min(config.crossbars, s)), config.schedule)
+    qt = bitslice.quantize(flat, cols, spec.encoding)
+    q_padded = F.pad(qt.q, (0, pad))
+    sign_padded = F.pad(qt.sign, (0, pad), value=1)
+    planes_u = bitslice.bitplanes(q_padded.reshape(s, rows), cols)
+    jobs_u = schedule.schedule_job_costs_looped(planes_u, chains,
+                                                include_initial=config.include_initial)
+    perm = _perm_full_bool(F.pad(flat, (0, pad)), spec, config, q_padded)
+    planes_s = bitslice.bitplanes(q_padded[perm].reshape(s, rows), cols)
+    return _Prep(n=n, chains=chains, jobs_u=jobs_u.cpu().numpy(),
+                 packed_s=bitslice.pack_rows(planes_s),
+                 sign_slots=sign_padded[perm].reshape(s, rows), scale=qt.scale,
+                 offset=qt.offset, perm=perm.to(torch.int32))
+
+
+def _w_hat_bool(achieved: torch.Tensor, prep: _Prep, w: torch.Tensor):
+    """Achieved bool planes [S, rows, cols] -> (w_hat_flat f32[n], w_hat in
+    w's layout and dtype): ``bitslice.dequantize_from_planes``, then one
+    scatter through the permutation."""
+    slots = bitslice.dequantize_from_planes(achieved, prep.sign_slots, prep.scale, prep.offset)
+    logical = torch.zeros((prep.perm.shape[0],), dtype=torch.float32, device=achieved.device)
+    logical[prep.perm.to(torch.int64)] = slots.reshape(-1)
+    flat = logical[:prep.n]
+    return flat, flat.reshape(w.shape).to(w.dtype)
+
+
 def analyze_tensor(
     w: torch.Tensor,
     spec: CrossbarSpec,
@@ -383,13 +443,19 @@ def analyze_tensor(
     programs.  Under a codec the pool programs, prices and wears the stored
     bits (``PlaneSet.physical``) and logical planes are recovered after the
     read.
+
+    ``config.impl="bool"`` runs the reference's eager oracle instead (see
+    the module docstring); raw codec only.
     """
     _check_supported(config, pool)
+    bool_impl = config.impl == "bool"
+    if bool_impl and config.codec != "raw":
+        raise ValueError("plane codecs require impl='packed' (bool is the raw parity oracle)")
     if pool is None:
         pool = CrossbarPool(spec, max(1, config.crossbars), device=w.device)
     if (spec.rows, spec.cols) != (pool.spec.rows, pool.spec.cols):
         raise ValueError(f"planner spec {spec} != pool spec {pool.spec}")
-    prep = _prep(w, spec, config)
+    prep = _prep_bool(w, spec, config) if bool_impl else _prep(w, spec, config)
     pset = None
     if config.codec != "raw":
         # bit stucking under-programs the stored lowest-order columns: pin
@@ -409,7 +475,10 @@ def analyze_tensor(
     achieved = res.achieved_read
     if pset is not None:
         achieved = planes.logical_from_physical(achieved, pset.col_order)
-    w_hat_flat, w_hat = _w_hat(achieved, prep, w, spec.rows)
+    if bool_impl:
+        w_hat_flat, w_hat = _w_hat_bool(bitslice.unpack_rows(achieved, spec.rows), prep, w)
+    else:
+        w_hat_flat, w_hat = _w_hat(achieved, prep, w, spec.rows)
     if pool.integrity is not None:
         # the reconstruction closure integrity.rebuild dequantizes repaired
         # planes with, into the same w_hat bytes

@@ -37,7 +37,10 @@ reference):
     all-zero pool is the pristine initial program, and the stucked walk
     shares ``stucking._pad_chains``'s key schedule;
 (b) wear conservation — the per-cell wear increments of a ``program`` call
-    sum exactly to its programmed transitions (seams included).
+    sum exactly to its programmed transitions (seams included);
+(c) the packed and bool (``program(impl="bool")``, the reference's eager
+    oracle: XOR sums and the step-by-step walk on bool planes, no kernel)
+    implementations agree on every output.
 
 ``PoolProgramReport.achieved`` is the resident packed state per section
 after a program call; the planner dequantizes ``achieved_read`` into the
@@ -110,6 +113,12 @@ class PoolStats:
         d["endurance"] = endurance
         d["exhaustion_horizon"] = self.exhaustion_horizon(endurance)
         return d
+
+
+def _xor_sums(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Differing cells of bool planes [..., rows, cols] -> int64[...]: the
+    bool oracle's transition count (no packing, no kernel)."""
+    return torch.logical_xor(a, b).sum(dim=(-2, -1), dtype=torch.int64)
 
 
 class CrossbarPool:
@@ -261,11 +270,7 @@ class CrossbarPool:
         wear are updated in place; every program is counted (the seam is a
         physical write).
         """
-        if impl == "bool":
-            raise NotImplementedError(
-                "impl='bool' is the reference's eager parity oracle and is not ported"
-            )
-        if impl != "packed":
+        if impl not in ("packed", "bool"):
             raise ValueError(f"unknown pool impl: {impl!r}")
         leveling = self.leveling if leveling is None else leveling
         if leveling not in LEVELINGS:
@@ -292,14 +297,18 @@ class CrossbarPool:
             key = prng.PRNGKey(0)
         rows = self.spec.rows
         full = p_stuck >= 1.0 or stuck_cols == 0
+        planes = bitslice.unpack_rows(packed, rows) if impl == "bool" else None
 
         # --- intra-chain job costs (assignment-independent) ----------------
         prev_i, cur_i = schedule.chain_pairs(chains, include_initial=False)
         if prev_i.size:
             prev_t = torch.from_numpy(prev_i.astype(np.int64)).to(self.device)
             cur_t = torch.from_numpy(cur_i.astype(np.int64)).to(self.device)
-            intra = hamming_ops.price_pairs(packed[prev_t], packed[cur_t]).cpu().numpy()
-            intra = intra.astype(np.int64)
+            if impl == "bool":
+                intra = _xor_sums(planes[prev_t], planes[cur_t])
+            else:
+                intra = hamming_ops.price_pairs(packed[prev_t], packed[cur_t])
+            intra = intra.cpu().numpy().astype(np.int64)
         else:
             intra = np.zeros((0,), np.int64)
         lens = [len(c) - 1 for c in chains]
@@ -311,8 +320,12 @@ class CrossbarPool:
         firsts = torch.from_numpy(np.array([c[0] for c in chains], np.int64)).to(self.device)
         assignment_dev = torch.from_numpy(assignment.astype(np.int64)).to(self.device)
         state_assigned = self._state[assignment_dev]
-        seam = hamming_ops.price_pairs(state_assigned, packed[firsts]).cpu().numpy()
-        seam = seam.astype(np.int64)
+        if impl == "bool":
+            state_bool = bitslice.unpack_rows(state_assigned, rows)
+            seam = _xor_sums(state_bool, planes[firsts])
+        else:
+            seam = hamming_ops.price_pairs(state_assigned, packed[firsts])
+        seam = seam.cpu().numpy().astype(np.int64)
         job_costs = np.concatenate(
             [np.concatenate([seam[j : j + 1], intra_per_chain[j]]) for j in range(lc)]
         )
@@ -321,23 +334,37 @@ class CrossbarPool:
         # --- the physical walk: wear, final states, achieved planes ---------
         # (at p = 1 no mask is drawn: every differing cell is programmed)
         padded, valid, keys = stucking._pad_chains(chains, key.to(self.device))
-        _, states, counts, wear_inc = stucking.walk_packed(
-            packed, padded, p_stuck, keys, rows=rows, stuck_cols=0 if full else stuck_cols,
-            include_initial=True, valid=valid, state0=state_assigned, with_wear=True,
-        )
-        new_states = states[:, -1]  # padding repeats a chain's last section
-        if full:
-            achieved = packed
-            programmed_job_costs = job_costs
-        else:
-            # padded steps are no-ops, so the valid steps' states scatter
-            # back to their sections without collisions
-            achieved = packed.clone()
-            achieved[padded[valid]] = states[valid]
+        if impl == "bool":
+            # the eager oracle: every step of every chain on bool planes
+            counts, states_b, wear_inc = stucking.walk_bool(
+                planes, padded, p_stuck, keys, stuck_cols=0 if full else stuck_cols,
+                valid=valid, state0=state_bool)
+            new_states = bitslice.pack_rows(states_b[:, -1])
+            achieved_b = planes.clone()
+            achieved_b[padded[valid]] = states_b[valid]
+            achieved = bitslice.pack_rows(achieved_b)
             counts = counts.cpu().numpy()
             programmed_job_costs = np.concatenate(
                 [counts[j, : len(c)] for j, c in enumerate(chains)]
+            ).astype(np.int64)
+        else:
+            _, states, counts, wear_inc = stucking.walk_packed(
+                packed, padded, p_stuck, keys, rows=rows, stuck_cols=0 if full else stuck_cols,
+                include_initial=True, valid=valid, state0=state_assigned, with_wear=True,
             )
+            new_states = states[:, -1]  # padding repeats a chain's last section
+            if full:
+                achieved = packed
+                programmed_job_costs = job_costs
+            else:
+                # padded steps are no-ops, so the valid steps' states scatter
+                # back to their sections without collisions
+                achieved = packed.clone()
+                achieved[padded[valid]] = states[valid]
+                counts = counts.cpu().numpy()
+                programmed_job_costs = np.concatenate(
+                    [counts[j, : len(c)] for j, c in enumerate(chains)]
+                )
         wear_inc = wear_inc.cpu().numpy().astype(np.int64)
 
         # --- the read through the fault masks of each section's crossbar ------

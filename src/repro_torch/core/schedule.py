@@ -12,7 +12,8 @@ Chains are host numpy arrays (static structure from section counts).
 Pricing flattens every chain step into one batched ``(prev, cur)`` pairs
 array and prices it with ONE ``price_pairs`` call — the Hamming kernel on
 CUDA, its plain version on the CPU.  Totals are aggregated on the host in
-int64.
+int64.  ``schedule_job_costs_looped`` is the reference's bool-plane oracle
+of the same prices (``PlannerConfig(impl="bool")``).
 """
 from __future__ import annotations
 
@@ -113,6 +114,25 @@ def schedule_transitions(
     """Total transitions across all crossbars -> int64[] (sum over chains)."""
     return schedule_job_costs(planes, chains, include_initial=include_initial).sum(
         dtype=torch.int64)
+
+
+def schedule_job_costs_looped(
+    planes: torch.Tensor, chains: list[np.ndarray], *, include_initial: bool = True
+) -> torch.Tensor:
+    """The reference's seed oracle: a per-chain loop of bool-plane XOR sums
+    over planes bool[S, rows, cols] -> int32[njobs], jobs in the order of
+    :func:`schedule_job_costs` (``impl="bool"``'s pricing: no packing, no
+    kernel)."""
+    per_chain = []
+    for c in chains:
+        seq = planes[torch.from_numpy(np.asarray(c, dtype=np.int64)).to(planes.device)]
+        step = torch.logical_xor(seq[1:], seq[:-1]).sum(dim=(1, 2), dtype=torch.int32)
+        if include_initial:
+            step = torch.cat([seq[0].sum(dtype=torch.int32).reshape(1), step])
+        per_chain.append(step)
+    if not per_chain:
+        return torch.zeros((0,), dtype=torch.int32, device=planes.device)
+    return torch.cat(per_chain)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
-"""Bit-stucking-based reprogramming (§IV of the paper) on packed planes.
+"""Bit-stucking-based reprogramming (§IV of the paper).
 
-Port of the packed walk of ``repro.core.stucking``.  Bit stucking programs
-only a random fraction ``p`` of the transitional memristors in the
-lowest-order column(s); the rest keep their stale state.  The reference
+Port of ``repro.core.stucking``.  Bit stucking programs only a random
+fraction ``p`` of the transitional memristors in the lowest-order
+column(s); the rest keep their stale state.  The reference
 walks each chain with a ``lax.scan`` over programming steps: at step ``t``
 the crossbar holds ``state``, the target is ``seq[t]``, a Bernoulli mask
 (one subkey per step, drawn as ``bool[rows, stuck_cols]``) selects which
@@ -30,6 +30,11 @@ closed form:
 States, per-chain totals, per-step counts, wear and achieved planes are
 bit-identical to the scan (pinned against the reference in
 ``tests/test_torch_planner.py`` and ``tests/test_torch_pool.py``).
+
+:func:`walk_bool` is the reference's bool oracle (``impl="bool"``, the
+pool's bool walk): the step-by-step walk on bool planes, every chain of a
+schedule at once, with the same masks; :func:`stuck_chain` walks one chain
+with it and :func:`stuck_chain_packed` with the packed walk.
 """
 from __future__ import annotations
 
@@ -196,6 +201,104 @@ def cell_toggles(toggled: torch.Tensor, rows: int) -> torch.Tensor:
     per_bit = [((toggled >> (7 - j)) & 1).sum(dim=1, dtype=torch.int32) for j in range(8)]
     wear = torch.stack(per_bit, dim=2)  # [L, W, 8, cols]
     return wear.reshape(wear.shape[0], -1, wear.shape[-1])[:, :rows]
+
+
+def walk_bool(
+    planes: torch.Tensor,
+    order: torch.Tensor,
+    p: float,
+    keys: torch.Tensor,
+    *,
+    stuck_cols: int,
+    valid: torch.Tensor | None = None,
+    state0: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The bool oracle's walk: L crossbars at once, one step at a time, as
+    the reference's ``stuck_chain`` scan (vmapped over chains) and its
+    pool's eager twin walk.
+
+    planes: bool[S, rows, cols]; order: int64[L, T]; keys: int64[L, 2] one
+    key per chain, split into one subkey per step (the masks of
+    :func:`_step_masks`, the packed walk's draws); valid: optional bool[L, T]
+    (a padded step programs nothing); state0: optional bool[L, rows, cols]
+    (pristine zero by default).  At each step the transitional cells are
+    programmed to the target, those of the ``stuck_cols`` lowest columns
+    only where the step's Bernoulli mask is set.  Returns (counts
+    int32[L, T] programmed cells a step, states bool[L, T, rows, cols] the
+    content while ``order[l, t]`` is resident, wear int32[L, rows, cols]).
+    """
+    n_chains, steps = order.shape
+    rows, cols = planes.shape[1:]
+    dev = planes.device
+    if valid is None:
+        valid = torch.ones((n_chains, steps), dtype=torch.bool, device=dev)
+    state = (torch.zeros((n_chains, rows, cols), dtype=torch.bool, device=dev)
+             if state0 is None else state0.clone())
+    masks = _step_masks(keys, steps, p, rows, stuck_cols) if stuck_cols > 0 else None
+    states = torch.empty((n_chains, steps, rows, cols), dtype=torch.bool, device=dev)
+    counts = torch.empty((n_chains, steps), dtype=torch.int32, device=dev)
+    wear = torch.zeros((n_chains, rows, cols), dtype=torch.int32, device=dev)
+    for t in range(steps):
+        target = planes[order[:, t]]
+        program = torch.logical_xor(state, target)
+        if masks is not None:
+            program[..., :stuck_cols] &= masks[:, t]
+        program &= valid[:, t, None, None]
+        state = torch.where(program, target, state)
+        wear += program
+        counts[:, t] = program.sum(dim=(1, 2), dtype=torch.int32)
+        states[:, t] = state
+    return counts, states, wear
+
+
+def stuck_chain(
+    planes: torch.Tensor,
+    order,
+    p: float,
+    key: torch.Tensor,
+    *,
+    stuck_cols: int = 1,
+    include_initial: bool = True,
+    valid: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Walk one crossbar through ``order`` over bool planes[S, rows, cols]
+    with bit stucking (the reference's bool oracle): step ``t`` draws its
+    mask from ``split(key, T)[t]``.  Returns (total int64[] programmed
+    transitions, ``include_initial=False`` leaving out the first program;
+    achieved bool[S, rows, cols]: each visited section as the crossbar held
+    it, the others their ideal planes)."""
+    idx = torch.as_tensor(np.asarray(order), dtype=torch.int64).to(planes.device)
+    counts, states, _ = walk_bool(planes, idx[None], p, key.to(planes.device)[None],
+                                  stuck_cols=stuck_cols,
+                                  valid=None if valid is None else valid[None])
+    total = counts[0].sum(dtype=torch.int64) if include_initial else counts[0, 1:].sum(
+        dtype=torch.int64)
+    achieved = planes.clone()
+    achieved[idx] = states[0]
+    return total, achieved
+
+
+def stuck_chain_packed(
+    packed: torch.Tensor,
+    order,
+    p: float,
+    key: torch.Tensor,
+    *,
+    rows: int,
+    stuck_cols: int = 1,
+    include_initial: bool = True,
+    valid: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`stuck_chain` on packed planes uint8[S, W, cols] (the packed
+    walk of one chain, the same draws) -> (total int64[], achieved
+    uint8[S, W, cols])."""
+    idx = torch.as_tensor(np.asarray(order), dtype=torch.int64).to(packed.device)
+    totals, states = walk_packed(packed, idx[None], p, key.to(packed.device)[None], rows=rows,
+                                 stuck_cols=stuck_cols, include_initial=include_initial,
+                                 valid=None if valid is None else valid[None])
+    achieved = packed.clone()
+    achieved[idx] = states[0]
+    return totals[0], achieved
 
 
 def stuck_schedule_packed(

@@ -1,18 +1,58 @@
-"""Replica device groups (port of the replica half of ``repro.launch.mesh``).
+"""Logical meshes and replica device groups (port of ``repro.launch.mesh``).
+
+:class:`Mesh` is the counterpart of the ``jax.sharding.Mesh`` the reference
+hands to ``models.moe.set_moe_distribution``: named axes and their sizes
+(``("data", "model")`` or ``("pod", "data", "model")``), no devices.  The
+port's sharded MoE dispatch runs the shards in turn in process (or one a
+rank under ``parallel.collective.ProcessGroupGate``), so the mesh only says
+how the batch and the experts split.  :func:`make_host_mesh` is the
+reference's 1 x 1 mesh; its ``make_production_mesh`` builds TPU pod meshes
+(16 x 16, 2 x 16 x 16) and has no counterpart.  Any object with
+``axis_names`` and a ``shape`` mapping (a ``jax.sharding.Mesh`` too) serves
+where a mesh is asked for.
 
 ``replica_devices`` / ``replica_submeshes`` carve the visible devices
 (``torch.cuda`` devices, or ``torch.device("cpu")`` when the caller asks
-for the CPU) into one group per engine replica.  The reference's
-``make_production_mesh`` / ``make_host_mesh`` build TPU pod meshes and have
-no counterpart here.
+for the CPU) into one group per engine replica.
 """
 from __future__ import annotations
 
+import dataclasses
 import warnings
 
 import torch
 
 from repro_torch.kernels._util import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """Named mesh axes and their sizes (row-major, as ``jax.make_mesh``)."""
+
+    axis_names: tuple[str, ...]
+    sizes: tuple[int, ...]
+
+    def __post_init__(self):
+        if len(self.axis_names) != len(self.sizes) or len(set(self.axis_names)) != len(
+                self.axis_names):
+            raise ValueError(f"mesh axes {self.axis_names} and sizes {self.sizes} do not pair up")
+        if any(int(n) < 1 for n in self.sizes):
+            raise ValueError(f"mesh sizes must be positive, got {self.sizes}")
+
+    @property
+    def shape(self) -> dict[str, int]:
+        """``{axis: size}`` in axis order (``jax.sharding.Mesh.shape``)."""
+        return dict(zip(self.axis_names, self.sizes))
+
+
+def make_mesh(shape: tuple[int, ...], axis_names: tuple[str, ...]) -> Mesh:
+    """A mesh of ``shape`` over ``axis_names`` (``jax.make_mesh``'s order)."""
+    return Mesh(tuple(axis_names), tuple(int(n) for n in shape))
+
+
+def make_host_mesh() -> Mesh:
+    """The trivial 1 x 1 ("data", "model") mesh (tests / examples)."""
+    return make_mesh((1, 1), ("data", "model"))
 
 
 def _devices(device) -> list[torch.device]:

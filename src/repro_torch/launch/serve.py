@@ -35,6 +35,11 @@ on the card; ``python`` dispatches one step a token.  Both give the same
 tokens.  ``generate(..., greedy=False, seed=)`` samples with the
 reference's key schedule (``prng.categorical``), bit for bit.
 
+The MoE decoders serve under ``models.moe.set_moe_distribution(mesh)`` too
+(the sharded dispatch, dense weights only; no CLI flag, as in the
+reference).  A generator is bound to the distribution it was built under:
+its decode graph holds that dispatch, so running it under another raises.
+
 Usage (on the card):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b --layers 4 \
       --cim --materialize packed [--codec const_rle --pool-leveling lpt --p-stuck 0.5]
@@ -85,7 +90,7 @@ from repro_torch.launch.steps import (
     pick,
     prepare_serving_params,
 )
-from repro_torch.models import api
+from repro_torch.models import api, moe
 from repro_torch.models.transformer import compute_dtype
 
 
@@ -135,6 +140,7 @@ def generator_on_prepared(
                            src_len=src_len)
     key = prng.PRNGKey(seed, device=dev)
     pos0 = torch.full((), prompt_len, dtype=torch.int64, device=dev)
+    dist = moe.distribution()  # the MoE dispatch the decode graph captures
     if loop == "scan":
         decode = wrap(make_decode_loop(cfg, gen_len - 1, greedy=greedy))
         if dev.type == "cuda":
@@ -146,6 +152,11 @@ def generator_on_prepared(
 
     @torch.inference_mode()
     def run():
+        if moe.distribution() != dist:
+            raise RuntimeError(
+                f"this generator was built under the MoE distribution {dist} and is run under "
+                f"{moe.distribution()}: its decode graph holds the other dispatch; build a new "
+                f"generator")
         logits, pf_cache = prefill(params, batch)
         run_cache = api.merge_prefill_cache(cfg, cache, pf_cache)
         tok, k = pick(logits, key, greedy)

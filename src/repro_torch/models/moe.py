@@ -15,10 +15,28 @@ Top-k is a stable descending sort, so equal probabilities keep the lower
 expert first, as ``jax.lax.top_k`` does.  The load-balance aux loss is the
 reference's switch-style loss; ``transformer.forward`` sums it over layers.
 
-The reference's sharded ``shard_map`` dispatch (``set_moe_distribution``
-with a mesh) is not ported: asking for it raises (ROADMAP A.16).
+The sharded dispatch (``set_moe_distribution(mesh)``, the reference's
+``shard_map`` switch): tokens split over the mesh's data axes ("pod",
+"data": contiguous batch rows in row-major order), experts over its
+"model" axis — expert-parallel (EP) when ``n_alloc`` divides it, each
+model shard owning ``n_alloc / n_model`` experts and keeping only the
+assignments to them; expert-TP otherwise, each shard owning a
+``d_expert / n_model`` column slice of ``wi_gate`` / ``wi_up`` and row
+slice of ``wo``.  The shared GLU is column/row-sliced over "model", the
+router replicated.  Each data shard routes its own tokens with its own
+capacity (``t_local``), so when the capacity binds the answer differs
+from the unsharded one, as the reference's does.  The model shards'
+partials are summed by the active gate (``parallel.collective``): every
+shard in turn in process (``ShardLoop``) or one a rank
+(``ProcessGroupGate``, the rank's shard); the aux loss is the mean over
+the data shards.  The unsharded dispatch is the same body at one data and
+one model shard.  The shards are views of the full stacks, sliced per
+call.  Operand dicts (packed / planes_int8 / const_rle deployments) raise
+under a mesh, as the reference's ``shard_map`` does (ROADMAP C.15).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -27,16 +45,37 @@ from repro_torch import prng
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import blocks, layers
 from repro_torch.models.layers import Params
+from repro_torch.parallel import collective
+from repro_torch.parallel.sharding import axis_sizes_of
+
+# The registered distribution: None, or the mesh's axis sizes, the model
+# axis and the data axes present.
+_DIST: dict = {"mesh": None, "sizes": {}, "data_axes": (), "model_axis": "model"}
 
 
-def set_moe_distribution(mesh=None, **_) -> None:
-    """The reference registers a mesh here for its sharded dispatch, which
-    the port does not have: ``None`` (the unsharded dispatch) is accepted,
-    a mesh raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the sharded MoE dispatch (shard_map over a mesh) is not ported (ROADMAP A.16)"
-        )
+def set_moe_distribution(mesh=None, *, model_axis: str = "model") -> None:
+    """Register (or clear, with ``mesh=None``) the mesh of the sharded
+    dispatch.  ``mesh``: a ``launch.mesh.Mesh`` or any object with
+    ``axis_names`` and a ``shape``.  The model shards this process computes
+    follow from the active gate: all of them in turn (``ShardLoop``), or
+    its rank's one (``ProcessGroupGate``)."""
+    if mesh is None:
+        _DIST.update(mesh=None, sizes={}, data_axes=())
+        return
+    sizes = axis_sizes_of(mesh)
+    if model_axis not in sizes:
+        raise ValueError(f"mesh axes {tuple(sizes)} have no model axis {model_axis!r}")
+    data_axes = tuple(a for a in ("pod", "data") if a in sizes)
+    _DIST.update(mesh=mesh, sizes=sizes, data_axes=data_axes, model_axis=model_axis)
+
+
+def distribution() -> tuple | None:
+    """The registered distribution as a hashable value (None when the
+    dispatch is unsharded): the mesh's axis sizes and the model axis.  What
+    a captured decode graph was built under."""
+    if _DIST["mesh"] is None:
+        return None
+    return tuple(_DIST["sizes"].items()), _DIST["model_axis"]
 
 
 def init_moe_mlp(key: torch.Tensor, cfg: ArchConfig) -> Params:
@@ -121,25 +160,91 @@ def _ffn_combine(p: Params, cfg: ArchConfig, xf: torch.Tensor, topw: torch.Tenso
     return torch.sum(y_tk.reshape(t, k, d), dim=1)
 
 
+def _check_sharded(p: Params, cfg: ArchConfig, b: int, n_data: int, n_model: int) -> bool:
+    """Refuse what the reference's ``shard_map`` refuses; -> EP or not."""
+    m = cfg.moe
+    leaves = {k: p[k] for k in ("router", "wi_gate", "wi_up", "wo")}
+    leaves.update({f"shared/{k}": v for k, v in p.get("shared", {}).items()})
+    dicts = [k for k, v in leaves.items() if isinstance(v, dict)]
+    if dicts:
+        raise ValueError(
+            f"the sharded MoE dispatch takes dense weights; {', '.join(dicts)} are crossbar "
+            f"operand dicts (packed / planes_int8 / const_rle deployments are served "
+            f"unsharded; ROADMAP C.15)")
+    if b % n_data:
+        raise ValueError(f"batch {b} does not split over the {n_data} data shards")
+    ep = m.n_alloc % n_model == 0
+    if not ep and m.d_expert % n_model:
+        raise ValueError(f"neither n_alloc {m.n_alloc} (expert-parallel) nor d_expert "
+                         f"{m.d_expert} (expert-TP) divides over the {n_model}-way model axis")
+    if "shared" in p and p["shared"]["wi_gate"].shape[-1] % n_model:
+        raise ValueError(f"the shared width {p['shared']['wi_gate'].shape[-1]} does not divide "
+                         f"over the {n_model}-way model axis")
+    return ep
+
+
+def _model_shard(p: Params, cfg: ArchConfig, xf, topw, flat_e, pos, keep, cap: int, j: int,
+                 n_model: int, ep: bool) -> torch.Tensor:
+    """Model shard ``j``'s partial output (T, d): its experts (EP) or its
+    d_expert slice (expert-TP), plus its slice of the shared GLU; with one
+    shard, the whole layer on ``p`` as it stands (operand dicts included)."""
+    m = cfg.moe
+    n_buf, slot_e, w, sp = m.n_alloc, flat_e, p, p.get("shared")
+    if n_model > 1:
+        if ep:
+            n_buf = m.n_alloc // n_model
+            lo = j * n_buf
+            keep = keep & (flat_e >= lo) & (flat_e < lo + n_buf)
+            slot_e = flat_e - lo
+            w = {k: p[k][lo:lo + n_buf] for k in ("wi_gate", "wi_up", "wo")}
+        else:
+            cols = slice(j * m.d_expert // n_model, (j + 1) * m.d_expert // n_model)
+            w = {"wi_gate": p["wi_gate"][..., cols], "wi_up": p["wi_up"][..., cols],
+                 "wo": p["wo"][:, cols]}
+        if sp is not None:
+            width = sp["wi_gate"].shape[-1] // n_model
+            c = slice(j * width, (j + 1) * width)
+            sp = {"wi_gate": sp["wi_gate"][:, c], "wi_up": sp["wi_up"][:, c], "wo": sp["wo"][c]}
+    slot = torch.where(keep, slot_e * cap + pos, n_buf * cap)  # overflow -> trash
+    y = _ffn_combine(w, cfg, xf, topw, slot, keep, n_buf=n_buf, cap=cap)
+    if sp is not None:
+        y = y + layers.glu_mlp(sp, xf, cfg.act, xf.dtype)
+    return y
+
+
 def moe_mlp(p: Params, cfg: ArchConfig, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) -> (y (B, S, d), aux 0-d f32)."""
+    """x: (B, S, d) -> (y (B, S, d), aux 0-d f32).  Unsharded, one data and
+    one model shard; under the registered mesh, for each data shard, local
+    routing and capacity, then this process's model shards' partials summed
+    by the active gate (the reference's psum over "model"), and the aux loss
+    the mean over the data shards (its pmean).  With one shard of either
+    kind, its gate, concatenation or mean is left out."""
     m = cfg.moe
     b, s, d = x.shape
-    t = b * s
-    e = m.n_routed
-    xf = x.reshape(t, d)
-
-    topw, topi, aux = _route(p, m, xf, e)
-
-    cap = max(8, int(m.capacity_factor * t * m.top_k / e + 0.999))
-    flat_e = topi.reshape(-1)  # (T*k,)
-    pos = _assignment_ranks(flat_e, e)
-    keep = pos < cap
-    slot = torch.where(keep, flat_e * cap + pos, m.n_alloc * cap)  # overflow -> trash
-
-    y = _ffn_combine(p, cfg, xf, topw, slot, keep, n_buf=m.n_alloc, cap=cap)
-    if "shared" in p:
-        y = y + layers.glu_mlp(p["shared"], xf, cfg.act, x.dtype)
+    n_data, n_model, ep = 1, 1, True
+    if _DIST["mesh"] is not None:
+        sizes = _DIST["sizes"]
+        n_model = sizes[_DIST["model_axis"]]
+        n_data = math.prod(sizes[a] for a in _DIST["data_axes"])
+        ep = _check_sharded(p, cfg, b, n_data, n_model)
+    gate = collective.current()
+    shards = gate.local_shards(n_model) if n_model > 1 else (0,)
+    bl = b // n_data
+    t = bl * s
+    cap = max(8, int(m.capacity_factor * t * m.top_k / m.n_routed + 0.999))
+    ys, auxes = [], []
+    for i in range(n_data):
+        xf = x[i * bl:(i + 1) * bl].reshape(t, d)
+        topw, topi, aux = _route(p, m, xf, m.n_routed)
+        flat_e = topi.reshape(-1)  # (T*k,)
+        pos = _assignment_ranks(flat_e, m.n_routed)
+        keep = pos < cap
+        parts = [_model_shard(p, cfg, xf, topw, flat_e, pos, keep, cap, j, n_model, ep)
+                 for j in shards]
+        ys.append(gate.reduce(parts) if n_model > 1 else parts[0])
+        auxes.append(aux)
+    y = torch.cat(ys) if n_data > 1 else ys[0]
+    aux = torch.stack(auxes).mean() if n_data > 1 else auxes[0]
     return y.reshape(b, s, d), aux
 
 

@@ -36,6 +36,10 @@ import torch
 class ShardLoop:
     """All shards in process; partials summed in shard order in float32."""
 
+    def local_shards(self, n: int) -> range:
+        """The shards of an ``n``-way group that this process computes."""
+        return range(n)
+
     def reduce(self, parts: list[torch.Tensor]) -> torch.Tensor:
         acc = parts[0].to(torch.float32)
         for p in parts[1:]:
@@ -49,6 +53,17 @@ class ProcessGroupGate:
 
     def __init__(self, group=None):
         self.group = group
+
+    def local_shards(self, n: int) -> tuple[int]:
+        """This rank's shard of an ``n``-way group: its rank in ``group``,
+        which must have ``n`` ranks."""
+        import torch.distributed as dist
+
+        size = dist.get_world_size(self.group)
+        if size != n:
+            raise ValueError(f"a {size}-rank process group cannot hold the {n} shards of a "
+                             f"{n}-way axis one a rank")
+        return (dist.get_rank(self.group),)
 
     def reduce(self, parts: list[torch.Tensor]) -> torch.Tensor:
         import torch.distributed as dist

@@ -11,9 +11,12 @@ survive a 16-way model axis.
 
 A spec is a plain tuple of axis names (``None`` = replicated on that dim),
 taken over ``axis_sizes``: a dict ``{axis: size}``, or an object with
-``axis_names`` and a ``shape`` (or ``devices.shape``) of the same length.
-The rules of the families the port does not serve yet (MLA, MoE, SSM,
-xLSTM) are kept, so that the table is the reference's whole.
+``axis_names`` and a ``shape`` (a ``{axis: size}`` mapping, as
+``launch.mesh.Mesh`` and ``jax.sharding.Mesh`` give, or a tuple, or
+``devices.shape``).  The table is the reference's whole, the rules of every
+family included (MLA, MoE, SSM, xLSTM); TP serving (``parallel/tp.py``)
+shards only attention and the dense MLP, and the MoE family's experts split
+over a mesh in ``models.moe``'s sharded dispatch.
 
 Stacked layer parameters (under segments/encoder/decoder) get a leading
 ``None`` for the layer axis.  ``fsdp=True`` additionally shards the largest
@@ -23,6 +26,7 @@ from __future__ import annotations
 
 import math
 import re
+from collections.abc import Mapping
 from typing import Any, Optional
 
 from repro_torch import tree
@@ -146,11 +150,13 @@ def _resolve(
 
 def axis_sizes_of(mesh) -> dict[str, int]:
     """``{axis: size}`` of a dict, or of an object with ``axis_names`` and
-    ``shape`` (or ``devices.shape``)."""
+    a ``shape`` (a mapping or a tuple; or ``devices.shape``)."""
     if isinstance(mesh, dict):
         return dict(mesh)
     shape = getattr(mesh, "shape", None)
-    if shape is None or isinstance(shape, dict):
+    if isinstance(shape, Mapping):
+        return {a: int(shape[a]) for a in mesh.axis_names}
+    if shape is None:
         shape = mesh.devices.shape
     return dict(zip(mesh.axis_names, tuple(shape)))
 

@@ -326,6 +326,9 @@ def test_planner_throughput_matches_reference_packed_plan():
                                                             impl="packed"))
     got = planner_throughput.run(max_elems=SMALL_CAP, layers=1, device="cpu")
     assert got["bit_exact"] and got["n_tensors"] == len(plan.reports) == 7
+    # the bool oracle's plan of the same weights is the packed plan
+    assert got["bool_exact"]
+    assert got["speedup"] == got["time_bool_s"] / got["time_packed_s"]
     assert got["totals"] == plan.totals()
     assert got["reports"] == {k: {f: getattr(r, f) for f in planner_throughput.REPORT_FIELDS}
                               for k, r in plan.reports.items()}

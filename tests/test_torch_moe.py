@@ -337,9 +337,34 @@ def test_cim_linear_groups_with_per_group_offset():
 
 
 def test_sharded_dispatch_is_not_ported(ref):
-    moe.set_moe_distribution(None)
-    with pytest.raises(NotImplementedError, match="sharded MoE dispatch"):
-        moe.set_moe_distribution(object())
+    """The sharded dispatch is ported now (``tests/test_torch_moe_sharded.py``
+    holds it to the reference): on the reference's weights a 1 x 1 host
+    mesh gives the unsharded ``moe_mlp`` bit for bit, a (data 2, model 2)
+    mesh routes each half of the batch with its own capacity and departs
+    where it binds (cf 0.25), and ``None`` restores the unsharded dispatch;
+    an object that is not a mesh raises."""
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh
+
+    cfg = dataclasses.replace(ref["cfg"], moe=dataclasses.replace(ref["cfg"].moe,
+                                                                capacity_factor=0.25))
+    x = _t(np.random.default_rng(5).standard_normal((2, 24, cfg.d_model)).astype(np.float32))
+    p0 = tree.tree_map(lambda v: v[0], ref["tparams"]["segments"][0]["moe"])
+    want, want_aux = moe.moe_mlp(p0, cfg, x)
+    halves = [moe.moe_mlp(p0, cfg, x[i:i + 1])[0] for i in range(2)]
+    try:
+        moe.set_moe_distribution(make_host_mesh())
+        got, got_aux = moe.moe_mlp(p0, cfg, x)
+        assert torch.equal(got, want) and torch.equal(got_aux, want_aux)
+        moe.set_moe_distribution(make_mesh((2, 2), ("data", "model")))
+        got, got_aux = moe.moe_mlp(p0, cfg, x)
+        assert float((got - want).abs().max()) > 1e-3
+        np.testing.assert_allclose(got.numpy(), torch.cat(halves).numpy(),
+                                   rtol=TOL, atol=TOL)
+        with pytest.raises(AttributeError):
+            moe.set_moe_distribution(object())
+    finally:
+        moe.set_moe_distribution(None)
+    assert torch.equal(moe.moe_mlp(p0, cfg, x)[0], want)
 
 
 def test_engine_refuses_moe_as_the_reference_does(ref):

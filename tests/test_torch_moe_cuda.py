@@ -18,7 +18,7 @@ from __future__ import annotations
 import pytest
 import torch
 
-from repro_torch import prng
+from repro_torch import prng, tree
 from repro_torch.configs import get_arch
 from repro_torch.core import planes, planner, simulator
 from repro_torch.kernels.cim_matmul import ops as cim_ops
@@ -191,3 +191,36 @@ def test_moe_served_from_the_bits(reduced_moe, materialize, codec, kernel):
     per_step = 11 * cfg.n_layers + 1
     assert cim_ops.LAUNCHES[kernel] == per_step * gen
     assert cim_ops.LAUNCHES[f"{kernel}_tc"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 2), (1, 4), (2, 3)])
+def test_sharded_dispatch_served_on_the_card(reduced_moe, shape):
+    """The sharded MoE dispatch (EP at (2, 2) and (1, 4), expert-TP at
+    (2, 3)) on the card: the decode graph captured under the mesh gives the
+    eager loop's tokens and the CPU's (f32), the generator refuses to
+    replay it once the mesh is cleared, and a graph captured unsharded
+    refuses to run under the mesh."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
+
+    cfg, params, plan, batch = reduced_moe
+    p = planner.deploy_params(params, plan, materialize="dense")
+    unsharded = serve.make_generator(cfg, p, batch, gen_len=5)
+    moe.set_moe_distribution(make_mesh(shape, ("data", "model")))
+    try:
+        graph = serve.make_generator(cfg, p, batch, gen_len=5)
+        assert graph.decode is not None and graph.decode.replays == 1
+        toks = graph()[0]
+        eager = serve.generate(cfg, p, batch, gen_len=5, loop="python")[0]
+        cpu = serve.generate(cfg, tree.tree_map(lambda v: v.cpu(), p),
+                             tree.tree_map(lambda v: v.cpu(), batch), gen_len=5)[0]
+        assert torch.equal(toks, eager) and torch.equal(toks.cpu(), cpu)
+        with pytest.raises(RuntimeError, match="MoE distribution"):
+            unsharded()
+    finally:
+        moe.set_moe_distribution(None)
+    with pytest.raises(RuntimeError, match="MoE distribution"):
+        graph()
+    unsharded()
+

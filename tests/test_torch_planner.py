@@ -377,9 +377,10 @@ def test_iter_weights_names_and_order(reduced_gemma):
 
 
 def test_unported_options_raise():
-    """What the port still refuses: the bool oracle (planner and pool) and a
-    codec with int8 planes (no stored-plane layout to encode: a ValueError,
-    as in the reference).  Fault injection and the integrity layer are
+    """What the port refuses: a codec with int8 planes (no stored-plane
+    layout to encode: a ValueError, as in the reference).  The bool oracle
+    is ported: stateless and through a pool it gives the packed plan's
+    report and w_hat bytes.  Fault injection and the integrity layer are
     ported: a plan through a faulty pool with integrity registers its
     tensor, and ``rebuild`` gives the deployed bytes."""
     from repro_torch.core import pool as tpool
@@ -387,11 +388,15 @@ def test_unported_options_raise():
     w = _t(_weights((64, 80)))
     key = prng.PRNGKey(0)
     spec = planner.CrossbarSpec()
-    with pytest.raises(NotImplementedError):
-        planner.analyze_tensor(w, spec, planner.PlannerConfig(impl="bool"), key)
+    want = planner.analyze_tensor(w, spec, planner.PlannerConfig(p_stuck=0.5), key)
+    got = planner.analyze_tensor(w, spec, planner.PlannerConfig(impl="bool", p_stuck=0.5), key)
+    assert dataclasses.asdict(got[0]) == dataclasses.asdict(want[0])
+    assert got[1].numpy().tobytes() == want[1].numpy().tobytes()
     xbars = tpool.CrossbarPool(spec, 16, device="cpu")
-    with pytest.raises(NotImplementedError):
-        planner.analyze_tensor(w, spec, planner.PlannerConfig(impl="bool"), key, pool=xbars)
+    got = planner.analyze_tensor(w, spec, planner.PlannerConfig(impl="bool", p_stuck=0.5), key,
+                                 pool=xbars)
+    assert dataclasses.asdict(got[0]) == dataclasses.asdict(want[0])
+    assert got[1].numpy().tobytes() == want[1].numpy().tobytes()
     from repro_torch.core import nonideal
 
     xbars.inject_faults(nonideal.FaultModel(stuck0=0.01, stuck1=0.01), prng.PRNGKey(3))

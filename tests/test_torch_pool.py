@@ -175,8 +175,18 @@ def test_pool_validation_and_unported_parts():
             planner.analyze_tensor(_t(np.zeros((64, 64), np.float32)), spec,
                                    planner.PlannerConfig(include_initial=False, codec=codec),
                                    prng.PRNGKey(0), **kw)
-    with pytest.raises(NotImplementedError):
-        tpool.program(packed, schedule.make_chains(6, 2, "stride1"), impl="bool")
+    with pytest.raises(ValueError, match="unknown pool impl"):
+        tpool.program(packed, schedule.make_chains(6, 2, "stride1"), impl="eager")
+    # the bool oracle is ported: a twin pool's bool walk equals the packed one
+    twin = pool.CrossbarPool(spec, 2, device="cpu")
+    for p in (1.0, 0.5):
+        want = twin.program(packed, schedule.make_chains(6, 2, "stride1"), p_stuck=p)
+        got = tpool.program(packed, schedule.make_chains(6, 2, "stride1"), p_stuck=p,
+                            impl="bool")
+        np.testing.assert_array_equal(got.programmed_job_costs, want.programmed_job_costs)
+        assert torch.equal(got.achieved, want.achieved)
+        np.testing.assert_array_equal(tpool.wear, twin.wear)
+        np.testing.assert_array_equal(tpool.state, twin.state)
     # faults and integrity are ported: a drawn fault state and a manager that
     # registers the next program
     from repro_torch.core import integrity, nonideal
