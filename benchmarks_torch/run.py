@@ -7,13 +7,11 @@ accuracy halves deploy the reduced LM trained once per process by
 ``trained_lm``), the end-to-end accuracy check, the planner throughput, the
 plane codecs, the pool wear, the serving throughput (both decode loops),
 the engine throughput (static, split and fused), the redeploy delta, the
-fault tolerance, the integrity scrub and the fleet tolerance, prints each
-one's summary as
-``benchmarks/run.py`` does, and writes the JSON artifacts and a summary to
-experiments/bench_torch/.  --full removes the per-tensor element cap.
-
-Left out, with the reason: the roofline, which reads the dry run's
-artifacts (ROADMAP A.18).
+fault tolerance, the integrity scrub, the fleet tolerance and the roofline
+(from the dry run's artifacts in experiments/dryrun_torch/, where
+``repro_torch.launch.dryrun`` has written them), prints each one's summary
+as ``benchmarks/run.py`` does, and writes the JSON artifacts and a summary
+to experiments/bench_torch/.  --full removes the per-tensor element cap.
 """
 from __future__ import annotations
 
@@ -36,6 +34,7 @@ from benchmarks_torch import (
     planner_throughput,
     pool_wear,
     redeploy_delta,
+    roofline,
     serving_throughput,
 )
 from benchmarks_torch.common import banner, save_json
@@ -223,6 +222,20 @@ def main() -> None:
         "stream_parity": kt["stream_parity"] and st["stream_parity"],
         "shed": rfl["admission"]["shed"],
     }
+
+    rroof = roofline.run()
+    if rroof["rows"]:
+        banner("Roofline (from the port's dry-run artifacts)")
+        n = len(rroof["rows"])
+        bounds = {}
+        for r in rroof["rows"]:
+            bounds[r["bottleneck"]] = bounds.get(r["bottleneck"], 0) + 1
+        print(f"  {n} cells; bottleneck distribution: {bounds}")
+        for r in rroof["worst_roofline_fraction"]:
+            print(f"  worst roofline fraction: {r['arch']} {r['shape']} {r['mesh']} "
+                  f"-> {r['roofline_fraction']:.3g}")
+        save_json("roofline", rroof)
+        summary["roofline_cells"] = n
 
     banner(f"benchmarks_torch.run complete in {time.time() - t0:.0f}s")
     save_json("summary", summary)

@@ -26,8 +26,9 @@ sliding-window ring caches; xlstm-350m (8 layers), the recurrent mLSTM
 and sLSTM blocks with no attention; seamless-m4t-medium (2 + 2 layers),
 the encoder-decoder with a cross-attention cache;
 and internvl2-76b (1 layer) behind its 256-position patch-embedding
-prefix — and holds each hand-written kernel against its plain PyTorch
-version on the card.
+prefix; then counts gemma-2b's decode_32k dry-run cell on the host and
+holds the count to the card — and holds each hand-written kernel against
+its plain PyTorch version on the card.
 Phases (one line each, any failed check exits 1):
 
   1. card + build: name and power limit, the kernels built from csrc/;
@@ -326,6 +327,16 @@ Phases (one line each, any failed check exits 1):
      B5 at the MLP's [8192, 28672] and [28672, 8192] and the f32 head
      [8192, 128256], M 4 and 1152, and B3 at its layout, run with the
      kernel checks of phase 3;
+  5q. dryrun: ``launch.dryrun.count_cell`` counts gemma-2b ``decode_32k``
+     on the (16, 16) mesh on the host (one device's share: 8 rows, the TP
+     plan's shard, all 18 layers; fake tensors, no card), then builds that
+     share's inputs on the card (f32 params, bf16 cache) and times the step
+     (median of 20, CUDA events; one step traced): the counted argument
+     bytes == the rise in memory_allocated within 512 bytes a tensor, the
+     step no faster than 0.95 x max(compute, memory) of the count, as many
+     all-reduces a step at the gate as counted, no kernel launched and no
+     plain version called; the roofline fraction and the peaks printed
+     (the first FakeTensorMode use is warmed in a thread during the build);
   6. kernels: time, bound (the bf16 tensor-core rate for the tensor-core
      paths, the f32 rate for the FMA kernels), plain-version and library
      times; B2, B3 and B5 on both paths, B2 with plane gains at decode (f32
@@ -372,6 +383,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -5026,6 +5038,129 @@ def internvl2_phase(dev) -> dict:
     return totals
 
 
+DRYRUN_CELL = ("gemma-2b", "decode_32k", "single")  # arch, shape, mesh of phase dryrun
+DRYRUN_LAYERS = 18  # gemma-2b's full depth: no cut
+DRYRUN_ROOF = 0.95  # a step faster than this share of its roofline bound means a wrong count
+DRYRUN_REPS = 20
+
+
+def warm_fake_mode() -> None:
+    """Import and use ``FakeTensorMode`` once (in this thread only: a
+    dispatch mode is thread-local)."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        torch.empty(1) + 1
+
+
+def dryrun_phase(dev) -> None:
+    """Phase dryrun: one device's share of a dry-run cell counted on the
+    host (``launch.dryrun.count_cell``: fake tensors, no card), then the same
+    share built on the card, its step timed and one step traced.  The inputs take the layout
+    and dtypes the dry run counted (the TP plan's shard 0, f32 params as
+    ``api.init`` gives them, no ``prepare_serving_params`` cast), filled by
+    ``normal_`` / ``random_``: the step's time does not depend on the values.
+    Gates: the argument bytes the dry run counted == the rise in
+    ``memory_allocated`` over materializing the inputs, within 512 bytes a
+    tensor (the caching allocator's rounding); the step (median of
+    DRYRUN_REPS, CUDA events) no faster than DRYRUN_ROOF x max(compute,
+    memory) of the same count (one card runs no collective); no kernel of
+    the kernels line launched and no plain version called (decode attention
+    and dense matmuls are plain PyTorch on both paths)."""
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.configs import SHAPES, get_arch
+    from repro_torch.launch import dryrun, step_cost
+    from repro_torch.launch.roofline import PEAK_FLOPS
+    from repro_torch.parallel import collective
+
+    t_phase = time.perf_counter()
+    arch, shape_name, mesh_kind = DRYRUN_CELL
+    full = get_arch(arch)
+    cfg = dataclasses.replace(full, n_layers=DRYRUN_LAYERS)
+    shape, mesh = SHAPES[shape_name], dryrun.production_mesh(mesh_kind)
+    step = dryrun.count_cell(cfg, shape, mesh)
+    rec = dryrun.cell_fields(step, cfg, shape, mesh)
+    roof, mem, plan = rec["roofline"], rec["memory_analysis"], step.plan
+    t_count = time.perf_counter() - t_phase
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    made = {}
+
+    def real(t):
+        """The card's tensor for a fake leaf: its shape, strides and dtype,
+        one per storage."""
+        key = t.untyped_storage()._cdata
+        if key not in made:
+            x = torch.empty_strided(tuple(t.shape), t.stride(), dtype=t.dtype, device=dev)
+            if x.is_floating_point():
+                x.normal_(0.0, 0.02)
+            elif x.ndim:
+                x.random_(0, cfg.vocab_size)
+            else:  # the decode position: the last of the cache
+                x.fill_(shape.seq_len - 1)
+            made[key] = x
+        return made[key]
+
+    args = tree.tree_map(real, list(step.args))
+    torch.cuda.synchronize()
+    rise = torch.cuda.memory_allocated() - base
+    n_t = len(made)
+    if not 0 <= rise - mem["argument_bytes"] < 512 * n_t:
+        fail(f"phase dryrun: the dry run counted {mem['argument_bytes']:,} argument bytes; "
+             f"materializing them on the card raised memory_allocated by {rise:,} "
+             f"({n_t} tensors, 512 bytes of rounding a tensor at most)")
+    gate = step_cost.CountingGate(plan.n)
+    reset_counts()
+    times = []
+    with collective.active(gate), torch.no_grad():
+        for _ in range(3):
+            step.fn(*args)
+        for _ in range(DRYRUN_REPS):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            step.fn(*args)
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+        where = trace(lambda: step.fn(*args), top=5)
+    launched = {k: v for k, v in counts().items() if v}
+    if launched:
+        fail(f"phase dryrun: the counted step launched kernels or plain versions: {launched}")
+    per_step = gate.count / (4 + DRYRUN_REPS)
+    if per_step != rec["collectives"]["count"]["all-reduce"]:
+        fail(f"phase dryrun: {per_step} all-reduces a step on the card, "
+             f"{rec['collectives']['count']['all-reduce']} counted")
+    peak = torch.cuda.max_memory_allocated() - base
+    ms = sorted(times)[len(times) // 2]
+    bound_ms = max(roof["compute_s"], roof["memory_s"]) * 1e3
+    if ms < DRYRUN_ROOF * bound_ms:
+        fail(f"phase dryrun: the step took {ms:.4f} ms, under {DRYRUN_ROOF} x its roofline "
+             f"bound {bound_ms:.4f} ms: the count is wrong")
+    del args, made
+    torch.cuda.empty_cache()
+    frac = bound_ms / ms
+    say(f"phase dryrun: {arch} {shape_name} on the {mesh_kind} mesh {mesh.sizes}, one device's "
+        f"share ({rec['device']['rows']} rows, TP attn={plan.attn} mlp={plan.mlp}; "
+        f"{cfg.n_layers} of {full.n_layers} layers): counted on the host in {t_count:.1f} s "
+        f"(inputs {step.init_s:.1f} s, trace {step.cost.trace_s:.1f} s): {roof['flops']:.4g} "
+        f"FLOPs, {roof['hbm_bytes']:.4g} B, wire {roof['wire_bytes']:.4g} B; terms compute "
+        f"{roof['compute_s'] * 1e3:.4f} ms, "
+        f"memory {roof['memory_s'] * 1e3:.4f} ms, collective "
+        f"{roof['collective_s'] * 1e3:.4f} ms; measured step {ms:.4f} ms (median of "
+        f"{DRYRUN_REPS}, min {min(times):.4f}, max {max(times):.4f}): roofline fraction "
+        f"{frac:.4f} (bound / measured), useful-FLOP fraction "
+        f"{roof['model_flops'] / (ms * 1e-3) / PEAK_FLOPS:.3e}; argument bytes "
+        f"{mem['argument_bytes']:,} counted, {rise:,} allocated ({n_t} tensors); peak "
+        f"{mem['peak_bytes']:,} counted, {peak:,} max_memory_allocated over the inputs' base; "
+        f"{per_step:g} all-reduces a step at the gate; one step traced: {where}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     import torch
 
@@ -5061,7 +5196,12 @@ def main() -> None:
     card = smi[0] if smi else f"{kind}, power limit not reported"
     say(card)
     t0 = time.perf_counter()
+    # phase dryrun's first FakeTensorMode imports torch's tracing stack (~7 s on
+    # the card's host): warm it in a thread while nvcc builds the kernels
+    warm = threading.Thread(target=warm_fake_mode, daemon=True)
+    warm.start()
     logs = _util.build_kernels()
+    warm.join()
     build_s = time.perf_counter() - t0
     say(f"phase build: {sorted(logs) or 'cached'} in {build_s:.1f} s; ptxas: {ptxas_summary(logs)}")
 
@@ -5481,6 +5621,9 @@ def main() -> None:
 
     # --- 5p. internvl2-76b at published width: the modality-stub prefix ------
     iv = internvl2_phase(dev)
+
+    # --- 5q. the dry run: one device's count held to the card ----------------
+    dryrun_phase(dev)
 
     # --- 6. kernels: time, bound, plain, library -------------------------------
     t = 1 << 20

@@ -4,6 +4,8 @@ from repro_torch.configs.base import (
     MLAConfig,
     MoEConfig,
     SSMConfig,
+    ShapeSpec,
+    SHAPES,
     get_arch,
     list_archs,
     register,
@@ -23,5 +25,5 @@ from repro_torch.configs import (  # noqa: F401  (registration side effect)
     yi_6b,
 )
 
-__all__ = ["ArchConfig", "MLAConfig", "MoEConfig", "SSMConfig", "get_arch", "list_archs",
-           "register"]
+__all__ = ["ArchConfig", "MLAConfig", "MoEConfig", "SSMConfig", "ShapeSpec", "SHAPES",
+           "get_arch", "list_archs", "register"]

@@ -12,7 +12,9 @@ hybrid attention + Mamba blocks ``hymba_global`` / ``hymba_swa``
 xLSTM family (``SSMConfig``; ``models/ssm.py``), the encoder-decoder of
 ``encdec`` families (``n_enc_layers``; ``models/encdec.py``), the
 modality-stub prefix of ``stub_prefix_len`` (``models/transformer.py``),
-and the tensor-parallel flags of ``parallel/tp.py``.  The reference's
+and the tensor-parallel flags of ``parallel/tp.py``; and the dry run's
+cell shapes (``ShapeSpec``, ``SHAPES``, ``shape_applicable``;
+``launch/dryrun.py``).  The reference's
 ``norm`` and ``global_layer_every`` are left out: none of its modules
 reads them.
 """
@@ -120,6 +122,22 @@ class ArchConfig:
         return kinds[: self.n_layers]
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
+
 _REGISTRY: dict[str, ArchConfig] = {}
 _REDUCED: dict[str, Callable[[], ArchConfig]] = {}
 
@@ -138,3 +156,10 @@ def get_arch(name: str, *, reduced: bool = False) -> ArchConfig:
 
 def list_archs() -> list[str]:
     return sorted(_REGISTRY)
+
+
+def shape_applicable(cfg: ArchConfig, shape: ShapeSpec) -> tuple[bool, str]:
+    """Whether (arch, shape) is a runnable dry-run cell."""
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, "long_500k needs sub-quadratic attention; pure full-attention arch"
+    return True, ""

@@ -8,7 +8,8 @@ on every state, so it never costs anything.  The planner's pricing goes
 through ``kernels.hamming.ops.price_pairs``; these chain-level functions
 serve the paper's figures, parity checks and ad-hoc pricing.  The bool-plane
 entry points pack the rows once and price the packed words: there is one
-implementation.
+implementation.  The per-column fractions (the paper's §IV observation)
+count integers and divide once in float32.
 """
 from __future__ import annotations
 
@@ -16,6 +17,11 @@ import torch
 
 from repro_torch.core import bitslice
 from repro_torch.kernels.hamming.ref import popcount_bytes as popcount_u8
+
+
+def pair_transitions(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """R_AB for bool planes of identical shape [..., rows, cols] -> int32[...]."""
+    return pair_transitions_packed(bitslice.packbits(a, -2), bitslice.packbits(b, -2))
 
 
 def pair_transitions_packed(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -77,3 +83,24 @@ def consecutive_costs(
     (or [T-1]); step 0 programs over the pristine crossbar."""
     return consecutive_costs_packed(bitslice.pack_rows(planes), order,
                                     include_initial=include_initial)
+
+
+def active_fraction_per_column(planes: torch.Tensor) -> torch.Tensor:
+    """Fraction of active memristors per bit column of bool planes[..., cols]
+    -> f32[cols]: ~0.5 in the lowest-order column of bell-shaped weights,
+    falling toward 0 in the high-order ones.  The active count is exact and
+    divided once in float32 (the reference's f32 mean, exact while a
+    column holds fewer than 2^24 cells)."""
+    dims = tuple(range(planes.ndim - 1))
+    n = torch.tensor(float(max(planes[..., 0].numel(), 1)), device=planes.device)
+    return planes.sum(dim=dims, dtype=torch.int64).to(torch.float32) / n
+
+
+def transition_fraction_per_column(planes: torch.Tensor,
+                                   order: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-column share of the transitions between consecutive sections of
+    bool planes[S, rows, cols] along ``order`` (the first program from
+    pristine not counted) -> f32[cols], summing to 1 (all 0 for a chain
+    without a transition)."""
+    col = chain_transitions(planes, order, include_initial=False, per_column=True)
+    return col.to(torch.float32) / torch.clamp(col.sum().to(torch.float32), min=1.0)

@@ -37,7 +37,9 @@ the counterpart of the calls the planner makes, under jax's default
 
 Draws of more than ``CHUNK`` elements are hashed and transformed one chunk
 of flat indices at a time, so a 500M-weight embedding never needs more than
-a few chunk-sized int64 and float64 temporaries.
+a few chunk-sized int64 and float64 temporaries.  A key with no data (a
+``FakeTensorMode`` fake or a meta tensor: the dry run's ``api.init``)
+draws nothing and gives an empty tensor of the drawn shape.
 
 A key is an int64 tensor ``[..., 2]`` holding two uint32 words: torch has no
 full uint32 arithmetic, so every sum is taken in int64 and masked with
@@ -47,9 +49,12 @@ come from one call.  The generator is explicit: no global state.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
+from torch.utils._python_dispatch import _disable_current_modes
 
 _M = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -107,6 +112,8 @@ def _draw(key: torch.Tensor, shape: tuple[int, ...], transform, dtype=torch.floa
     elements (over all keys) at a time; ``transform`` is elementwise."""
     shape = tuple(shape)
     lead = key.shape[:-1]
+    if key.device.type == "meta" or is_fake(key):  # shapes only: no bits to draw
+        return torch.empty(lead + shape, dtype=dtype, device=key.device)
     n = math.prod(shape)
     step = max(1, CHUNK // max(math.prod(lead), 1))
     if n <= step:
@@ -387,7 +394,7 @@ def truncated_normal(
     dev = key.device
     sqrt2 = _f32(_SQRT2, dev)
     lo_hi = torch.tensor([lower, upper], dtype=torch.float32, device=dev)
-    a, b = (float(v) for v in erf(_f64_exact(torch.div, lo_hi, sqrt2)).cpu())
+    a, b = _erf_bounds(float(lower), float(upper))
     inf = torch.tensor([math.inf, -math.inf], dtype=torch.float32, device=dev)
     clip_lo, clip_hi = torch.nextafter(lo_hi, inf).unbind()
 
@@ -396,6 +403,18 @@ def truncated_normal(
         return torch.clamp(out, clip_lo, clip_hi)
 
     return _draw(key, shape, transform)
+
+
+@functools.lru_cache(maxsize=64)
+def _erf_bounds(lower: float, upper: float) -> tuple[float, float]:
+    """``erf(lower / sqrt2)``, ``erf(upper / sqrt2)`` in float32, as host
+    floats: computed once per bounds on the CPU, outside any tensor mode
+    (a fake mode has no values to read back).  Every step is an IEEE
+    operation, so the card would compute the same bits."""
+    with _disable_current_modes():
+        lo_hi = torch.tensor([lower, upper], dtype=torch.float32)
+        a, b = erf(_f64_exact(torch.div, lo_hi, _f32(_SQRT2, "cpu"))).tolist()
+    return a, b
 
 
 def bernoulli(key: torch.Tensor, p: float | torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
