@@ -7,7 +7,8 @@ three-term roofline table of one H100 (``repro_torch.launch.roofline``):
 compute / memory / collective seconds, the dominant term, MODEL_FLOPS /
 counted FLOPs, and the roofline fraction (useful FLOP/s at the roofline step
 time over the card's peak).  The counts are one device's eager step on the
-host (``launch.step_cost``), not a measurement.
+host (``launch.step_cost``), not a measurement, and of the plain path
+(each cell's ``counted_path``): a step that runs B2-B6 is not bounded by them.
 
 It also folds in the CIM weight-traffic accounting: the deployed-weight
 bytes a decode step reads under each serving representation
@@ -49,6 +50,7 @@ def table_rows(cells: list[dict]) -> list[dict]:
                 "arch": d["arch"],
                 "shape": d["shape"],
                 "mesh": d["mesh"],
+                "counted_path": d["counted_path"],
                 "compute_s": r["compute_s"],
                 "memory_s": r["memory_s"],
                 "collective_s": r["collective_s"],
@@ -126,6 +128,8 @@ def print_report(res: dict, mesh: str | None = None) -> None:
         print("  no dry-run artifacts found — run: "
               "PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both")
         return
+    print(f"  counted path: {', '.join(sorted({r['counted_path'] for r in rows}))} (every op's "
+          f"plain version: not a bound on a step that runs B2-B6)")
     print(f"  {'arch':24s}{'shape':13s}{'mesh':7s}{'compute':>10s}{'memory':>10s}{'coll':>10s}"
           f"  {'bound':10s}{'frac':>9s}")
     for r in rows:

@@ -329,14 +329,17 @@ Phases (one line each, any failed check exits 1):
      kernel checks of phase 3;
   5q. dryrun: ``launch.dryrun.count_cell`` counts gemma-2b ``decode_32k``
      on the (16, 16) mesh on the host (one device's share: 8 rows, the TP
-     plan's shard, all 18 layers; fake tensors, no card), then builds that
-     share's inputs on the card (f32 params, bf16 cache) and times the step
-     (median of 20, CUDA events; one step traced): the counted argument
-     bytes == the rise in memory_allocated within 512 bytes a tensor, the
-     step no faster than 0.95 x max(compute, memory) of the count, as many
-     all-reduces a step at the gate as counted, no kernel launched and no
-     plain version called; the roofline fraction and the peaks printed
-     (the first FakeTensorMode use is warmed in a thread during the build);
+     plan's shard, all 18 layers; fake tensors, no card) in a thread beside
+     the kernels' build; the count's bytes are held from below (every
+     parameter and the whole cache read once; the attention's batched
+     matmuls read the cache in f32 and write and read the scores); then
+     the phase builds that share's inputs on the card (f32 params, bf16
+     cache) and times the step (median of 20, CUDA events; one step
+     traced): the counted argument bytes == the rise in memory_allocated
+     within 512 bytes a tensor, the step no faster than 0.95 x max(compute,
+     memory) of the count, as many all-reduces a step at the gate as
+     counted, no kernel launched and no plain version called; the roofline
+     fraction and the peaks printed;
   6. kernels: time, bound (the bf16 tensor-core rate for the tensor-core
      paths, the f32 rate for the FMA kernels), plain-version and library
      times; B2, B3 and B5 on both paths, B2 with plane gains at decode (f32
@@ -459,6 +462,17 @@ def fail(msg: str) -> None:
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+SECTIONS: list = []  # (name, seconds) of main's sections, summed up by the last phase line
+
+
+def timed(name: str, fn, *args):
+    """``fn(*args)``, its seconds kept in SECTIONS under ``name``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    SECTIONS.append((name, time.perf_counter() - t0))
+    return out
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -5044,47 +5058,77 @@ DRYRUN_ROOF = 0.95  # a step faster than this share of its roofline bound means 
 DRYRUN_REPS = 20
 
 
-def warm_fake_mode() -> None:
-    """Import and use ``FakeTensorMode`` once (in this thread only: a
-    dispatch mode is thread-local)."""
-    import torch
-    from torch._subclasses.fake_tensor import FakeTensorMode
+def dryrun_count(out: dict) -> None:
+    """Phase dryrun's host half, run in a thread beside the kernels' build
+    (it needs no card): one device's share of DRYRUN_CELL counted on fake
+    tensors (``launch.dryrun.count_cell``) into ``out``, or the traceback
+    under "error".  Fake and counting modes are thread-local; the build
+    runs no model code meanwhile."""
+    import traceback
 
-    with FakeTensorMode():
-        torch.empty(1) + 1
+    try:
+        from repro_torch.configs import SHAPES, get_arch
+        from repro_torch.launch import dryrun
+
+        t0 = time.perf_counter()
+        arch, shape_name, mesh_kind = DRYRUN_CELL
+        cfg = dataclasses.replace(get_arch(arch), n_layers=DRYRUN_LAYERS)
+        shape, mesh = SHAPES[shape_name], dryrun.production_mesh(mesh_kind)
+        step = dryrun.count_cell(cfg, shape, mesh)
+        out.update(cfg=cfg, shape=shape, mesh=mesh, step=step,
+                   rec=dryrun.cell_fields(step, cfg, shape, mesh), s=time.perf_counter() - t0)
+    except Exception:  # noqa: BLE001  (phase dryrun fails with it)
+        out["error"] = traceback.format_exc()
 
 
-def dryrun_phase(dev) -> None:
-    """Phase dryrun: one device's share of a dry-run cell counted on the
-    host (``launch.dryrun.count_cell``: fake tensors, no card), then the same
-    share built on the card, its step timed and one step traced.  The inputs take the layout
+def dryrun_phase(dev, host: dict) -> None:
+    """Phase dryrun: one device's share of a dry-run cell, counted on the
+    host by ``dryrun_count`` (``host``), then the same share built on the
+    card, its step timed and one step traced.  The inputs take the layout
     and dtypes the dry run counted (the TP plan's shard 0, f32 params as
     ``api.init`` gives them, no ``prepare_serving_params`` cast), filled by
     ``normal_`` / ``random_``: the step's time does not depend on the values.
-    Gates: the argument bytes the dry run counted == the rise in
-    ``memory_allocated`` over materializing the inputs, within 512 bytes a
-    tensor (the caching allocator's rounding); the step (median of
-    DRYRUN_REPS, CUDA events) no faster than DRYRUN_ROOF x max(compute,
-    memory) of the same count (one card runs no collective); no kernel of
-    the kernels line launched and no plain version called (decode attention
-    and dense matmuls are plain PyTorch on both paths)."""
+    Gates: the counted bytes no fewer than every parameter (the embedding
+    table only where the head reads it) and the whole cache read once, and
+    the batched matmuls' bytes no fewer than the attention's Q.K and P.V
+    (the cache read in f32, the scores written and read); the argument
+    bytes the dry run counted == the rise in ``memory_allocated`` over
+    materializing the inputs, within 512 bytes a tensor (the caching
+    allocator's rounding); the step (median of DRYRUN_REPS, CUDA events)
+    no faster than DRYRUN_ROOF x max(compute, memory) of the same count
+    (one card runs no collective); no kernel of the kernels line launched
+    and no plain version called (decode attention and dense matmuls are
+    plain PyTorch on both paths)."""
     import torch
 
     from repro_torch import tree
-    from repro_torch.configs import SHAPES, get_arch
-    from repro_torch.launch import dryrun, step_cost
+    from repro_torch.launch import step_cost
     from repro_torch.launch.roofline import PEAK_FLOPS
     from repro_torch.parallel import collective
 
     t_phase = time.perf_counter()
+    if "error" in host:
+        fail(f"phase dryrun: the host count failed:\n{host['error']}")
+    cfg, shape, mesh, step, rec = (host[k] for k in ("cfg", "shape", "mesh", "step", "rec"))
     arch, shape_name, mesh_kind = DRYRUN_CELL
-    full = get_arch(arch)
-    cfg = dataclasses.replace(full, n_layers=DRYRUN_LAYERS)
-    shape, mesh = SHAPES[shape_name], dryrun.production_mesh(mesh_kind)
-    step = dryrun.count_cell(cfg, shape, mesh)
-    rec = dryrun.cell_fields(step, cfg, shape, mesh)
     roof, mem, plan = rec["roofline"], rec["memory_analysis"], step.plan
-    t_count = time.perf_counter() - t_phase
+    rows = rec["device"]["rows"]
+
+    params, cache = step.inputs["params"], tree.leaves(step.inputs["cache"])
+    # an untied embedding table is read only by the rows it gathers
+    embed = 0 if cfg.tie_embeddings else step_cost.storage_bytes(
+        tree.leaves(params["embed"]))
+    floor = (step_cost.storage_bytes(tree.leaves(params)) - embed
+             + step_cost.storage_bytes(cache))
+    if roof["hbm_bytes"] < floor:
+        fail(f"phase dryrun: {roof['hbm_bytes']:.6g} bytes counted, under the {floor:,} of "
+             f"the parameters and the cache read once")
+    scores = 4 * cfg.n_layers * rows * step.cfg.n_heads * shape.seq_len
+    attn_floor = 4 * sum(t.numel() for t in cache) + 2 * scores
+    bmm = step.cost.bytes_by_op.get("aten.bmm", 0)
+    if bmm < attn_floor:
+        fail(f"phase dryrun: the batched matmuls counted {bmm:,} bytes, under the {attn_floor:,} "
+             f"of Q.K and P.V (the cache in f32, the scores written and read)")
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -5145,10 +5189,11 @@ def dryrun_phase(dev) -> None:
     torch.cuda.empty_cache()
     frac = bound_ms / ms
     say(f"phase dryrun: {arch} {shape_name} on the {mesh_kind} mesh {mesh.sizes}, one device's "
-        f"share ({rec['device']['rows']} rows, TP attn={plan.attn} mlp={plan.mlp}; "
-        f"{cfg.n_layers} of {full.n_layers} layers): counted on the host in {t_count:.1f} s "
-        f"(inputs {step.init_s:.1f} s, trace {step.cost.trace_s:.1f} s): {roof['flops']:.4g} "
-        f"FLOPs, {roof['hbm_bytes']:.4g} B, wire {roof['wire_bytes']:.4g} B; terms compute "
+        f"share ({rows} rows, TP attn={plan.attn} mlp={plan.mlp}; {cfg.n_layers} layers): "
+        f"counted on the host beside the build in {host['s']:.1f} s (inputs {step.init_s:.1f} s, "
+        f"trace {step.cost.trace_s:.1f} s): {roof['flops']:.4g} FLOPs, {roof['hbm_bytes']:.4g} "
+        f"B (floor {floor:.4g}: params and cache read once; batched matmuls {bmm:.4g}, floor "
+        f"{attn_floor:.4g}), wire {roof['wire_bytes']:.4g} B; terms compute "
         f"{roof['compute_s'] * 1e3:.4f} ms, "
         f"memory {roof['memory_s'] * 1e3:.4f} ms, collective "
         f"{roof['collective_s'] * 1e3:.4f} ms; measured step {ms:.4f} ms (median of "
@@ -5158,7 +5203,7 @@ def dryrun_phase(dev) -> None:
         f"{mem['argument_bytes']:,} counted, {rise:,} allocated ({n_t} tensors); peak "
         f"{mem['peak_bytes']:,} counted, {peak:,} max_memory_allocated over the inputs' base; "
         f"{per_step:g} all-reduces a step at the gate; one step traced: {where}; phase "
-        f"{time.perf_counter() - t_phase:.1f} s")
+        f"{time.perf_counter() - t_phase:.1f} s on the card")
 
 
 def main() -> None:
@@ -5196,14 +5241,16 @@ def main() -> None:
     card = smi[0] if smi else f"{kind}, power limit not reported"
     say(card)
     t0 = time.perf_counter()
-    # phase dryrun's first FakeTensorMode imports torch's tracing stack (~7 s on
-    # the card's host): warm it in a thread while nvcc builds the kernels
-    warm = threading.Thread(target=warm_fake_mode, daemon=True)
-    warm.start()
+    # phase dryrun's host count needs no card: it runs while nvcc builds the kernels
+    dry = {}
+    count = threading.Thread(target=dryrun_count, args=(dry,), daemon=True)
+    count.start()
     logs = _util.build_kernels()
-    warm.join()
+    count.join()
     build_s = time.perf_counter() - t0
     say(f"phase build: {sorted(logs) or 'cached'} in {build_s:.1f} s; ptxas: {ptxas_summary(logs)}")
+    SECTIONS.append(("build", build_s))
+    t_built = time.perf_counter()
 
     # --- 2. B1 against its plain version --------------------------------------
     g = torch.Generator(device=dev).manual_seed(0)
@@ -5569,63 +5616,65 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # --- 5a. the serving benchmark at gemma-2b's full width -----------------------
-    throughput_phase(dev)
+    SECTIONS.append(("checks, plan and serve", time.perf_counter() - t_built))
+    timed("throughput", throughput_phase, dev)
     torch.cuda.empty_cache()
 
     # --- 5b. yi-6b at full width ------------------------------------------------
-    yi = yi_phases(dev)
+    yi = timed("yi", yi_phases, dev)
     torch.cuda.empty_cache()
 
     # --- 5c. the paper's planner figures, held to the reference ----------------
-    figs = figures_phase(dev)
+    figs = timed("figures", figures_phase, dev)
 
     # --- 5d. the trainer at internlm2-1.8b's full width ------------------------
-    trained = train_phase(dev)
+    trained = timed("train", train_phase, dev)
 
     # --- 5e. the accuracy halves of Figs. 9/10 and accuracy_e2e ----------------
-    acc = accuracy_phase(dev)
+    acc = timed("accuracy", accuracy_phase, dev)
 
     # --- 5f. the offset_binary encoding at gemma-2b's full width ---------------
-    ob = offset_binary_phase(dev, tot)
+    ob = timed("offset-binary", offset_binary_phase, dev, tot)
 
     # --- 5g. pool wear, plane codecs and redeploy delta, held to the reference --
-    bx = bench_extra_phase(dev)
+    bx = timed("bench-extra", bench_extra_phase, dev)
 
     # --- 5h. faults and integrity at gemma-2b's full width ---------------------
-    fl = faults_phase(dev)
+    fl = timed("faults", faults_phase, dev)
 
     # --- 5i. the continuous-batching engine at gemma-2b's full width ---------
-    en = engine_phase(dev)
+    en = timed("engine", engine_phase, dev)
     ee = en.pop("err")
 
     # --- 5j. tensor-parallel replicas and the serving fleet --------------------
-    tf = tp_fleet_phase(dev)
+    tf = timed("tp-fleet", tp_fleet_phase, dev)
     te = tf.pop("err")
 
     # --- 5k. the MoE family: qwen2-moe-a2.7b, grouped expert launches -----------
-    mo = moe_phase(dev)
+    mo = timed("moe", moe_phase, dev)
     me, moe_rec = mo.pop("err"), mo.pop("records")
 
     # --- 5l. MLA: deepseek-v2-236b at published width, one layer ----------------
-    ml = mla_phase(dev)
+    ml = timed("mla", mla_phase, dev)
     mle, mla_rec, sort_rec = ml.pop("err"), ml.pop("records"), ml.pop("sort")
 
     # --- 5m. hymba-1.5b at published width: Mamba heads, meta tokens, ring caches ---
-    hy = hymba_phase(dev)
+    hy = timed("hymba", hymba_phase, dev)
 
     # --- 5n. xlstm-350m at published width: mLSTM and sLSTM, no attention -----
-    xl = xlstm_phase(dev)
+    xl = timed("xlstm", xlstm_phase, dev)
 
     # --- 5o. seamless-m4t-medium at published width: the encoder-decoder ------
-    se = seamless_phase(dev)
+    se = timed("seamless", seamless_phase, dev)
 
     # --- 5p. internvl2-76b at published width: the modality-stub prefix ------
-    iv = internvl2_phase(dev)
+    iv = timed("internvl2", internvl2_phase, dev)
 
     # --- 5q. the dry run: one device's count held to the card ----------------
-    dryrun_phase(dev)
+    timed("dryrun", dryrun_phase, dev, dry)
 
     # --- 6. kernels: time, bound, plain, library -------------------------------
+    t_kernels = time.perf_counter()
     t = 1 << 20
     pairs = [tuple(torch.randint(0, 256, (t, 16, 10), dtype=torch.uint8, device=dev, generator=g)
                    for _ in range(2))]
@@ -5899,7 +5948,9 @@ def main() -> None:
         f"({NODE_LIST['graphs']} graphs, {NODE_LIST['nodes']} nodes, read in "
         f"{NODE_LIST['s']:.2f} s); " + ("; ".join(COUNT_NOTES) or "the profiler recorded "
                                          "each of them"))
-    say(f"phase done: {time.perf_counter() - t_start:.1f} s after the build started")
+    SECTIONS.append(("kernels", time.perf_counter() - t_kernels))
+    say(f"phase done: {time.perf_counter() - t_start:.1f} s after the build started ("
+        + ", ".join(f"{name} {sec:.1f} s" for name, sec in SECTIONS) + ")")
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -26,6 +26,16 @@ card), and counts it (``launch.step_cost``):
   shard's and the rows are not split twice;
 * the roofline terms are the H100's (``launch.roofline``).
 
+The counted program is the plain one (``counted_path: "plain"`` in every
+cell): fake CPU tensors send ``kernels._util.use_kernel`` down every plain
+version, so prefill attention is ``blockwise_attention`` (its float32 score
+blocks materialised), every CIM matmul is its plain version, and f32 weights
+are cast at each ``layers.linear`` call with no ``prepare_serving_params``.
+The bounds therefore do not apply to a step that runs B2-B6 on the card.
+
+The cells run side by side, one spawned process a core, each on one torch
+thread.
+
 One JSON a cell goes to ``experiments/dryrun_torch/``, with the reference's
 keys where a counterpart exists; ``no_counterpart`` names the rest.
 ``lower_s`` is the seconds of the counted fake run of the step (the
@@ -33,7 +43,7 @@ counterpart of tracing it once); there is no compile.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-6b --shape train_4k --mesh single
-  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both [--jobs 8]
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both
 """
 from __future__ import annotations
 
@@ -42,6 +52,7 @@ import dataclasses
 import json
 import math
 import multiprocessing
+import os
 import time
 import traceback
 from pathlib import Path
@@ -67,6 +78,8 @@ OUT_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
 # the reference's production meshes (``repro.launch.mesh.make_production_mesh``)
 MESHES = {"single": ((16, 16), ("data", "model")),
           "multi": ((2, 16, 16), ("pod", "data", "model"))}
+
+COUNTED_PATH = "plain"  # the path every cell counts (module docstring)
 
 NO_COUNTERPART = {
     "compile_s": "no compiler: the eager step runs op by op as traced",
@@ -325,6 +338,7 @@ def cell_fields(step: DeviceStep, cfg: ArchConfig, shape: ShapeSpec, mesh) -> di
     inputs, plan = step.inputs, step.plan
     out = dict(
         status="ok",
+        counted_path=COUNTED_PATH,
         chips=chips,
         lower_s=round(cost.trace_s, 1),
         init_s=round(step.init_s, 1),
@@ -432,12 +446,7 @@ def main() -> None:
     ap.add_argument("--moe-sharded", action="store_true")
     ap.add_argument("--variant", default="")
     ap.add_argument("--out", default=str(OUT_DIR))
-    ap.add_argument("--jobs", type=int, default=1,
-                    help="cells counted side by side, one process each")
     args = ap.parse_args()
-    if args.swa_banded:
-        raise ValueError("--swa-banded has no counterpart: the port does not have "
-                         "set_attention_impl (ROADMAP A.16.2, recorded departure)")
 
     out_dir = Path(args.out)
     mesh_kinds = ["single", "multi"] if args.mesh == "both" else [args.mesh]
@@ -447,25 +456,17 @@ def main() -> None:
         if not (args.arch and args.shape):
             ap.error("--arch/--shape or --all required")
         cells = [(args.arch, args.shape, mk) for mk in mesh_kinds]
-    kw = dict(remat=args.remat, fsdp=args.fsdp, moe_sharded=args.moe_sharded,
-              out_dir=out_dir, variant=args.variant)
+    kw = dict(remat=args.remat, fsdp=args.fsdp, swa_banded=args.swa_banded,
+              moe_sharded=args.moe_sharded, out_dir=out_dir, variant=args.variant)
 
     t0 = time.perf_counter()
-    jobs = [(c, kw) for c in cells]
-    if args.jobs > 1:
-        # the cells with Python loops over time or chunks first: they take longest
-        slow = ("xlstm", "hymba")
-        jobs.sort(key=lambda j: not any(s in j[0][0] for s in slow))
-        ctx = multiprocessing.get_context("spawn")
-        with ctx.Pool(args.jobs, maxtasksperchild=1) as pool:
-            results = []
-            for r in pool.imap_unordered(_run_one, jobs):
-                print(_line(r), flush=True)
-                results.append(r)
-    else:
-        results = []
-        for job in jobs:
-            r = _run_one(job)
+    # a recurrence (cfg.ssm) runs a Python loop over time or chunks: its cells
+    # take longest, so they start first
+    cells.sort(key=lambda c: get_arch(c[0]).ssm is None)
+    ctx = multiprocessing.get_context("spawn")
+    results = []
+    with ctx.Pool(min(len(cells), os.cpu_count() or 1), maxtasksperchild=1) as pool:
+        for r in pool.imap_unordered(_run_one, [(c, kw) for c in cells]):
             print(_line(r), flush=True)
             results.append(r)
     n = {s: sum(r["status"] == s for r in results) for s in ("ok", "skipped", "error")}

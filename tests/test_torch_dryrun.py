@@ -15,9 +15,11 @@
 * ``tests/test_hlo_cost.py``'s properties on the port's counts: FLOPs linear
   in ``n_layers``; the train-to-forward ratio within [2.2, 3.8] at
   ``remat="none"``; elementwise ops 0 FLOPs with bytes >= read + write; a
-  decode step's in-place cache write charged for its row, not the cache.
-* A fake key draws nothing; cells of each kind run and the roofline table
-  reads them.
+  decode step's in-place cache write charged for its row, not the cache,
+  and its bytes no fewer than the parameters and the cache read once.
+* A fake key draws nothing; cells of each kind run (each says it counted
+  the plain path), the roofline table reads them, and ``--all``'s process
+  pool writes a cell and ends with the reference's summary line.
 """
 from __future__ import annotations
 
@@ -45,7 +47,7 @@ from repro.launch import steps as rsteps
 from repro.models import api as rapi
 from repro.optim import AdamWConfig as RAdamWConfig
 from repro.optim import adamw_init as radamw_init
-from repro_torch import prng
+from repro_torch import prng, tree
 from repro_torch.configs import SHAPES, ShapeSpec, get_arch, list_archs
 from repro_torch.configs.base import shape_applicable
 from repro_torch.launch import dryrun, step_cost
@@ -235,6 +237,30 @@ def test_decode_charges_the_cache_row_not_the_cache():
     assert c2.bytes_accessed - c1.bytes_accessed < 2 * cache_delta
 
 
+@pytest.mark.parametrize("seq", [16, 1024])  # the parameters' bytes lead, then the cache's
+@pytest.mark.parametrize("arch", ["yi-6b", "gemma-2b"])  # an untied and a tied head
+def test_decode_bytes_cover_the_params_and_the_cache(arch, seq):
+    """A floor that a missing charge fails: a decode step reads every
+    parameter once (an untied embedding table only by the rows it gathers)
+    and the whole cache; its Q.K and P.V batched matmuls read the cache in
+    float32 and write, then read, the scores."""
+    cfg = get_arch(arch, reduced=True)
+    mode = FakeTensorMode()
+    shape = ShapeSpec("t", seq, B, "decode")
+    inputs = dryrun.input_specs(cfg, shape, mode)
+    fn, args = dryrun.step_args(cfg, shape, inputs)
+    with mode:
+        c = step_cost.count_step(fn, *args)[1]
+    params, cache = inputs["params"], tree.leaves(inputs["cache"])
+    embed = 0 if cfg.tie_embeddings else step_cost.storage_bytes(
+        tree.leaves(params["embed"]))
+    floor = (step_cost.storage_bytes(tree.leaves(params)) - embed
+             + step_cost.storage_bytes(cache))
+    assert c.bytes_accessed >= floor
+    scores = 4 * cfg.n_layers * B * cfg.n_heads * seq
+    assert c.bytes_by_op["aten.bmm"] >= 4 * sum(t.numel() for t in cache) + 2 * scores
+
+
 def test_partial_writes_and_gathers_count_what_they_touch():
     aten = torch.ops.aten
     big = torch.zeros(4, 1000, 8)
@@ -295,6 +321,7 @@ def test_cells_record_the_reference_keys(cells):
         assert set(r["memory_analysis"]) == {"argument_bytes", "output_bytes", "temp_bytes",
                                              "peak_bytes"}
         assert r["memory_analysis"]["peak_bytes"] >= r["memory_analysis"]["argument_bytes"]
+        assert r["counted_path"] == "plain"
     assert got["long_500k"] == json.loads((out / f"{PARITY_ARCH}_long_500k_single.json")
                                           .read_text())
     assert got["long_500k"]["status"] == "skipped"
@@ -331,3 +358,17 @@ def test_roofline_table_reads_the_cells(cells):
     row = next(r for r in res["rows"] if r["shape"] == "decode_32k" and r["arch"] == PARITY_ARCH)
     assert row["memory_s"] == got["decode_32k"]["roofline"]["memory_s"]
     assert row["bottleneck"] == "memory"
+
+
+def test_all_runs_the_cells_in_a_pool(tmp_path):
+    """The CLI's pool on two cells the reference skips (yi-6b is not
+    sub-quadratic): one JSON a cell and the summary line."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", PARITY_ARCH, "--shape",
+         "long_500k", "--mesh", "both", "--out", str(tmp_path)],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.splitlines()[-1] == "done: 0 ok, 2 skipped, 0 errors"
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        f"{PARITY_ARCH}_long_500k_{m}.json" for m in ("multi", "single")]
